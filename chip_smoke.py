@@ -8,14 +8,22 @@ Phases; any failure raises and exits nonzero:
 1. device: refuse to run without CUDA; print the card (nvidia-smi name and
    power limit) and ``torch.cuda.get_device_name``;
 2. build the CUDA kernels from ``color_modem_tpu_torch/csrc`` (TF32 off);
-3. each kernel against its plain PyTorch version on the card: NTSC at
+3. each QAM kernel against its plain PyTorch version on the card: NTSC at
    16x480 lines, PAL and NIIR at 16x576 lines, 720 samples, seeded inputs;
+3b. the shared FIR (``csrc/fir.cuh``) against ``np.convolve`` on asymmetric
+   taps, zero and held edges; each SECAM kernel against its plain version at
+   16x576x720 and 4x576x1440: encode <= 2e-4, decoded RGB <= 5e-4, and the
+   raw demodulated component's error printed;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel, agreement with the plain backend on the card
    and with the plain backend on the CPU on a small input;
-5. CUDA-event times of both kernels and of the round trip, against their
-   plain versions.
+4b. the SECAM path, encode -> interp/avg/notch decode at 16x3x576x720, the
+   same way: PSNR 38.8644/33.3755/35.3157 +- 0.02 dB, one launch of each
+   SECAM kernel per round trip, the same two agreements;
+5. CUDA-event times of the QAM kernels and of the round trip, against their
+   plain versions; 5b. the same for the SECAM kernels and the SECAM interp
+   round trip.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -32,7 +40,13 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PSNR_EXPECTED, PSNR_TOL = 46.62, 0.02
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4  # kernel vs plain (tests/test_kernels.py bounds)
+SECAM_ENC_ATOL = 2e-4  # the phase scan sums in another order than torch.cumsum
+FIR_ATOL = 1e-6        # fir.cuh vs np.convolve, taps normalised to sum |t| ~ 1
+#: SECAM round-trip PSNR of smooth_scene(576, 720, seed=0) at frame 0, as the
+#: JAX xla path computes it on the CPU; numbers of the algorithm, not the chip
+SECAM_PSNR = {"interp": 38.8644, "avg": 33.3755, "notch": 35.3157}
 BATCH, N = 16, 720
+SECAM_LINES = 576
 
 
 def _check(cond: bool, what: str) -> None:
@@ -66,6 +80,91 @@ def time_pair(plain, kernel) -> tuple[float, float]:
     return (p1 + p2) / 2, (k1 + k2) / 2
 
 
+def secam_rgb(plan, luma, v, gline, pairing="interp"):
+    """RGB from a SECAM demodulator's (luma, v): pairing, colour matrix,
+    clamp, as ``decode_block`` does after the kernel."""
+    import torch
+
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+    from color_modem_tpu_torch.modem import secam
+
+    dr, db = secam.pair(v, gline, pairing)
+    return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
+
+
+def check_fir(dev) -> float:
+    """fir.cuh through csrc/fir_check.cu against np.convolve on random
+    asymmetric taps (a mirrored FIR passes every symmetric QAM tap set)."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.kernels import fir as fk
+
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for n, ntaps in ((720, 257), (97, 31), (61, 129)):
+        taps = rng.normal(size=ntaps) / ntaps
+        x = rng.normal(size=(64, n)).astype(np.float32)
+        h = (ntaps - 1) // 2
+        for held in (False, True):
+            xp = np.pad(x.astype(np.float64), ((0, 0), (h, h)),
+                        mode="edge" if held else "constant")
+            ref = np.stack([np.convolve(r, taps, "same")[h : h + n] for r in xp])
+            got = fk.fir_lines(torch.tensor(x, device=dev),
+                               torch.tensor(taps, dtype=torch.float32, device=dev), held)
+            torch.cuda.synchronize()
+            e = float(np.abs(got.cpu().numpy() - ref).max())
+            print(f"fir.cuh vs np.convolve n={n} taps={ntaps} "
+                  f"{'held' if held else 'zero'} edge: max|err| {e:.3e} (<= {FIR_ATOL})")
+            _check(e <= FIR_ATOL, f"fir.cuh disagrees with np.convolve: {e}")
+            worst = max(worst, e)
+    return worst
+
+
+def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
+    """Both SECAM kernels against their plain versions at frames x 576 x n,
+    first frame odd.  Returns (encode, decoded RGB) max abs errors."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import SECAM
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index
+    from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    plan = make_plan(SECAM(), n).to(dev)
+    lines = SECAM_LINES
+    gline = frame_line_index(plan, 3, frames, lines, dev)
+    isr = sk.isr_col(gline)
+    scenes = np.stack([smooth_scene(lines, n, seed=s) for s in range(4)])
+    rgb = torch.tensor(scenes[np.arange(frames) % 4], dtype=torch.float32, device=dev)
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    rng = np.random.default_rng(n)
+    chroma = torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
+                          dtype=torch.float32, device=dev)
+    ycc_rand = torch.cat([ycc[:, :1], chroma], dim=1).contiguous()
+    e_enc = _max_err(sk.encode_lines(plan, ycc_rand, isr),
+                     sk.encode_lines_plain(plan, ycc_rand, isr))
+    comp = sk.encode_lines(plan, ycc, isr)
+    luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
+    luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
+    e_rgb = _max_err(secam_rgb(plan, luma_k, v_k, gline), secam_rgb(plan, luma_p, v_p, gline))
+    e_v = _max_err(v_k, v_p)
+    comp_rand = sk.encode_lines(plan, ycc_rand, isr)
+    e_v_rand = _max_err(sk.demodulate_lines(plan, comp_rand, isr)[1],
+                        sk.demodulate_lines_plain(plan, comp_rand, isr)[1])
+    torch.cuda.synchronize()
+    print(f"kernel vs plain secam {frames}x{lines}x{n}: encode max|err| {e_enc:.3e} "
+          f"(<= {SECAM_ENC_ATOL}), decode RGB max|err| {e_rgb:.3e} (<= {DEC_ATOL}); "
+          f"raw v max|err| {e_v:.3e} on the scene, {e_v_rand:.3e} on random chroma "
+          f"(reported, not bounded)")
+    _check(e_enc <= SECAM_ENC_ATOL, f"secam encode kernel disagrees: {e_enc}")
+    _check(e_rgb <= DEC_ATOL, f"secam decode kernel disagrees: {e_rgb}")
+    return e_enc, e_rgb
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -75,9 +174,10 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test runs only on a CUDA GPU")
     sys.path.insert(0, REPO)
-    from color_modem_tpu_torch import NIIR, NTSC, PAL
+    from color_modem_tpu_torch import NIIR, NTSC, PAL, SECAM
     from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
     from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.kernels import secam as sk
     from color_modem_tpu_torch.kernels.build import load_library
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
@@ -129,6 +229,14 @@ def main() -> None:
         max_err["qam_encode"] = max(max_err["qam_encode"], e_enc)
         max_err["qam_decode"] = max(max_err["qam_decode"], e_dec)
 
+    # --- 3b. shared FIR and SECAM kernels vs plain on the card -------------
+    check_fir(dev)
+    max_err["secam_encode"], max_err["secam_decode"] = 0.0, 0.0
+    for frames, n in ((BATCH, N), (4, 2 * N)):
+        e_enc, e_rgb = check_secam_kernels(dev, frames, n)
+        max_err["secam_encode"] = max(max_err["secam_encode"], e_enc)
+        max_err["secam_decode"] = max(max_err["secam_decode"], e_rgb)
+
     # --- 4. main path -------------------------------------------------------
     plan = make_plan(NTSC(), N)
     lines = plan.cfg.active_lines
@@ -164,6 +272,43 @@ def main() -> None:
           f"max|err| {e_cpu:.3e} (<= {DEC_ATOL})")
     _check(e_cpu <= DEC_ATOL, f"card and CPU round trips disagree: {e_cpu}")
 
+    # --- 4b. the SECAM path ---------------------------------------------------
+    srgb = torch.tensor(
+        np.broadcast_to(smooth_scene(SECAM_LINES, N, seed=0), (BATCH, 3, SECAM_LINES, N)),
+        dtype=torch.float32, device=dev)
+    for decoder, expected in SECAM_PSNR.items():
+        _, _, rt_k = make_pipeline(make_plan(SECAM(), N), decoder, backend="kernel",
+                                   device=dev)
+        sk.reset_launches()
+        out = rt_k(srgb, 0)
+        torch.cuda.synchronize()
+        got = dict(sk.LAUNCHES)
+        print(f"secam {decoder} path launches: {got}")
+        _check(got == {"secam_encode": 1, "secam_decode": 1},
+               f"one SECAM round trip must launch each kernel once: {got}")
+        _check(tuple(out.shape) == (BATCH, 3, SECAM_LINES, N),
+               f"secam output shape {tuple(out.shape)}")
+        _check(bool(torch.isfinite(out).all()), "non-finite secam output")
+        q = psnr(out, srgb)
+        print(f"secam {decoder} {BATCH}x3x{SECAM_LINES}x{N}: psnr {q:.4f} dB "
+              f"(expected {expected} +- {PSNR_TOL})")
+        _check(abs(q - expected) <= PSNR_TOL, f"secam {decoder} round-trip PSNR {q} dB")
+        _, _, rt_p = make_pipeline(make_plan(SECAM(), N), decoder, backend="plain",
+                                   device=dev)
+        e_rt = _max_err(out, rt_p(srgb, 0))
+        _, _, rt_c = make_pipeline(make_plan(SECAM(), N), decoder, backend="plain",
+                                   device="cpu")
+        small = srgb[:2, :, :64]
+        e_cpu = _max_err(rt_k(small, 7).cpu(), rt_c(small.cpu(), 7))
+        print(f"secam {decoder} kernel vs plain backend on the card: max|err| {e_rt:.3e}; "
+              f"small input (2x3x64x{N}) kernel on the card vs plain on the CPU: "
+              f"{e_cpu:.3e} (each <= {DEC_ATOL})")
+        _check(e_rt <= DEC_ATOL, f"secam kernel and plain round trips disagree: {e_rt}")
+        _check(e_cpu <= DEC_ATOL, f"secam card and CPU round trips disagree: {e_cpu}")
+        if decoder == "interp":
+            launches.update(got)
+            srt_kernel, srt_plain = rt_k, rt_p
+
     # --- 5. timing ------------------------------------------------------------
     mpix = BATCH * lines * N / 1e6
     gline = frame_line_index(plan, 0, BATCH, lines, dev)
@@ -186,16 +331,39 @@ def main() -> None:
               f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
               f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
 
+    # --- 5b. SECAM timing -----------------------------------------------------
+    splan = make_plan(SECAM(), N).to(dev)
+    mpix = BATCH * SECAM_LINES * N / 1e6
+    with torch.inference_mode():
+        ycc = apply_mat3(splan.rgb_to_ycc, srgb).contiguous()
+        isr = sk.isr_col(frame_line_index(splan, 0, BATCH, SECAM_LINES, dev))
+        comp = sk.encode_lines(splan, ycc, isr)
+        stimes = {
+            "secam_encode": time_pair(lambda: sk.encode_lines_plain(splan, ycc, isr),
+                                      lambda: sk.encode_lines(splan, ycc, isr)),
+            "secam_decode": time_pair(lambda: sk.demodulate_lines_plain(splan, comp, isr),
+                                      lambda: sk.demodulate_lines(splan, comp, isr)),
+            "secam_roundtrip": time_pair(lambda: srt_plain(srgb, 0),
+                                         lambda: srt_kernel(srgb, 0)),
+        }
+    for name, (p_ms, k_ms) in stimes.items():
+        print(f"time {name} {BATCH}x{SECAM_LINES}x{N} on {card}: kernel {k_ms:.4f} ms "
+              f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
+              f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
+    times.update(stimes)
+
     _check("jax" not in sys.modules, "the port loaded jax")
     replaces = {"qam_encode": "color_modem_tpu/kernels/qam.py:85",
-                "qam_decode": "color_modem_tpu/kernels/qam.py:129"}
+                "qam_decode": "color_modem_tpu/kernels/qam.py:129",
+                "secam_encode": "color_modem_tpu/kernels/secam.py:118",
+                "secam_decode": "color_modem_tpu/kernels/secam.py:231"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"color_modem_tpu_torch/csrc/{name}.cu",
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[name][1],
          "plain_ms": times[name][0]}
-        for name in ("qam_encode", "qam_decode")
+        for name in replaces
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

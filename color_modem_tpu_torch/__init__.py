@@ -10,10 +10,11 @@ package it reads only the NumPy-only modules ``standards``,
 Layout mirrors the JAX package:
 
 - ``dsp/``       host FIR design (NumPy f64), the int32 NCO phase law,
-                 colorimetry, the plain Toeplitz FIR
-- ``modem/``     ``QamPlan`` (an ``nn.Module`` of float32 buffers) and the
-                 plain QAM modem functions
-- ``separate/``  line stencils (reflected edges) and the notch/comb split
+                 colorimetry, the plain Toeplitz FIRs (zero and held edges)
+- ``modem/``     ``QamPlan`` and ``FmPlan`` (``nn.Module``s of float32
+                 buffers) and the plain QAM and SECAM modem functions
+- ``separate/``  line stencils (reflected edges), the notch/comb split and
+                 chroma averaging
 - ``kernels/``   wrappers of the CUDA kernels in ``csrc/``, each with its
                  plain PyTorch version and a launch counter; ``build.py``
                  compiles ``csrc/*.cu`` with ``nvcc`` at first use

@@ -1,8 +1,10 @@
-// Shared pieces of the QAM kernels: line staging and a direct 'same' FIR.
+// Shared pieces of the kernels: line staging and a direct 'same' FIR.
 //
-// A line of N samples is staged in shared memory with a zero halo of
-// half = (T-1)/2 samples on each side, so the FIR needs no bounds checks and
-// treats samples outside the line as zero, like np.convolve(mode='same').
+// A line of N samples is staged in shared memory with a halo of
+// half = (T-1)/2 samples on each side, so the FIR needs no bounds checks.
+// A zero halo treats samples outside the line as zero, like
+// np.convolve(mode='same'); a held halo repeats the edge sample, like
+// np.convolve on np.pad(mode='edge') (the SECAM baseband filters).
 // The taps are staged reversed and zero-padded to a multiple of 4.  Each
 // thread computes kOut = 4 neighbouring outputs; per 4 taps it reads one
 // float4 of samples (conflict-free: a warp's 32 float4s are 4 full
@@ -14,9 +16,14 @@
 namespace cm {
 
 constexpr int kThreads = 192;  // 6 warps; 180 groups of 4 cover a 720-sample line
+// the SECAM kernels: 204 groups of 4 cover the 816-sample extended line of
+// the 720-sample plan in one pass (192 threads would need a second, nearly
+// empty one)
+constexpr int kThreadsWide = 256;
 constexpr int kOut = 4;        // outputs per thread per group (one float4)
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
+__host__ __device__ inline bool odd_taps(int t) { return t > 0 && t % 2 == 1; }
 __host__ __device__ inline int n_groups(int n) { return (n + kOut - 1) / kOut; }
 
 // Staged line length: the groups' span, both halos, and the float4 slack the
@@ -33,6 +40,20 @@ __device__ inline void stage_line(float* xs, const float* __restrict__ x, int n,
     const int s = i - half;
     xs[i] = (s >= 0 && s < n) ? x[s] : 0.0f;
   }
+}
+
+// xs[i] = x[clamp(i - half, 0, n - 1)] for i < len: the held edge.
+__device__ inline void stage_line_held(float* xs, const float* __restrict__ x,
+                                       int n, int half, int len) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    xs[i] = x[min(max(i - half, 0), n - 1)];
+}
+
+// xs[i] = 0 outside the interior [half, half + n), for i < len: re-stages a
+// buffer whose interior the caller writes next.
+__device__ inline void zero_halo(float* xs, int n, int half, int len) {
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    if (i < half || i >= half + n) xs[i] = 0.0f;
 }
 
 // tr[m] = taps[ntaps - 1 - m] for m < ntaps, 0 up to round4(ntaps).

@@ -1,10 +1,12 @@
 """Plain FIR application: a 'same' linear convolution as a Toeplitz matmul.
 
 ``x @ M`` with the ``(N, N)`` banded Toeplitz matrix of the taps equals
-``np.convolve(line, taps, 'same')`` per line, with zero-padded edges.  This
-is the plain version the CUDA kernels are held against; the kernels compute
-the same sum directly over the taps (``csrc/fir.cuh``).  Port of
-``color_modem_tpu/dsp/apply.py`` (``toeplitz_same``, ``fir_same``).
+``np.convolve(line, taps, 'same')`` per line, with zero-padded edges.  The
+held-edge variant folds ``np.pad(mode='edge')`` into the matrix.  These are
+the plain versions the CUDA kernels are held against; the kernels compute
+the same sums directly over the taps (``csrc/fir.cuh``).  Port of
+``color_modem_tpu/dsp/apply.py`` (``toeplitz_same``, ``toeplitz_same_held``,
+``fir_same``, ``fir_same_held``).
 """
 
 from __future__ import annotations
@@ -13,6 +15,12 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def _frozen_f32(mat: np.ndarray) -> np.ndarray:
+    mat = mat.astype(np.float32)
+    mat.flags.writeable = False  # the cache hands the same array to every caller
+    return mat
 
 
 @lru_cache(maxsize=64)
@@ -26,9 +34,7 @@ def _toeplitz_cached(taps_bytes: bytes, t: int, n: int) -> np.ndarray:
         d = half - k  # x index offset
         col = np.arange(max(0, -d), min(n, n - d))
         mat[col + d, col] = taps[k]
-    mat = mat.astype(np.float32)
-    mat.flags.writeable = False  # the cache hands the same array to every caller
-    return mat
+    return _frozen_f32(mat)
 
 
 def toeplitz_same(taps, n: int) -> np.ndarray:
@@ -37,7 +43,40 @@ def toeplitz_same(taps, n: int) -> np.ndarray:
     return _toeplitz_cached(taps.tobytes(), len(taps), n)
 
 
+@lru_cache(maxsize=64)
+def _toeplitz_held_cached(taps_bytes: bytes, t: int, n: int, nv: int) -> np.ndarray:
+    taps = np.frombuffer(taps_bytes, dtype=np.float64)
+    half = (t - 1) // 2
+    mat = np.zeros((n, n), dtype=np.float64)
+    j = np.arange(nv)
+    # out[j] = sum_k taps[k] * x[clip(j + half - k, 0, nv-1)]
+    for k in range(t):
+        src = np.clip(j + half - k, 0, nv - 1)
+        np.add.at(mat, (src, j), taps[k])
+    return _frozen_f32(mat)
+
+
+def toeplitz_same_held(taps, n: int, n_valid: int | None = None) -> np.ndarray:
+    """(N, N) float32 matrix M with ``x @ M`` the held-edge 'same'
+    convolution: taps that fall outside the line read the edge sample
+    instead of zero.  ``n_valid`` < n restricts the outputs and the held
+    edge to the first ``n_valid`` columns."""
+    taps = np.asarray(taps, dtype=np.float64)
+    return _toeplitz_held_cached(taps.tobytes(), len(taps), n, n_valid or n)
+
+
 def fir_same(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """Convolve the last axis of ``x`` (..., N) with the filter whose
     :func:`toeplitz_same` matrix is ``mat``, in float32."""
+    return torch.matmul(x, mat)
+
+
+def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Held-edge 'same' convolution, ``mat`` from :func:`toeplitz_same_held`.
+
+    The boundary rule of baseband signals: the analog line continues
+    through blanking at about its edge value, so a zero edge would put a
+    full-scale step through the long SECAM emphasis filters.  Carrier-band
+    filters keep the zero edge of :func:`fir_same`.
+    """
     return torch.matmul(x, mat)

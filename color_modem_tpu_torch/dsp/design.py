@@ -1,10 +1,12 @@
 """Config-time FIR design — NumPy float64, runs once per plan.
 
-Port of the two windowed-sinc designs of ``color_modem_tpu/dsp/design.py``
-that the QAM family needs.  The arithmetic is the same NumPy code, so the
-taps are bit-identical to the JAX package's (tests/test_torch_plan.py).
-The SECAM frequency-sampled designs are still to port (ROADMAP.md queue 1
-item 4).
+Port of ``color_modem_tpu/dsp/design.py``: the windowed-sinc low/band-pass
+designs of the QAM family, and the frequency-sampled designs of SECAM
+(pre-/de-emphasis, anti-cloche and cloche, the band mask, the
+differentiator).  The SECAM responses have intrinsic phase, so their taps
+are asymmetric (the differentiator's antisymmetric).  The arithmetic is the
+same NumPy code, so the taps are bit-identical to the JAX package's
+(tests/test_torch_plan.py).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 DEFAULT_NTAPS = 129
+DESIGN_NFFT = 8192
 
 
 def _check_odd(ntaps: int) -> None:
@@ -44,3 +47,115 @@ def bandpass_taps(
     w = 2.0 * np.pi * fc / fs
     gain = np.abs(np.sum(h * np.exp(-1j * w * np.arange(ntaps))))
     return h / gain
+
+
+def tukey(ntaps: int, alpha: float = 0.7) -> np.ndarray:
+    """Tukey window: flat over the central ``alpha`` fraction, cosine edges.
+
+    The SECAM pre-emphasis shelf has an exponential tail about 40 samples
+    long at 13.5 MHz; a Hann window would attenuate it enough to shift the
+    DC gain by about 15%, the flat centre leaves it untouched.
+    """
+    x = np.abs(np.arange(ntaps, dtype=np.float64) - (ntaps - 1) / 2.0)
+    x /= (ntaps - 1) / 2.0
+    w = np.ones(ntaps)
+    edge = x > alpha
+    w[edge] = 0.5 * (1.0 + np.cos(np.pi * (x[edge] - alpha) / (1.0 - alpha)))
+    return w
+
+
+def freq_sampled_taps(
+    fs: float,
+    response,
+    ntaps: int = DEFAULT_NTAPS,
+    nfft: int = DESIGN_NFFT,
+) -> np.ndarray:
+    """FIR approximation of an arbitrary Hermitian response ``H(f)``.
+
+    ``response(f_hz) -> complex`` is sampled on the dense rfft grid,
+    inverse-transformed, centred at ``(ntaps-1)//2`` (so the 'same'
+    application is delay-free), Tukey-windowed and truncated.  Only
+    Hermitian symmetry is assumed, not linear phase.  The grid widens while
+    ``nfft < 4 * ntaps``: a long FIR exists to realise structure finer than
+    the default grid's fs/8192, and a coarse grid would alias its tail.
+    """
+    _check_odd(ntaps)
+    while nfft < 4 * ntaps:
+        nfft *= 2
+    freqs = np.fft.rfftfreq(nfft, d=1.0 / fs)
+    H = np.asarray(response(freqs), dtype=np.complex128)
+    h_full = np.fft.irfft(H, n=nfft)
+    # roll the negative-time half to the front, cut a centred window
+    half = (ntaps - 1) // 2
+    h = np.concatenate([h_full[-half:], h_full[: half + 1]])
+    h *= tukey(ntaps)
+    return h
+
+
+def differentiator_taps(
+    fs: float, ntaps: int = 31, taper_start: float = 0.65
+) -> np.ndarray:
+    """FIR d/dn: frequency-sampled ``H(w) = j*w`` with a raised-cosine taper
+    from ``taper_start`` x Nyquist to Nyquist against HF noise gain.  The
+    SECAM quadrature discriminator's derivative."""
+
+    def resp(f):
+        w = 2.0 * np.pi * f / fs
+        taper = np.ones_like(f)
+        f_nyq = fs / 2.0
+        f0 = taper_start * f_nyq
+        ramp = (f - f0) / (f_nyq - f0)
+        taper = np.where(
+            f > f0, 0.5 * (1.0 + np.cos(np.pi * np.clip(ramp, 0.0, 1.0))), taper
+        )
+        return 1j * w * taper
+
+    return freq_sampled_taps(fs, resp, ntaps=ntaps)
+
+
+# --- SECAM transfer functions ------------------------------------------------
+
+
+def secam_preemph_response(f, f1: float):
+    """LF video pre-emphasis A(f) = (1 + jf/f1) / (1 + jf/(3 f1))."""
+    f = np.asarray(f, dtype=np.float64)
+    return (1.0 + 1j * f / f1) / (1.0 + 1j * f / (3.0 * f1))
+
+
+def secam_deemph_response(f, f1: float):
+    """Decoder de-emphasis: exact inverse of :func:`secam_preemph_response`."""
+    f = np.asarray(f, dtype=np.float64)
+    return (1.0 + 1j * f / (3.0 * f1)) / (1.0 + 1j * f / f1)
+
+
+def _bell_F(f, f0: float):
+    f = np.asarray(f, dtype=np.float64)
+    fsafe = np.where(np.abs(f) < 1.0, 1.0, f)  # F(0) limit handled below
+    F = fsafe / f0 - f0 / fsafe
+    return np.where(np.abs(f) < 1.0, -1e9, F)  # f->0+ => F -> -inf
+
+
+def secam_anticloche_response(f, f0: float, m0: float, k_num: float, k_den: float):
+    """HF amplitude pre-emphasis G(f) = M0 (1 + j k_num F)/(1 + j k_den F)."""
+    F = _bell_F(f, f0)
+    return m0 * (1.0 + 1j * k_num * F) / (1.0 + 1j * k_den * F)
+
+
+def secam_cloche_response(f, f0: float, m0: float, k_num: float, k_den: float):
+    """Decoder bell ("cloche"): the anti-cloche's inverse shape, unity gain
+    at f0: H = (1 + j k_den F)/(1 + j k_num F)."""
+    F = _bell_F(f, f0)
+    return (1.0 + 1j * k_den * F) / (1.0 + 1j * k_num * F)
+
+
+def raised_cosine_bandpass_response(f, f_lo, f_hi, transition):
+    """Smooth 0/1 band-pass mask with raised-cosine edges (real, zero-phase)."""
+    f = np.abs(np.asarray(f, dtype=np.float64))
+
+    def edge(x):  # 0 below 0, 1 above 1, smooth in between
+        x = np.clip(x, 0.0, 1.0)
+        return 0.5 * (1.0 - np.cos(np.pi * x))
+
+    lo = edge((f - (f_lo - transition)) / transition)
+    hi = 1.0 - edge((f - f_hi) / transition)
+    return lo * hi

@@ -2,10 +2,11 @@
 ``ctypes``.
 
 The library has a plain C interface (no PyTorch headers), so a build takes
-seconds.  It goes to ``color_modem_tpu_torch/build/`` (git-ignored), named
-by a hash of the sources and flags: an edited source builds anew, an
-unchanged one loads what is there.  There is no fallback: without ``nvcc``
-or with a failing build, :func:`load_library` raises.
+seconds: one ``nvcc -c`` per source, all started together, then one link.
+It goes to ``color_modem_tpu_torch/build/`` (git-ignored), named by a hash
+of the sources and flags: an edited source builds anew, an unchanged one
+loads what is there.  There is no fallback: without ``nvcc`` or with a
+failing build, :func:`load_library` raises.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from functools import lru_cache
 from pathlib import Path
 
@@ -22,10 +24,10 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 
-#: no --use_fast_math: the kernels need IEEE sincosf and division
+#: no --use_fast_math: the kernels need IEEE sincosf, cosf and division
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,6 +39,17 @@ SIGNATURES = {
     # sep, comp, cols, ramp_cos, ramp_sin, bpf, taps1, taps2, out,
     # n_lines, lines_per_group, n, ntaps, stream
     "qam_decode": (_P,) * 9 + (_I,) * 4 + (_P,),
+    # ycc, isr, ramp, comp_lpf, preemph, anticloche, out,
+    # n_lines, lines_per_group, n, nt_lpf, nt_pre, nt_anti,
+    # f0r_c, f0b_c, devr_c, devb_c, stream
+    "secam_encode": (_P,) * 7 + (_I,) * 6 + (_F,) * 4 + (_P,),
+    # comp, isr, margin_carrier, mixcos, mixsin, bell_takeoff, luma_notch,
+    # mix_lpf, diff, deemph, demod_lpf, luma_out, v_out,
+    # n_lines, n, margin, luma_est, nt_band, nt_mix, nt_diff, nt_de, nt_dm,
+    # fc, fs/2pi, f0r, f0b, devr, devb, stream
+    "secam_decode": (_P,) * 13 + (_I,) * 9 + (_F,) * 6 + (_P,),
+    # x, taps, out, n_lines, n, ntaps, held, stream
+    "fir_check": (_P,) * 3 + (_I,) * 4 + (_P,),
 }
 
 
@@ -66,6 +79,10 @@ def _sources() -> tuple[list[Path], str]:
     return [f for f in files if f.suffix == ".cu"], h.hexdigest()[:16]
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    return subprocess.run(cmd, capture_output=True, text=True)
+
+
 def build() -> Path:
     """Compile the library unless a build of these exact sources exists."""
     cu_files, digest = _sources()
@@ -73,17 +90,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    # private name, then an atomic rename: concurrent builders never load a
+    nvcc = find_nvcc()
+    # private names, then an atomic rename: concurrent builders never load a
     # half-written library
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{f.stem}.{tag}.o" for f in cu_files]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu_files)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+                for f, o in zip(cu_files, objs)]
+    try:
+        with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
+            results = list(pool.map(_run, compiles))
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        failed = [(c, r) for c, r in zip(compiles, results) if r.returncode != 0]
+        if not failed:
+            res = _run(link)
+            if res.returncode != 0:
+                failed = [(link, res)]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"({r.returncode}) {' '.join(c)}\n{r.stderr}" for c, r in failed
+            ))
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}): {' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out
 
 

@@ -1,1 +1,1 @@
-"""Modem layer: the QAM plan and the plain QAM encode/demodulate functions."""
+"""Modem layer: the plans and the plain QAM and SECAM modem functions."""

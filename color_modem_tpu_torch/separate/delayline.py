@@ -1,0 +1,18 @@
+"""Chroma averaging over adjacent lines (the 'avg' wrapper).
+
+Port of ``color_modem_tpu/separate/delayline.py``.  The first line pairs
+with the next one, as in the golden oracle's ``_neighbor``.  SECAM 'avg'
+applies it to the assembled D'R/D'B planes; the QAM delay-line decoders
+that also use it are not ported yet (ROADMAP.md queue 1 item 3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from color_modem_tpu_torch.separate.stencil import prev_reflect
+
+
+def average_with_neighbor(c: torch.Tensor) -> torch.Tensor:
+    """c'[..., l, :] = (c[l] + c[neighbor(l)]) / 2 along the line axis."""
+    return 0.5 * (c + prev_reflect(c, 1))

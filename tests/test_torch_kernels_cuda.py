@@ -6,16 +6,23 @@ no JAX, run them without the JAX test configuration:
 
     python -m pytest tests/test_torch_kernels_cuda.py -q --noconftest
 
-Bounds are chip_smoke.py's: 2e-5 on encode, 5e-4 on decode.
+Bounds are chip_smoke.py's: 2e-5 on QAM encode, 2e-4 on SECAM encode (the
+phase scan sums in another order than ``torch.cumsum``), 5e-4 on decode
+(SECAM: on the decoded RGB, since the discriminator divides by the
+takeoff's amplitude and the raw component error depends on the input).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from color_modem_tpu_torch import ALL_STANDARDS
+from color_modem_tpu_torch import ALL_STANDARDS, SECAM
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
 from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+from color_modem_tpu_torch.kernels import fir as fk
 from color_modem_tpu_torch.kernels import qam as qk
+from color_modem_tpu_torch.kernels import secam as sk
+from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import make_plan
 from color_modem_tpu_torch.separate.comb import stencil_signal
 from color_modem_tpu_torch.utils.metrics import psnr
@@ -24,6 +31,7 @@ from color_modem_tpu_torch.utils.testimages import smooth_scene
 pytestmark = pytest.mark.cuda
 
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4
+SECAM_ENC_ATOL = 2e-4
 
 
 @pytest.fixture(scope="module")
@@ -93,3 +101,77 @@ def test_wrappers_reject_bad_cuda_input(dev):
         qk.encode_lines(plan, ycc.double(), cols)
     with pytest.raises(ValueError, match="plan is on"):
         qk.encode_lines(plan.to("cpu"), ycc, cols)
+
+
+@pytest.mark.parametrize("held", [False, True])
+@pytest.mark.parametrize("n,ntaps", [(97, 31), (720, 257), (61, 129)])
+def test_fir_orientation_on_asymmetric_taps(dev, n, ntaps, held):
+    """csrc/fir.cuh alone against np.convolve(mode='same') on random
+    asymmetric taps: a mirrored or shifted FIR fails here, where symmetric
+    QAM taps cannot tell.  (61, 129): taps longer than the line."""
+    rng = np.random.default_rng(ntaps)
+    taps = rng.normal(size=ntaps) / ntaps
+    x = rng.normal(size=(7, n)).astype(np.float32)
+    h = (ntaps - 1) // 2
+    xp = [np.pad(r.astype(np.float64), h, mode="edge" if held else "constant")
+          for r in x]
+    ref = np.stack([np.convolve(r, taps, "same")[h : h + n] for r in xp])
+    fk.LAUNCHES["fir_check"] = 0
+    got = fk.fir_lines(torch.tensor(x, device=dev),
+                       torch.tensor(taps, dtype=torch.float32, device=dev), held)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fir_check"] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref, atol=1e-6)
+
+
+def _secam_rgb(plan, luma, v, gline, pairing="interp"):
+    dr, db = secam.pair(v, gline, pairing)
+    return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
+
+
+def _secam_kernel_vs_plain(dev, frames, lines, n, frame0=3):
+    plan = make_plan(SECAM(), n).to(dev)
+    gline = frame_line_index(plan, frame0, frames, lines, dev)
+    isr = sk.isr_col(gline)
+    rng = np.random.default_rng(n)
+    rgb = np.stack([smooth_scene(lines, n, seed=s) for s in range(frames)])
+    rgb = torch.tensor(rgb, dtype=torch.float32, device=dev)
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb)
+    chroma = rng.uniform(-0.6, 0.6, (frames, 2, lines, n))
+    ycc_rand = torch.cat([ycc[:, :1], torch.tensor(chroma, dtype=torch.float32,
+                                                   device=dev)], dim=1).contiguous()
+    sk.reset_launches()
+    comp_k = sk.encode_lines(plan, ycc_rand, isr)
+    comp_p = sk.encode_lines_plain(plan, ycc_rand, isr)
+    comp = sk.encode_lines_plain(plan, ycc.contiguous(), isr)
+    luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
+    luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    assert float((comp_k - comp_p).abs().max()) <= SECAM_ENC_ATOL
+    e_rgb = float((_secam_rgb(plan, luma_k, v_k, gline)
+                   - _secam_rgb(plan, luma_p, v_p, gline)).abs().max())
+    assert e_rgb <= DEC_ATOL
+    assert float((luma_k - luma_p).abs().max()) <= DEC_ATOL
+
+
+@pytest.mark.parametrize("frames,lines,n", [(4, 576, 720), (2, 576, 1440), (3, 27, 722),
+                                            (1, 8, 2160)])
+def test_secam_kernels_match_plain(dev, frames, lines, n):
+    """720 and 1440 are the plans; 722 is not a multiple of the groups of 4;
+    2160 needs more than 48 KB of shared memory in the decoder (the launch's
+    opt-in)."""
+    _secam_kernel_vs_plain(dev, frames, lines, n)
+
+
+def test_secam_roundtrip_one_launch_each(dev):
+    plan = make_plan(SECAM(), 720)
+    one = smooth_scene(576, 720, seed=0)
+    rgb = torch.tensor(np.broadcast_to(one, (16, 3, 576, 720)), dtype=torch.float32,
+                       device=dev)
+    _, _, rt = make_pipeline(plan, "interp", backend="kernel", device=dev)
+    sk.reset_launches()
+    out = rt(rgb, 0)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    assert abs(psnr(out, rgb) - 38.8644) <= 0.02

@@ -111,15 +111,20 @@ def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import sys
         import numpy as np
-        from color_modem_tpu_torch import NTSC
+        from color_modem_tpu_torch import NTSC, SECAM
         from color_modem_tpu_torch.frame.pipeline import make_pipeline
+        from color_modem_tpu_torch.kernels import build, fir, qam, secam as secam_k
+        from color_modem_tpu_torch.modem import secam
         from color_modem_tpu_torch.modem.plan import make_plan
+        from color_modem_tpu_torch.separate import delayline
         from color_modem_tpu_torch.utils.metrics import psnr
         from color_modem_tpu_torch.utils.testimages import smooth_scene
         import torch
         rgb = torch.tensor(smooth_scene(16, 720, seed=0)[None], dtype=torch.float32)
         _, _, rt = make_pipeline(make_plan(NTSC(), 720), "comb3", "kernel", device="cpu")
         assert psnr(rt(rgb, 0), rgb) > 30.0
+        _, _, rt = make_pipeline(make_plan(SECAM(), 720), "avg", "kernel", device="cpu")
+        assert psnr(rt(rgb, 1), rgb) > 25.0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
     """)
