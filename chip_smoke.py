@@ -21,9 +21,19 @@ Phases; any failure raises and exits nonzero:
 4b. the SECAM path, encode -> interp/avg/notch decode at 16x3x576x720, the
    same way: PSNR 38.8644/33.3755/35.3157 +- 0.02 dB, one launch of each
    SECAM kernel per round trip, the same two agreements;
+4c. the rest of the QAM family at full width (16 frames, 576 or 480 lines,
+   720 samples): PAL/PAL-M/PAL-N/PAL-60, NIIR, NTSC-4.43 and the temporal
+   and adaptive combs, each round trip's PSNR +- 0.02 dB, its launches
+   (combA/comb3dA separate outside the decode kernel, as in the JAX
+   package: 0 decode launches), the same two agreements;
+4d. the raster and channel layers: sync/burst raster identities, channel
+   phase and gain errors decoded nominally, burst-locked, with ACC and with
+   PAL ident, and NIIR's reference normalisation against NTSC, each PSNR
+   +- 0.02 dB;
 5. CUDA-event times of the QAM kernels and of the round trip, against their
    plain versions; 5b. the same for the SECAM kernels and the SECAM interp
-   round trip.
+   round trip; 5c. the QAM kernels at PAL and NIIR shapes (the shared-filter
+   case) and the PAL delayline and NIIR avg round trips.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -47,6 +57,37 @@ FIR_ATOL = 1e-6        # fir.cuh vs np.convolve, taps normalised to sum |t| ~ 1
 SECAM_PSNR = {"interp": 38.8644, "avg": 33.3755, "notch": 35.3157}
 BATCH, N = 16, 720
 SECAM_LINES = 576
+#: phase 4c: (standard, decoder) -> (round-trip PSNR, (encode, decode)
+#: launches); smooth_scene(L, 720, seed=0) broadcast to 16 frames, frame 0,
+#: as the JAX xla path computes it on the CPU
+QAM_FAMILY = {
+    ("pal", "delayline"): (37.9984, (1, 1)),
+    ("pal", "comb3"): (41.5629, (1, 1)),
+    ("niir", "notch"): (35.0172, (1, 1)),
+    ("niir", "avg"): (33.1777, (1, 1)),
+    ("ntsc", "comb3d"): (47.4153, (1, 1)),
+    ("ntsc", "combA"): (45.5145, (1, 0)),
+    ("pal", "comb3dA"): (47.8284, (1, 0)),
+    ("ntsc443", "notch"): (40.8535, (1, 1)),
+    ("pal60", "delayline"): (38.0900, (1, 1)),
+    ("pal_m", "comb3"): (41.6066, (1, 1)),
+    ("pal_n", "comb3"): (41.5596, (1, 1)),
+}
+#: phase 4d: PSNR of each channel check, the same input and reference
+CHANNEL_PSNR = {
+    "ntsc notch rastered, 25 deg: nominal": 27.3564,
+    "ntsc notch rastered, 25 deg: burst-locked": 39.4822,
+    "ntsc comb3 rastered, 25 deg: nominal": 27.6212,
+    "ntsc comb3 rastered, 25 deg: burst-locked": 44.7578,
+    "ntsc notch rastered, gain 0.5: nominal": 27.6220,
+    "ntsc notch rastered, gain 0.5: burst-locked acc": 38.3355,
+    "pal delayline rastered, 20 deg: nominal": 36.9924,
+    "pal delayline rastered, 20 deg: burst-locked": 37.9350,
+    "pal delayline rastered, 20 deg: identified on gline + 1": 37.9350,
+    "niir notch, 25 deg gain 0.6": 34.7814,
+    "niir avg, 25 deg gain 0.6": 33.0220,
+    "ntsc notch, 25 deg gain 0.6": 26.7242,
+}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -163,6 +204,201 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     _check(e_enc <= SECAM_ENC_ATOL, f"secam encode kernel disagrees: {e_enc}")
     _check(e_rgb <= DEC_ATOL, f"secam decode kernel disagrees: {e_rgb}")
     return e_enc, e_rgb
+
+
+def full_scene(lines: int, dev):
+    """smooth_scene(lines, N, seed=0) broadcast to BATCH frames on ``dev``."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    return torch.tensor(np.broadcast_to(smooth_scene(lines, N, seed=0), (BATCH, 3, lines, N)),
+                        dtype=torch.float32, device=dev)
+
+
+def check_qam_path(dev, name: str, decoder: str, expected: float,
+                   launches: tuple[int, int]):
+    """One QAM-family round trip at BATCH x 3 x L x N through the kernel
+    backend (PSNR, launches, shape, finite values), against the plain
+    backend on the card and on the CPU, stage by stage: the encodes on the
+    same RGB (<= ENC_ATOL), the decodes on the same composite (<= DEC_ATOL),
+    and the round trips (<= DEC_ATOL).
+
+    combA/comb3dA: the round-trip difference is printed, not bounded.  Their
+    blend weights divide by smoothed energies, and the smoother
+    (``comb_sel_lpf``) has negative lobes, so a denominator can cross zero
+    and turn a 1e-7 difference between two encodes into 1e-2 on a few
+    samples (the JAX package's own xla and Pallas round trips differ so).
+    Their decode runs the same plain code on both backends.  Returns the
+    kernel and plain round trips."""
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.separate.comb import ADAPTIVE, temporal_comb_spacing
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    cfg = ALL_STANDARDS[name]()
+    lines = cfg.active_lines
+    rgb = full_scene(lines, dev)
+    label = f"{name} {decoder} {BATCH}x3x{lines}x{N}"
+    enc_k, dec_k, rt_k = make_pipeline(make_plan(cfg, N), decoder, "kernel", dev)
+    qk.reset_launches()
+    out = rt_k(rgb, 0)
+    torch.cuda.synchronize()
+    got = dict(qk.LAUNCHES)
+    want = {"qam_encode": launches[0], "qam_decode": launches[1]}
+    _check(got == want, f"{label}: launches {got}, expected {want}")
+    _check(tuple(out.shape) == tuple(rgb.shape), f"{label}: output shape {tuple(out.shape)}")
+    _check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    q = psnr(out, rgb)
+    print(f"{label}: psnr {q:.4f} dB (expected {expected} +- {PSNR_TOL}), launches {got}")
+    _check(abs(q - expected) <= PSNR_TOL, f"{label}: round-trip PSNR {q} dB")
+
+    frames = 2 * temporal_comb_spacing(cfg) if decoder in ("comb3d", "comb3dA") else 2
+    small = rgb[:frames, :, :64]
+    for where, x, frame0, ref_dev in (("the card", rgb, 0, dev), ("the CPU", small, 7, "cpu")):
+        enc_p, dec_p, rt_p = make_pipeline(make_plan(cfg, N), decoder, "plain", ref_dev)
+        comp = enc_k(x, frame0)
+        e_enc = _max_err(comp.cpu(), enc_p(x.to(ref_dev), frame0).cpu())
+        e_dec = _max_err(dec_k(comp, frame0).cpu(), dec_p(comp.to(ref_dev), frame0).cpu())
+        e_rt = _max_err(rt_k(x, frame0).cpu(), rt_p(x.to(ref_dev), frame0).cpu())
+        bounded = decoder not in ADAPTIVE
+        print(f"{label}: kernel backend on the card vs plain backend on {where} "
+              f"({tuple(x.shape)}): encode max|err| {e_enc:.3e} (<= {ENC_ATOL}), decode of "
+              f"one composite {e_dec:.3e} (<= {DEC_ATOL}), round trip {e_rt:.3e} "
+              + (f"(<= {DEC_ATOL})" if bounded else "(reported: the adaptive blend)"))
+        _check(e_enc <= ENC_ATOL, f"{label}: encodes disagree on {where}: {e_enc}")
+        _check(e_dec <= DEC_ATOL, f"{label}: decodes disagree on {where}: {e_dec}")
+        _check(e_rt <= DEC_ATOL or not bounded,
+               f"{label}: round trips disagree on {where}: {e_rt}")
+        if where == "the card":
+            rt_plain = rt_p
+    return rt_k, rt_plain
+
+
+def check_channel(dev) -> None:
+    """Phase 4d through the kernel backend: raster identities, burst lock,
+    ACC, PAL ident and NIIR normalisation against CHANNEL_PSNR."""
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.frame import raster
+    from color_modem_tpu_torch.frame.channel import impair
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    def expect(key, out, rgb):
+        _check(bool(torch.isfinite(out).all()) and out.shape == rgb.shape,
+               f"{key}: bad output")
+        q = psnr(out, rgb)
+        print(f"channel {key}: psnr {q:.4f} dB (expected {CHANNEL_PSNR[key]} +- {PSNR_TOL})")
+        _check(abs(q - CHANNEL_PSNR[key]) <= PSNR_TOL, f"{key}: PSNR {q} dB")
+
+    def locked(plan, rp, bad, g, decoder, **kw):
+        qk.reset_launches()
+        out = raster.decode_burst_locked(plan, rp, bad, g, decoder, "kernel", **kw)
+        torch.cuda.synchronize()
+        _check(qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 1},
+               f"a burst-locked decode must launch qam_decode once: {qk.LAUNCHES}")
+        return out
+
+    def rastered(name, decoder, **imp):
+        plan = make_plan(ALL_STANDARDS[name](), N)
+        enc, dec, rt = make_pipeline(plan, decoder, "kernel", dev, raster=True)
+        enc0, _, _ = make_pipeline(plan, decoder, "kernel", dev)
+        rgb = full_scene(plan.cfg.active_lines, dev)
+        rp = raster.make_raster(plan)
+        g = frame_line_index(plan, 0, BATCH, plan.cfg.active_lines, dev)
+        rast, comp = enc(rgb, 0), enc0(rgb, 0)
+        label = f"{name} {decoder} {tuple(rast.shape)}"
+        _check(torch.equal(raster.strip_raster(rp, rast), comp)
+               and torch.equal(raster.add_raster(plan, rp, comp, g), rast),
+               f"{label}: strip(add(x)) is not x")
+        _check(torch.equal(dec(rast, 0), rt(rgb, 0)),
+               f"{label}: rastered encode -> decode differs from the round trip")
+        print(f"raster {label}: strip(add(x)) == x and rastered decode == round trip, "
+              "bit for bit")
+        return plan, rp, rgb, g, impair(plan, rast, **imp), dec
+
+    with torch.inference_mode():
+        for decoder in ("notch", "comb3"):
+            plan, rp, rgb, g, bad, dec = rastered("ntsc", decoder, chroma_phase_deg=25.0)
+            expect(f"ntsc {decoder} rastered, 25 deg: nominal", dec(bad, 0), rgb)
+            expect(f"ntsc {decoder} rastered, 25 deg: burst-locked",
+                   locked(plan, rp, bad, g, decoder), rgb)
+        plan, rp, rgb, g, bad, dec = rastered("ntsc", "notch", chroma_gain=0.5)
+        expect("ntsc notch rastered, gain 0.5: nominal", dec(bad, 0), rgb)
+        expect("ntsc notch rastered, gain 0.5: burst-locked acc",
+               locked(plan, rp, bad, g, "notch", acc=True), rgb)
+        plan, rp, rgb, g, bad, dec = rastered("pal", "delayline", chroma_phase_deg=20.0)
+        expect("pal delayline rastered, 20 deg: nominal", dec(bad, 0), rgb)
+        expect("pal delayline rastered, 20 deg: burst-locked",
+               locked(plan, rp, bad, g, "delayline"), rgb)
+        out, slip = raster.decode_identified(plan, rp, bad, g + 1, "delayline", "kernel")
+        _check(slip.dtype == torch.int32 and bool((slip == 1).all()),
+               f"PAL ident must read slip 1 in every frame: {slip.tolist()}")
+        expect("pal delayline rastered, 20 deg: identified on gline + 1", out, rgb)
+        for name, decoder in (("niir", "notch"), ("niir", "avg"), ("ntsc", "notch")):
+            plan = make_plan(ALL_STANDARDS[name](), N)
+            enc, dec, _ = make_pipeline(plan, decoder, "kernel", dev)
+            rgb = full_scene(plan.cfg.active_lines, dev)
+            bad = impair(plan, enc(rgb, 0), chroma_phase_deg=25.0, chroma_gain=0.6)
+            expect(f"{name} {decoder}, 25 deg gain 0.6", dec(bad, 0), rgb)
+
+
+def time_qam_family(dev, card: str, roundtrips: dict) -> dict:
+    """Phase 5c: the QAM kernels at PAL and NIIR shapes, where the JAX
+    package ran its ``_shared`` kernels, and the PAL delayline / NIIR avg
+    round trips; each kernel also held against its plain version here."""
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.separate.comb import stencil_signal
+
+    times = {}
+    for name, decoder in (("pal", "delayline"), ("niir", "avg")):
+        plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
+        lines = plan.cfg.active_lines
+        mpix = BATCH * lines * N / 1e6
+        rgb = full_scene(lines, dev)
+        with torch.inference_mode():
+            ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+            cols = qk.phase_cols(plan, frame_line_index(plan, 0, BATCH, lines, dev))
+            comp = qk.encode_lines(plan, ycc, cols)
+            sep = stencil_signal(plan, comp, decoder)
+            e_enc = _max_err(comp, qk.encode_lines_plain(plan, ycc, cols))
+            e_dec = _max_err(qk.decode_lines(plan, sep, comp, cols),
+                             qk.decode_lines_plain(plan, sep, comp, cols))
+            print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode "
+                  f"max|err| {e_enc:.3e} (<= {ENC_ATOL}), decode {e_dec:.3e} (<= {DEC_ATOL})")
+            _check(e_enc <= ENC_ATOL and e_dec <= DEC_ATOL, f"{name} kernels disagree")
+            rt_k, rt_p = roundtrips[name, decoder]
+            pair = {
+                f"qam_encode {name}": time_pair(
+                    lambda: qk.encode_lines_plain(plan, ycc, cols),
+                    lambda: qk.encode_lines(plan, ycc, cols)),
+                f"qam_decode {name}": time_pair(
+                    lambda: qk.decode_lines_plain(plan, sep, comp, cols),
+                    lambda: qk.decode_lines(plan, sep, comp, cols)),
+                f"{name} {decoder} roundtrip": time_pair(lambda: rt_p(rgb, 0),
+                                                         lambda: rt_k(rgb, 0)),
+            }
+        for key, (p_ms, k_ms) in pair.items():
+            print(f"time {key} {BATCH}x{lines}x{N} on {card}: kernel {k_ms:.4f} ms "
+                  f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
+                  f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
+        times.update(pair)
+    return times
 
 
 def main() -> None:
@@ -309,6 +545,14 @@ def main() -> None:
             launches.update(got)
             srt_kernel, srt_plain = rt_k, rt_p
 
+    # --- 4c. the rest of the QAM family ---------------------------------------
+    family = {}
+    for (name, decoder), (expected, want) in QAM_FAMILY.items():
+        family[name, decoder] = check_qam_path(dev, name, decoder, expected, want)
+
+    # --- 4d. raster, channel and the receiver's countermeasures -----------------
+    check_channel(dev)
+
     # --- 5. timing ------------------------------------------------------------
     mpix = BATCH * lines * N / 1e6
     gline = frame_line_index(plan, 0, BATCH, lines, dev)
@@ -351,6 +595,9 @@ def main() -> None:
               f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
               f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
     times.update(stimes)
+
+    # --- 5c. QAM-family timing ------------------------------------------------
+    time_qam_family(dev, card, family)
 
     _check("jax" not in sys.modules, "the port loaded jax")
     replaces = {"qam_encode": "color_modem_tpu/kernels/qam.py:85",

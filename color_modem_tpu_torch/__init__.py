@@ -12,13 +12,16 @@ Layout mirrors the JAX package:
 - ``dsp/``       host FIR design (NumPy f64), the int32 NCO phase law,
                  colorimetry, the plain Toeplitz FIRs (zero and held edges)
 - ``modem/``     ``QamPlan`` and ``FmPlan`` (``nn.Module``s of float32
-                 buffers) and the plain QAM and SECAM modem functions
-- ``separate/``  line stencils (reflected edges), the notch/comb split and
-                 chroma averaging
+                 buffers), the plain QAM and SECAM modem functions and
+                 NIIR reference normalisation
+- ``separate/``  line and frame stencils, the notch, line, temporal and
+                 adaptive combs, and chroma averaging
 - ``kernels/``   wrappers of the CUDA kernels in ``csrc/``, each with its
                  plain PyTorch version and a launch counter; ``build.py``
                  compiles ``csrc/*.cu`` with ``nvcc`` at first use
-- ``frame/``     the batched RGB <-> composite pipeline
+- ``frame/``     the batched RGB <-> composite pipeline, the sync/burst
+                 raster with burst lock and PAL ident, and the channel
+                 impairments
 
 Public layouts match the JAX package: RGB ``(B, 3, L, N)``, composite
 ``(B, L, N)``, absolute line indices ``(B, L)`` int32.  The plain versions

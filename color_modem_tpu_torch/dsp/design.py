@@ -3,7 +3,7 @@
 Port of ``color_modem_tpu/dsp/design.py``: the windowed-sinc low/band-pass
 designs of the QAM family, and the frequency-sampled designs of SECAM
 (pre-/de-emphasis, anti-cloche and cloche, the band mask, the
-differentiator).  The SECAM responses have intrinsic phase, so their taps
+differentiator), and the band-limited Hilbert FIR of the channel model.  The SECAM responses have intrinsic phase, so their taps
 are asymmetric (the differentiator's antisymmetric).  The arithmetic is the
 same NumPy code, so the taps are bit-identical to the JAX package's
 (tests/test_torch_plan.py).
@@ -111,6 +111,27 @@ def differentiator_taps(
         return 1j * w * taper
 
     return freq_sampled_taps(fs, resp, ntaps=ntaps)
+
+
+def hilbert_taps(
+    fs: float,
+    f_lo: float,
+    f_hi: float,
+    ntaps: int = DEFAULT_NTAPS,
+) -> np.ndarray:
+    """FIR 90-degree phase shifter over [f_lo, f_hi] (band-limited Hilbert).
+
+    ``cos(t)*x + sin(t)*H(x)`` rotates a band-pass signal's phase by ``t``
+    (``frame/channel.py``).  Frequency-sampled ``-j*sign(f)``, masked to
+    the band; the taps are antisymmetric, so a mirrored FIR would flip the
+    rotation's sign.
+    """
+
+    def resp(f):
+        mask = raised_cosine_bandpass_response(f, f_lo, f_hi, 0.2e6)
+        return -1j * mask  # f >= 0 half; Hermitian extension handles f < 0
+
+    return freq_sampled_taps(fs, resp, ntaps)
 
 
 # --- SECAM transfer functions ------------------------------------------------

@@ -1,8 +1,7 @@
 """Batched frame pipeline: RGB <-> composite <-> RGB.
 
-Port of ``color_modem_tpu/frame/pipeline.py`` for the QAM family with the
-notch/comb2/comb3 decoders, and for SECAM with notch/avg/interp.
-``backend``:
+Port of ``color_modem_tpu/frame/pipeline.py``: every standard, with every
+decoder ``allowed_decoders`` offers it.  ``backend``:
 
 * ``"kernel"`` — the CUDA kernels of ``kernels/qam.py`` and
   ``kernels/secam.py`` on a CUDA device (on the CPU, the same wrappers run
@@ -10,8 +9,12 @@ notch/comb2/comb3 decoders, and for SECAM with notch/avg/interp.
 * ``"plain"`` — the plain PyTorch modems of ``modem/qam.py`` and
   ``modem/secam.py``.
 
-QAM delay-line averaging, NIIR normalisation and the burst phase/gain hooks
-are ROADMAP.md queue 1 item 3 and raise ``NotImplementedError`` until then.
+The adaptive combs ('combA', 'comb3dA') separate with a data-dependent
+blend that has no kernel in the JAX package either: on both backends they
+take the plain separation and product detector, and only the encode runs
+the kernel.  After the QAM demodulation come, in the JAX package's order,
+the burst phase and gain hooks, delay-line averaging and NIIR
+normalisation.
 """
 
 from __future__ import annotations
@@ -21,15 +24,17 @@ import torch
 from color_modem_tpu.standards.decoders import allowed_decoders
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
 from color_modem_tpu_torch.dsp.nco import global_line_index
+from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
 from color_modem_tpu_torch.kernels import qam as qam_k
 from color_modem_tpu_torch.kernels import secam as secam_k
-from color_modem_tpu_torch.modem import qam, secam
+from color_modem_tpu_torch.modem import niir, qam, secam
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan
-from color_modem_tpu_torch.separate.comb import separate, stencil_signal
+from color_modem_tpu_torch.separate.comb import ADAPTIVE, separate, stencil_signal
 from color_modem_tpu_torch.separate.delayline import average_with_neighbor
 
 BACKENDS = ("kernel", "plain")
-_QUEUE_ITEM_3 = "is not ported yet (ROADMAP.md queue 1 item 3)"
+#: QAM decoders that average the demodulated chroma over adjacent lines
+AVERAGING = ("delayline", "avg")
 
 
 Plan = QamPlan | FmPlan
@@ -73,6 +78,48 @@ def _decode_fm(plan: FmPlan, comp: torch.Tensor, gline: torch.Tensor,
     return ycc
 
 
+def _demodulate_qam(plan: QamPlan, comp: torch.Tensor, gline: torch.Tensor,
+                    decoder: str, backend: str) -> torch.Tensor:
+    """(..., L, N) composite -> (..., 3, L, N) ``[y, c1, c2]``."""
+    if backend == "kernel" and decoder not in ADAPTIVE:
+        sep = stencil_signal(plan, comp, decoder)
+        return qam_k.demodulate_separated(plan, sep, comp, gline)
+    luma, chroma_band = separate(plan, comp, decoder)
+    return torch.stack([luma, *qam.demodulate_carrier(plan, chroma_band, gline)],
+                       dim=-3)
+
+
+def _correct_chroma(plan: QamPlan, ycc: torch.Tensor, gline: torch.Tensor,
+                    decoder: str, phase_err: torch.Tensor | None,
+                    chroma_gain: torch.Tensor | None) -> torch.Tensor:
+    """The steps after the product detector, in the JAX package's order:
+    phase counter-rotation, chroma gain, delay-line averaging (non-NIIR),
+    NIIR normalisation and NIIR 'avg'.  ``ycc`` comes back as it is when
+    none applies."""
+    is_niir = plan.chroma.reference_amplitude is not None
+    if (phase_err is None and chroma_gain is None and not is_niir
+            and decoder not in AVERAGING):
+        return ycc
+    luma, c1, c2 = ycc.unbind(-3)
+    if phase_err is not None:
+        # a carrier phase error d rotates (c1, s*c2) by d; rotate back
+        d = phase_err[..., None].to(torch.float32)
+        s = qam.v_sign(plan, gline)[..., None]
+        cd, sd = torch.cos(d), torch.sin(d)
+        c1, c2 = cd * c1 + s * sd * c2, -s * sd * c1 + cd * c2
+    if chroma_gain is not None:
+        g = chroma_gain[..., None].to(torch.float32)
+        c1, c2 = g * c1, g * c2
+    if decoder in AVERAGING and not is_niir:
+        c1, c2 = average_with_neighbor(c1), average_with_neighbor(c2)
+    if is_niir:
+        c1, c2 = niir.normalize(plan, c1, c2, gline)
+        if decoder == "avg":
+            # after normalising: raw demod alternates chroma and reference
+            c1, c2 = average_with_neighbor(c1), average_with_neighbor(c2)
+    return torch.stack([luma, c1, c2], dim=-3)
+
+
 def decode_block(
     plan: Plan,
     comp: torch.Tensor,
@@ -84,8 +131,11 @@ def decode_block(
 ) -> torch.Tensor:
     """(..., L, N) composite -> (..., 3, L, N) RGB, clamped to [0,1].
 
-    ``phase_err``/``chroma_gain`` are QAM-only hooks: SECAM's FM chroma has
-    no burst to key on.
+    ``phase_err``: per-line subcarrier phase error (..., L) in rad, which
+    the decoder counter-rotates; ``chroma_gain``: per-line chroma gain
+    correction (..., L), the ACC / colour-killer hook
+    (``frame/raster.py::decode_burst_locked``).  QAM only: SECAM's FM
+    chroma has no burst to key on.
     """
     check_decoder(plan, decoder)
     _check_backend(backend)
@@ -95,19 +145,8 @@ def decode_block(
             raise ValueError("phase_err and chroma_gain apply to QAM standards only")
         return clamp01(apply_mat3(plan.ycc_to_rgb,
                                   _decode_fm(plan, comp, gline, decoder, backend)))
-    if phase_err is not None or chroma_gain is not None:
-        raise NotImplementedError(f"the burst phase/gain correction {_QUEUE_ITEM_3}")
-    if decoder in ("delayline", "avg"):
-        raise NotImplementedError(f"chroma averaging ({decoder!r}) {_QUEUE_ITEM_3}")
-    if plan.chroma.reference_amplitude is not None:
-        raise NotImplementedError(f"NIIR reference-line normalisation {_QUEUE_ITEM_3}")
-    if backend == "kernel":
-        sep = stencil_signal(plan, comp, decoder)
-        ycc = qam_k.demodulate_separated(plan, sep, comp, gline)
-    else:
-        luma, chroma_band = separate(plan, comp, decoder)
-        c1, c2 = qam.demodulate_carrier(plan, chroma_band, gline)
-        ycc = torch.stack([luma, c1, c2], dim=-3)
+    ycc = _demodulate_qam(plan, comp, gline, decoder, backend)
+    ycc = _correct_chroma(plan, ycc, gline, decoder, phase_err, chroma_gain)
     return clamp01(apply_mat3(plan.ycc_to_rgb, ycc))
 
 
@@ -124,18 +163,22 @@ def frame_line_index(plan: Plan, frame0, n_frames: int, n_lines: int,
 
 
 def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
-                  device: torch.device | str = "cpu"):
+                  device: torch.device | str = "cpu", raster: bool = False):
     """Closures over a fixed plan, moved to ``device`` (in place).
 
     Returns ``(encode, decode, roundtrip)``; each takes a ``(B, ...)`` batch
     (tensor or array) and ``frame0``, the index of the first frame, which
     drives the NTSC 4-field / PAL 8-field phase sequence and the SECAM
-    D'R/D'B line parity across batches.
+    D'R/D'B line parity across batches.  ``raster``: ``encode`` emits full
+    lines with sync and colour burst in the blanking interval and
+    ``decode`` strips it (``frame/raster.py``); ``roundtrip`` skips both,
+    since ``strip(add(x)) == x`` exactly.
     """
     check_decoder(plan, decoder)
     _check_backend(backend)
     device = torch.device(device)
     plan = plan.to(device)
+    rp = make_raster(plan) if raster else None
 
     def _input(x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=device)
@@ -145,13 +188,16 @@ def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
         rgb = _input(rgb)
         b, _, l, _ = rgb.shape
         g = frame_line_index(plan, frame0, b, l, device)
-        return encode_block(plan, rgb, g, backend)
+        comp = encode_block(plan, rgb, g, backend)
+        return comp if rp is None else add_raster(plan, rp, comp, g)
 
     @torch.inference_mode()
     def decode(comp, frame0=0):
         comp = _input(comp)
         b, l = comp.shape[0], comp.shape[1]
         g = frame_line_index(plan, frame0, b, l, device)
+        if rp is not None:
+            comp = strip_raster(rp, comp)
         return decode_block(plan, comp, g, decoder, backend)
 
     @torch.inference_mode()

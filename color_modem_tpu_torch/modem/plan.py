@@ -45,10 +45,14 @@ SECAM_BAND_TRANSITION = 0.4e6
 #: takeoff, luma notch), the differentiator, and the emphasis pair (the
 #: de-emphasis pole at 85 kHz has a ~1.9 us tail)
 SECAM_BELL_NTAPS, SECAM_DIFF_NTAPS, SECAM_EMPH_NTAPS = 193, 31, 257
+#: the adaptive combs' energy smoother (``separate/comb.py``): cutoff and a
+#: FIXED tap count, not scaled by fs/REF_FS (``color_modem_tpu/modem/plan.py``)
+COMB_SEL_CUTOFF, COMB_SEL_NTAPS = 0.5e6, 63
 
 #: the host arrays a QAM plan is built from, all float64 NumPy
 HOST_FIELDS = (
-    "ramp", "c1_lpf", "c2_lpf", "chroma_bpf", "rgb_to_ycc", "ycc_to_rgb",
+    "ramp", "c1_lpf", "c2_lpf", "chroma_bpf", "comb_sel_lpf", "rgb_to_ycc",
+    "ycc_to_rgb",
 )
 #: the FM (SECAM) filters, in the JAX ``ModemPlan``'s field names
 FM_TAPS = (
@@ -108,9 +112,10 @@ class QamPlan(_Plan):
     """Host constants of one (QAM standard, line width) pair.
 
     Buffers (float32): ``ramp``, ``ramp_cos``, ``ramp_sin`` (N,);
-    ``c1_lpf``, ``c2_lpf``, ``chroma_bpf`` (T,); ``rgb_to_ycc``,
-    ``ycc_to_rgb`` (3, 3); and the ``(N, N)`` Toeplitz matrices
-    ``c1_lpf_mat``, ``c2_lpf_mat``, ``chroma_bpf_mat`` of the plain FIR.
+    ``c1_lpf``, ``c2_lpf``, ``chroma_bpf`` (T,); ``comb_sel_lpf`` (63,), the
+    adaptive combs' energy smoother; ``rgb_to_ycc``, ``ycc_to_rgb`` (3, 3);
+    and the ``(N, N)`` Toeplitz matrices ``c1_lpf_mat``, ``c2_lpf_mat``,
+    ``chroma_bpf_mat``, ``comb_sel_lpf_mat`` of the plain FIR.
     Python scalars: ``theta``, ``cpl_num``, ``cpl_den``, ``total_lines``,
     ``n_samples``, ``fs``.  ``host`` keeps the float64 arrays as designed.
     """
@@ -127,7 +132,8 @@ class QamPlan(_Plan):
         self.register_buffer("ramp_cos", torch.tensor(rc))
         self.register_buffer("ramp_sin", torch.tensor(rs))
         self._register_mats("_mat", toeplitz_same,
-                            ("c1_lpf", "c2_lpf", "chroma_bpf"), self.n_samples)
+                            ("c1_lpf", "c2_lpf", "chroma_bpf", "comb_sel_lpf"),
+                            self.n_samples)
 
 
 class FmPlan(_Plan):
@@ -192,6 +198,7 @@ def make_plan(cfg: StandardConfig, n_samples: int, *,
             chroma_bpf=design.bandpass_taps(
                 fs, ch.fsc - ch.chroma_band, ch.fsc + ch.chroma_band, ntaps
             ),
+            comb_sel_lpf=design.lowpass_taps(fs, COMB_SEL_CUTOFF, COMB_SEL_NTAPS),
             **common,
         )
     bell_ntaps = _odd(SECAM_BELL_NTAPS * k)

@@ -1,9 +1,11 @@
-"""Chroma averaging over adjacent lines (the 'avg' wrapper).
+"""Chroma averaging over adjacent lines (the 'delayline' and 'avg'
+decoders).
 
 Port of ``color_modem_tpu/separate/delayline.py``.  The first line pairs
-with the next one, as in the golden oracle's ``_neighbor``.  SECAM 'avg'
-applies it to the assembled D'R/D'B planes; the QAM delay-line decoders
-that also use it are not ported yet (ROADMAP.md queue 1 item 3).
+with the next one, as in the golden oracle's ``_neighbor``.  The QAM
+'delayline'/'avg' decoders apply it to the demodulated (c1, c2) planes
+(NIIR 'avg' after the reference normalisation), SECAM 'avg' to the
+assembled D'R/D'B planes.
 """
 
 from __future__ import annotations

@@ -175,3 +175,63 @@ def test_secam_roundtrip_one_launch_each(dev):
     torch.cuda.synchronize()
     assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
     assert abs(psnr(out, rgb) - 38.8644) <= 0.02
+
+
+def _scene(lines, dev):
+    return torch.tensor(np.broadcast_to(smooth_scene(lines, 720, seed=0), (16, 3, lines, 720)),
+                        dtype=torch.float32, device=dev)
+
+
+@pytest.mark.parametrize("name,decoder,expected", [("pal", "delayline", 37.9984),
+                                                   ("niir", "avg", 33.1777),
+                                                   ("ntsc", "comb3d", 47.4153)])
+def test_qam_family_roundtrip_one_launch_each(dev, name, decoder, expected):
+    """PAL and NIIR run the filters the JAX package's _shared kernels ran;
+    16 frames at full width, against the plain backend on the card."""
+    cfg = ALL_STANDARDS[name]()
+    rgb = _scene(cfg.active_lines, dev)
+    _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="kernel", device=dev)
+    _, _, rt_p = make_pipeline(make_plan(cfg, 720), decoder, backend="plain", device=dev)
+    qk.reset_launches()
+    out = rt(rgb, 0)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    assert abs(psnr(out, rgb) - expected) <= 0.02
+    assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
+
+
+def test_combA_separates_outside_the_decode_kernel(dev):
+    """combA's blend is plain code on both backends (as in the JAX package):
+    one encode launch, no decode launch, and one composite decodes the same
+    on both backends."""
+    cfg = ALL_STANDARDS["ntsc"]()
+    rgb = _scene(cfg.active_lines, dev)
+    enc, dec, rt = make_pipeline(make_plan(cfg, 720), "combA", backend="kernel", device=dev)
+    enc_p, dec_p, _ = make_pipeline(make_plan(cfg, 720), "combA", backend="plain", device=dev)
+    qk.reset_launches()
+    out = rt(rgb, 0)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 0}
+    assert abs(psnr(out, rgb) - 45.5145) <= 0.02
+    comp = enc(rgb, 0)
+    assert float((comp - enc_p(rgb, 0)).abs().max()) <= ENC_ATOL
+    assert float((dec(comp, 0) - dec_p(comp, 0)).abs().max()) <= DEC_ATOL
+
+
+def test_burst_locked_decode_under_channel_phase(dev):
+    """A 25-degree chroma phase error on the rastered NTSC channel: nominal
+    decode 27.3564 dB, burst-locked 39.4822 dB with one decode launch."""
+    from color_modem_tpu_torch.frame import raster
+    from color_modem_tpu_torch.frame.channel import impair
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
+    enc, dec, _ = make_pipeline(plan, "notch", backend="kernel", device=dev, raster=True)
+    rgb = _scene(480, dev)
+    bad = impair(plan, enc(rgb, 0), chroma_phase_deg=25.0)
+    g = frame_line_index(plan, 0, 16, 480, dev)
+    qk.reset_launches()
+    locked = raster.decode_burst_locked(plan, raster.make_raster(plan), bad, g, "notch")
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 1}
+    assert abs(psnr(locked, rgb) - 39.4822) <= 0.02
+    assert abs(psnr(dec(bad, 0), rgb) - 27.3564) <= 0.02

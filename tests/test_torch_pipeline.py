@@ -8,6 +8,7 @@ against the golden oracle (tests/test_roundtrip.py), round-trip PSNR equal
 to JAX's to 0.01 dB.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -85,18 +86,79 @@ def test_main_path_golden_parity_and_psnr(backend, rgb):
     assert abs(q - np_psnr(out, rgb)) <= 1e-9
 
 
-def test_parts_not_ported_yet_raise(rgb):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        port_pipeline("pal", "delayline", "kernel")[1](rgb[:, 0], 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        port_pipeline("niir", "notch", "plain")[2](rgb, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        port_pipeline("ntsc", "combA", "kernel")[2](rgb, 0)
-    plan = plan_from_numpy(get_plan("ntsc"))
-    g = torch.zeros((2, TEST_LINES), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
-        decode_block(plan, torch.from_numpy(rgb[:, 0]), g, "comb3",
-                     phase_err=torch.zeros((2, TEST_LINES)))
+def _error_cases():
+    """name -> (call on the JAX package, call on the port, message): the
+    errors of the QAM-family paths."""
+    from color_modem_tpu.frame import raster as jr
+    from color_modem_tpu.frame.pipeline import decode_block as jax_decode_block
+    from color_modem_tpu.separate.comb import stencil_signal as jax_stencil_signal
+    from color_modem_tpu_torch.frame import raster
+    from color_modem_tpu_torch.separate.comb import stencil_signal
+
+    def plans(name):
+        return get_plan(name), plan_from_numpy(get_plan(name))
+
+    def both(fn_j, fn_t, name, x):
+        jp, tp = plans(name)
+        return (lambda: fn_j(jp, jnp.asarray(x)), lambda: fn_t(tp, torch.from_numpy(x)))
+
+    comp3 = np.zeros((1, 4, TEST_SAMPLES), np.float32)   # one NTSC frame
+    comp_pal = np.zeros((3, 4, TEST_SAMPLES), np.float32)  # PAL needs 4 frames
+    g = np.zeros((1, 4), np.int32)
+    cases = {
+        "comb3d-ntsc-one-frame": (*both(
+            lambda p, x: jax_stencil_signal(p, x, "comb3d"),
+            lambda p, x: stencil_signal(p, x, "comb3d"), "ntsc", comp3), ">= 2 frames"),
+        "comb3d-pal-three-frames": (*both(
+            lambda p, x: jax_stencil_signal(p, x, "comb3d"),
+            lambda p, x: stencil_signal(p, x, "comb3d"), "pal", comp_pal), ">= 4 frames"),
+        "comb3d-unbatched": (*both(
+            lambda p, x: jax_stencil_signal(p, x, "comb3d"),
+            lambda p, x: stencil_signal(p, x, "comb3d"), "ntsc", comp3[0]),
+            "batched"),
+        "comb3d-ntsc443-no-spacing": (*both(
+            lambda p, x: jax_stencil_signal(p, x, "comb3d"),
+            lambda p, x: stencil_signal(p, x, "comb3d"), "ntsc443", comp3),
+            "no temporal comb spacing"),
+        "identify-vswitch-ntsc": (*both(
+            lambda p, x: jr.identify_vswitch(p, jr.make_raster(p), x, jnp.asarray(g)),
+            lambda p, x: raster.identify_vswitch(p, raster.make_raster(p), x,
+                                                 torch.from_numpy(g)),
+            "ntsc", np.zeros((1, 4, 858), np.float32)), "no swinging burst"),
+        "burst-phase-secam": (*both(
+            lambda p, x: jr.measure_burst_phase(p, jr.make_raster(p), x, jnp.asarray(g)),
+            lambda p, x: raster.measure_burst_phase(p, raster.make_raster(p), x,
+                                                    torch.from_numpy(g)),
+            "secam", np.zeros((1, 4, 864), np.float32)), "no color burst"),
+        "hooks-on-secam": (*both(
+            lambda p, x: jax_decode_block(p, x, jnp.asarray(g), "notch",
+                                          phase_err=jnp.zeros((1, 4))),
+            lambda p, x: decode_block(p, x, torch.from_numpy(g), "notch",
+                                      chroma_gain=torch.ones((1, 4))),
+            "secam", comp3), "QAM standards only"),
+    }
+    return cases
+
+
+ERROR_CASES = ["comb3d-ntsc-one-frame", "comb3d-pal-three-frames", "comb3d-unbatched",
+               "comb3d-ntsc443-no-spacing", "identify-vswitch-ntsc", "burst-phase-secam",
+               "hooks-on-secam"]
+
+
+@pytest.mark.parametrize("case", ERROR_CASES)
+def test_raises_where_jax_raises(case):
+    """The QAM-family paths refuse what the JAX package refuses, with a
+    ValueError on both sides.  One deliberate difference: the JAX package
+    ignores phase_err/chroma_gain on SECAM (its FM branch never reads
+    them), where the port refuses them."""
+    call_j, call_t, msg = _error_cases()[case]
+    if case == "hooks-on-secam":
+        assert np.isfinite(np.asarray(call_j())).all()
+    else:
+        with pytest.raises(ValueError):
+            call_j()
+    with pytest.raises(ValueError, match=msg):
+        call_t()
 
 
 def test_bad_arguments_raise():
@@ -111,10 +173,11 @@ def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import sys
         import numpy as np
-        from color_modem_tpu_torch import NTSC, SECAM
+        from color_modem_tpu_torch import NIIR, NTSC, PAL, SECAM
+        from color_modem_tpu_torch.frame import channel, raster
         from color_modem_tpu_torch.frame.pipeline import make_pipeline
         from color_modem_tpu_torch.kernels import build, fir, qam, secam as secam_k
-        from color_modem_tpu_torch.modem import secam
+        from color_modem_tpu_torch.modem import niir, secam
         from color_modem_tpu_torch.modem.plan import make_plan
         from color_modem_tpu_torch.separate import delayline
         from color_modem_tpu_torch.utils.metrics import psnr
@@ -125,6 +188,13 @@ def test_port_never_imports_jax():
         assert psnr(rt(rgb, 0), rgb) > 30.0
         _, _, rt = make_pipeline(make_plan(SECAM(), 720), "avg", "kernel", device="cpu")
         assert psnr(rt(rgb, 1), rgb) > 25.0
+        _, _, rt = make_pipeline(make_plan(PAL(), 720), "delayline", "kernel", device="cpu")
+        assert psnr(rt(rgb, 2), rgb) > 30.0
+        plan = make_plan(NIIR(), 720)
+        enc, dec, rt = make_pipeline(plan, "avg", "kernel", device="cpu", raster=True)
+        assert psnr(rt(rgb, 0), rgb) > 25.0
+        bad = channel.impair(plan, enc(rgb, 0), chroma_gain=0.7)
+        assert psnr(dec(bad, 0), rgb) > 25.0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
     """)
@@ -132,3 +202,14 @@ def test_port_never_imports_jax():
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_only_the_port():
+    """chip_smoke.py reaches the system only through the port: no import of
+    jax or of the JAX package, at any depth of the script."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    tops = {m.split(".")[0] for m in names}
+    assert "color_modem_tpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "color_modem_tpu"}, sorted(tops)
