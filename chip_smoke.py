@@ -17,10 +17,10 @@ Phases; any failure raises and exits nonzero:
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel, agreement with the plain backend on the card
-   and with the plain backend on the CPU on a small input;
+   and with the plain backend on the CPU on a small input (:func:`check_path`);
 4b. the SECAM path, encode -> interp/avg/notch decode at 16x3x576x720, the
    same way: PSNR 38.8644/33.3755/35.3157 +- 0.02 dB, one launch of each
-   SECAM kernel per round trip, the same two agreements;
+   SECAM kernel per round trip;
 4c. the rest of the QAM family at full width (16 frames, 576 or 480 lines,
    720 samples): PAL/PAL-M/PAL-N/PAL-60, NIIR, NTSC-4.43 and the temporal
    and adaptive combs, each round trip's PSNR +- 0.02 dB, its launches
@@ -30,10 +30,25 @@ Phases; any failure raises and exits nonzero:
    phase and gain errors decoded nominally, burst-locked, with ACC and with
    PAL ident, and NIIR's reference normalisation against NTSC, each PSNR
    +- 0.02 dB;
-5. CUDA-event times of the QAM kernels and of the round trip, against their
-   plain versions; 5b. the same for the SECAM kernels and the SECAM interp
-   round trip; 5c. the QAM kernels at PAL and NIIR shapes (the shared-filter
-   case) and the PAL delayline and NIIR avg round trips.
+4e. the frame layer at full width (16 frames x 720 samples, the standard's
+   active lines, kernel backend): interlaced NTSC comb3 and comb3d
+   (parity-major), PAL delayline and SECAM interp, the rastered interlaced
+   identities, S-Video NTSC/PAL/SECAM/NIIR (Y + C == composite), NTSC->PAL,
+   PAL->NTSC and interlaced NTSC->PAL conversion, each PSNR +- 0.02 dB of the
+   JAX CPU value with its launches and the plain backend on the card
+   (<= 5e-4); telecine's inverse bit-exact at every cadence phase;
+   ``temporal_nr(sigma=None)`` above 2^24 elements;
+5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
+   of each kernel and round trip against its plain version: NTSC comb3 and
+   SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
+   case); 5e the frame layer's round trips, the resample matmul and NR;
+6. the video runner: ``process_video`` NTSC comb3 at 480x720, 48 frames in
+   chunks of 16 from the device source (PSNR +- 0.02 dB of the JAX CPU run,
+   3 launches of each kernel), a resume that processes nothing, one
+   synchronising CUDA operation per wave of chunks (interlaced comb3d with
+   noise and NR), chunk sizes 16 and 12 agreeing to 1e-6 under channel
+   noise with NR (progressive comb3 and interlaced comb3d), NR gaining >
+   2.5 dB on a noisy static source, and Mpix/s on both backends.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -43,20 +58,26 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from functools import partial
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PSNR_EXPECTED, PSNR_TOL = 46.62, 0.02
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4  # kernel vs plain (tests/test_kernels.py bounds)
 SECAM_ENC_ATOL = 2e-4  # the phase scan sums in another order than torch.cumsum
 FIR_ATOL = 1e-6        # fir.cuh vs np.convolve, taps normalised to sum |t| ~ 1
+YC_ATOL = 2.4e-7       # S-Video (comp - Y) + Y vs comp: float32 rounding, 2 ulp at 1.5
+CHUNK_ATOL = 1e-6      # video outputs at two chunk sizes (tests/test_video.py)
+NR_GAIN_DB = 2.5       # tests/test_video.py::test_video_nr
+BATCH, N = 16, 720
+SECAM_LINES = 576
 #: SECAM round-trip PSNR of smooth_scene(576, 720, seed=0) at frame 0, as the
 #: JAX xla path computes it on the CPU; numbers of the algorithm, not the chip
 SECAM_PSNR = {"interp": 38.8644, "avg": 33.3755, "notch": 35.3157}
-BATCH, N = 16, 720
-SECAM_LINES = 576
 #: phase 4c: (standard, decoder) -> (round-trip PSNR, (encode, decode)
 #: launches); smooth_scene(L, 720, seed=0) broadcast to 16 frames, frame 0,
 #: as the JAX xla path computes it on the CPU
@@ -88,6 +109,30 @@ CHANNEL_PSNR = {
     "niir avg, 25 deg gain 0.6": 33.0220,
     "ntsc notch, 25 deg gain 0.6": 26.7242,
 }
+#: phase 4e: PSNR of each frame-layer row on full_scene(L) (16 frames, frame
+#: 0) as the JAX xla path computes it on the CPU; a conversion is scored
+#: against the input resampled to the destination's line count
+FRAME_PSNR = {
+    "interlaced ntsc comb3": 41.7624,
+    "interlaced ntsc comb3d": 47.4153,
+    "interlaced pal delayline": 33.9116,
+    "interlaced secam interp": 37.2761,
+    "svideo ntsc": 48.0586,
+    "svideo pal": 50.6939,
+    "svideo secam": 39.3639,
+    "svideo niir": 37.6314,
+    "transcode ntsc->pal": 41.6143,
+    "transcode pal->ntsc": 40.1674,
+    "transcode interlaced ntsc->pal": 33.2763,
+}
+#: phase 6: min_psnr_db of the JAX xla process_video run (NTSC comb3,
+#: synthetic_device_source(480, 720, seed=0), 48 frames, chunk 16) on the CPU
+VIDEO_MIN_PSNR = 47.37  # the summary rounds to 0.01 dB
+VIDEO_FRAMES, VIDEO_CHUNK = 48, 16
+#: frames of the chunk-independence runs (chunk edges at 12, 16, 24)
+INDEP_FRAMES = 24
+QAM_1_1 = {"qam_encode": 1, "qam_decode": 1}
+SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1}
 
 
 def _check(cond: bool, what: str) -> None:
@@ -99,26 +144,79 @@ def _max_err(a, b) -> float:
     return float((a - b).abs().max())
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call from CUDA events around ``iters`` calls."""
+def reset_counts() -> None:
+    """Zero the launch counters of all four CUDA kernels."""
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.kernels import secam as sk
+
+    qk.reset_launches()
+    sk.reset_launches()
+
+
+def read_counts(label: str, want: dict) -> dict:
+    """Synchronise, read the four launch counters and require ``want`` (a
+    kernel it leaves out must not have launched)."""
+    import torch
+
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.kernels import secam as sk
+
+    torch.cuda.synchronize()
+    got = {**qk.LAUNCHES, **sk.LAUNCHES}
+    full = {k: want.get(k, 0) for k in got}
+    _check(got == full, f"{label}: launches {got}, expected {full}")
+    return got
+
+
+def time_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> list[float]:
+    """Milliseconds per call in each of ``windows`` CUDA-event windows of
+    ``iters`` back-to-back calls."""
     import torch
 
     for _ in range(warmup):
         fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
+    per_call = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(stop) / iters)
+    return per_call
 
 
-def time_pair(plain, kernel) -> tuple[float, float]:
-    """(plain ms, kernel ms), each the mean of two runs in the order
-    plain, kernel, kernel, plain."""
+def _stats(windows: list[float]) -> tuple[float, float, float]:
+    return statistics.median(windows), min(windows), max(windows)
+
+
+def time_pair(plain, kernel) -> dict:
+    """``{"plain": (median, min, max), "kernel": (...)}`` ms per call, over
+    10 windows each, taken in the order plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
-    return (p1 + p2) / 2, (k1 + k2) / 2
+    return {"plain": _stats(p1 + p2), "kernel": _stats(k1 + k2)}
+
+
+def _fmt(t: tuple[float, float, float], mpix: float | None = None) -> str:
+    rate = f", {mpix / t[0] * 1e3:.1f} Mpix/s" if mpix else ""
+    return f"{t[0]:.4f} ms [{t[1]:.4f}, {t[2]:.4f}]{rate}"
+
+
+def _fmt_rate(rates: list[float]) -> str:
+    med, lo, hi = _stats(rates)
+    return f"{med:.1f} [{lo:.1f}, {hi:.1f}]"
+
+
+def print_times(card: str, shape: str, mpix: float | None, times: dict) -> None:
+    for key, t in times.items():
+        if "plain" in t:
+            print(f"time {key} {shape} on {card}: kernel {_fmt(t['kernel'], mpix)}, "
+                  f"plain {_fmt(t['plain'], mpix)} (median [min, max] of 10 windows)")
+        else:
+            print(f"time {key} {shape} on {card}: {_fmt(t['only'], mpix)} "
+                  "(median [min, max] of 5 windows)")
 
 
 def secam_rgb(plan, luma, v, gline, pairing="interp"):
@@ -206,24 +304,23 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     return e_enc, e_rgb
 
 
-def full_scene(lines: int, dev):
-    """smooth_scene(lines, N, seed=0) broadcast to BATCH frames on ``dev``."""
+def full_scene(lines: int, dev, frames: int = BATCH):
+    """smooth_scene(lines, N, seed=0) broadcast to ``frames`` frames on ``dev``."""
     import numpy as np
     import torch
 
     from color_modem_tpu_torch.utils.testimages import smooth_scene
 
-    return torch.tensor(np.broadcast_to(smooth_scene(lines, N, seed=0), (BATCH, 3, lines, N)),
+    return torch.tensor(np.broadcast_to(smooth_scene(lines, N, seed=0), (frames, 3, lines, N)),
                         dtype=torch.float32, device=dev)
 
 
-def check_qam_path(dev, name: str, decoder: str, expected: float,
-                   launches: tuple[int, int]):
-    """One QAM-family round trip at BATCH x 3 x L x N through the kernel
-    backend (PSNR, launches, shape, finite values), against the plain
+def check_path(dev, name: str, decoder: str, expected: float, want: dict):
+    """One round trip at BATCH x 3 x L x N through the kernel backend (PSNR,
+    launches of all four kernels, shape, finite values), against the plain
     backend on the card and on the CPU, stage by stage: the encodes on the
-    same RGB (<= ENC_ATOL), the decodes on the same composite (<= DEC_ATOL),
-    and the round trips (<= DEC_ATOL).
+    same RGB (<= ENC_ATOL, SECAM <= SECAM_ENC_ATOL), the decodes on the same
+    composite (<= DEC_ATOL), and the round trips (<= DEC_ATOL).
 
     combA/comb3dA: the round-trip difference is printed, not bounded.  Their
     blend weights divide by smoothed energies, and the smoother
@@ -231,12 +328,11 @@ def check_qam_path(dev, name: str, decoder: str, expected: float,
     and turn a 1e-7 difference between two encodes into 1e-2 on a few
     samples (the JAX package's own xla and Pallas round trips differ so).
     Their decode runs the same plain code on both backends.  Returns the
-    kernel and plain round trips."""
+    kernel and plain round trips and the launch counts."""
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
     from color_modem_tpu_torch.frame.pipeline import make_pipeline
-    from color_modem_tpu_torch.kernels import qam as qk
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import ADAPTIVE, temporal_comb_spacing
     from color_modem_tpu_torch.utils.metrics import psnr
@@ -246,18 +342,16 @@ def check_qam_path(dev, name: str, decoder: str, expected: float,
     rgb = full_scene(lines, dev)
     label = f"{name} {decoder} {BATCH}x3x{lines}x{N}"
     enc_k, dec_k, rt_k = make_pipeline(make_plan(cfg, N), decoder, "kernel", dev)
-    qk.reset_launches()
+    reset_counts()
     out = rt_k(rgb, 0)
-    torch.cuda.synchronize()
-    got = dict(qk.LAUNCHES)
-    want = {"qam_encode": launches[0], "qam_decode": launches[1]}
-    _check(got == want, f"{label}: launches {got}, expected {want}")
+    got = read_counts(label, want)
     _check(tuple(out.shape) == tuple(rgb.shape), f"{label}: output shape {tuple(out.shape)}")
     _check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
     q = psnr(out, rgb)
     print(f"{label}: psnr {q:.4f} dB (expected {expected} +- {PSNR_TOL}), launches {got}")
     _check(abs(q - expected) <= PSNR_TOL, f"{label}: round-trip PSNR {q} dB")
 
+    enc_atol = SECAM_ENC_ATOL if cfg.is_fm else ENC_ATOL
     frames = 2 * temporal_comb_spacing(cfg) if decoder in ("comb3d", "comb3dA") else 2
     small = rgb[:frames, :, :64]
     for where, x, frame0, ref_dev in (("the card", rgb, 0, dev), ("the CPU", small, 7, "cpu")):
@@ -268,16 +362,16 @@ def check_qam_path(dev, name: str, decoder: str, expected: float,
         e_rt = _max_err(rt_k(x, frame0).cpu(), rt_p(x.to(ref_dev), frame0).cpu())
         bounded = decoder not in ADAPTIVE
         print(f"{label}: kernel backend on the card vs plain backend on {where} "
-              f"({tuple(x.shape)}): encode max|err| {e_enc:.3e} (<= {ENC_ATOL}), decode of "
+              f"({tuple(x.shape)}): encode max|err| {e_enc:.3e} (<= {enc_atol}), decode of "
               f"one composite {e_dec:.3e} (<= {DEC_ATOL}), round trip {e_rt:.3e} "
               + (f"(<= {DEC_ATOL})" if bounded else "(reported: the adaptive blend)"))
-        _check(e_enc <= ENC_ATOL, f"{label}: encodes disagree on {where}: {e_enc}")
+        _check(e_enc <= enc_atol, f"{label}: encodes disagree on {where}: {e_enc}")
         _check(e_dec <= DEC_ATOL, f"{label}: decodes disagree on {where}: {e_dec}")
         _check(e_rt <= DEC_ATOL or not bounded,
                f"{label}: round trips disagree on {where}: {e_rt}")
         if where == "the card":
             rt_plain = rt_p
-    return rt_k, rt_plain
+    return rt_k, rt_plain, got
 
 
 def check_channel(dev) -> None:
@@ -289,7 +383,6 @@ def check_channel(dev) -> None:
     from color_modem_tpu_torch.frame import raster
     from color_modem_tpu_torch.frame.channel import impair
     from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
-    from color_modem_tpu_torch.kernels import qam as qk
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.utils.metrics import psnr
 
@@ -301,11 +394,9 @@ def check_channel(dev) -> None:
         _check(abs(q - CHANNEL_PSNR[key]) <= PSNR_TOL, f"{key}: PSNR {q} dB")
 
     def locked(plan, rp, bad, g, decoder, **kw):
-        qk.reset_launches()
+        reset_counts()
         out = raster.decode_burst_locked(plan, rp, bad, g, decoder, "kernel", **kw)
-        torch.cuda.synchronize()
-        _check(qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 1},
-               f"a burst-locked decode must launch qam_decode once: {qk.LAUNCHES}")
+        read_counts("a burst-locked decode", {"qam_decode": 1})
         return out
 
     def rastered(name, decoder, **imp):
@@ -352,53 +443,329 @@ def check_channel(dev) -> None:
             expect(f"{name} {decoder}, 25 deg gain 0.6", dec(bad, 0), rgb)
 
 
-def time_qam_family(dev, card: str, roundtrips: dict) -> dict:
-    """Phase 5c: the QAM kernels at PAL and NIIR shapes, where the JAX
-    package ran its ``_shared`` kernels, and the PAL delayline / NIIR avg
-    round trips; each kernel also held against its plain version here."""
+def frame_row(key: str, out, ref, got: dict, e_plain: float) -> float:
+    """Phase 4e's common checks: shape, finite values, PSNR against
+    FRAME_PSNR, and the kernel vs plain backend error on the card."""
+    import torch
+
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    _check(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+           f"{key}: output {tuple(out.shape)} for {tuple(ref.shape)}, or non-finite")
+    q, expected = psnr(out, ref), FRAME_PSNR[key]
+    print(f"{key} {tuple(ref.shape)}: psnr {q:.4f} dB (expected {expected} +- {PSNR_TOL}), "
+          f"launches {got}, kernel vs plain backend on the card max|err| {e_plain:.3e} "
+          f"(<= {DEC_ATOL})")
+    _check(abs(q - expected) <= PSNR_TOL, f"{key}: PSNR {q} dB")
+    _check(e_plain <= DEC_ATOL, f"{key}: kernel and plain backends disagree: {e_plain}")
+    return q
+
+
+def check_frame_layer(dev) -> dict:
+    """Phase 4e.  Returns the (plain, kernel) callables phase 5e times."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS, NTSC
+    from color_modem_tpu_torch.frame import raster
+    from color_modem_tpu_torch.frame.interlace import field_line_index, make_interlaced_pipeline
+    from color_modem_tpu_torch.frame.nr import lower_quartile, temporal_nr
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
+    from color_modem_tpu_torch.frame.telecine import (
+        detect_pulldown_phase,
+        inverse_telecine,
+        telecine,
+    )
+    from color_modem_tpu_torch.frame.transcode import (
+        best_decoder,
+        make_interlaced_transcoder,
+        make_transcoder,
+        resample_lines,
+    )
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.metrics import psnr
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    def plan(name):
+        return make_plan(ALL_STANDARDS[name](), N)
+
+    def both(factory, *args, **kw):
+        """The kernel and plain backends' closures of one pipeline factory."""
+        return (factory(*args, backend="kernel", device=dev, **kw),
+                factory(*args, backend="plain", device=dev, **kw))
+
+    timed = {}
+    # interlaced fields; comb3d decodes parity-major, one decode launch
+    for name, decoder in (("ntsc", "comb3"), ("ntsc", "comb3d"), ("pal", "delayline"),
+                          ("secam", "interp")):
+        key = f"interlaced {name} {decoder}"
+        rgb = full_scene(ALL_STANDARDS[name]().active_lines, dev)
+        (_, _, rt_k), (_, _, rt_p) = both(make_interlaced_pipeline, plan(name), decoder)
+        reset_counts()
+        out = rt_k(rgb, 0)
+        got = read_counts(key, SECAM_1_1 if name == "secam" else QAM_1_1)
+        frame_row(key, out, rgb, got, _max_err(out, rt_p(rgb, 0)))
+        if (name, decoder) == ("ntsc", "comb3"):
+            timed[key] = (partial(rt_p, rgb, 0), partial(rt_k, rgb, 0))
+
+    # the rastered interlaced NTSC comb3 identities, bit for bit
+    p = plan("ntsc").to(dev)
+    rgb = full_scene(480, dev)
+    enc_r, dec_r, _ = make_interlaced_pipeline(p, "comb3", "kernel", dev, raster=True)
+    enc, _, rt = make_interlaced_pipeline(plan("ntsc"), "comb3", "kernel", dev)
+    rast, comp = enc_r(rgb, 0), enc(rgb, 0)
+    rp, g = raster.make_raster(p), field_line_index(p, 0, BATCH, 240, dev)
+    _check(torch.equal(raster.strip_raster(rp, rast), comp)
+           and torch.equal(raster.add_raster(p, rp, comp, g), rast),
+           "interlaced raster: strip(add(x)) is not x")
+    reset_counts()
+    dec = dec_r(rast, 0)
+    got = read_counts("interlaced rastered decode", {"qam_decode": 1})
+    _check(torch.equal(dec, rt(rgb, 0)), "interlaced rastered decode differs from the round trip")
+    print(f"interlaced ntsc comb3 rastered {tuple(rast.shape)}: strip(add(x)) == x and "
+          f"decode == round trip, bit for bit; decode launches {got}")
+
+    # S-Video: the encode kernel only (the ideal receiver demodulates plainly)
+    for name in ("ntsc", "pal", "secam", "niir"):
+        key = f"svideo {name}"
+        cfg = ALL_STANDARDS[name]()
+        rgb = full_scene(cfg.active_lines, dev)
+        (enc, _, rt_k), (_, _, rt_p) = both(make_svideo_pipeline, plan(name))
+        enc_c, _, _ = make_pipeline(plan(name), "notch", "kernel", dev)
+        yc = enc(rgb, 0)
+        e_yc = _max_err(yc[:, 0] + yc[:, 1], enc_c(rgb, 0))
+        print(f"{key}: Y + C vs composite max|err| {e_yc:.3e} (<= {YC_ATOL})")
+        _check(e_yc <= YC_ATOL, f"{key}: Y + C is not the composite: {e_yc}")
+        reset_counts()
+        out = rt_k(rgb, 0)
+        got = read_counts(key, {"secam_encode" if cfg.is_fm else "qam_encode": 1})
+        frame_row(key, out, rgb, got, _max_err(out, rt_p(rgb, 0)))
+        if name == "ntsc":
+            timed[key] = (partial(rt_p, rgb, 0), partial(rt_k, rgb, 0))
+
+    # standards conversion: one source decode and one destination encode
+    for src, dst in (("ntsc", "pal"), ("pal", "ntsc")):
+        key = f"transcode {src}->{dst}"
+        rgb = full_scene(ALL_STANDARDS[src]().active_lines, dev)
+        l_dst = ALL_STANDARDS[dst]().active_lines
+        comp = make_pipeline(plan(src), "notch", "kernel", dev)[0](rgb, 0)
+        conv_k, conv_p = both(make_transcoder, plan(src), plan(dst))
+        reset_counts()
+        comp_d = conv_k(comp, 0)
+        got = read_counts(key, QAM_1_1)
+        _check(tuple(comp_d.shape) == (BATCH, l_dst, N), f"{key}: shape {tuple(comp_d.shape)}")
+        p_dst = plan(dst)
+        out = make_pipeline(p_dst, best_decoder(p_dst), "kernel", dev)[1](comp_d, 0)
+        frame_row(key, out, resample_lines(rgb, l_dst), got, _max_err(comp_d, conv_p(comp, 0)))
+        if src == "ntsc":
+            timed[key] = (partial(conv_p, comp, 0), partial(conv_k, comp, 0))
+            timed["resample_lines 480->576"] = (None, partial(resample_lines, rgb, 576))
+    key = "transcode interlaced ntsc->pal"
+    rgb = full_scene(480, dev)
+    fields = make_interlaced_pipeline(plan("ntsc"), "comb3", "kernel", dev)[0](rgb, 0)
+    conv_k, conv_p = both(make_interlaced_transcoder, plan("ntsc"), plan("pal"))
+    reset_counts()
+    fields_d = conv_k(fields, 0)
+    got = read_counts(key, QAM_1_1)
+    _check(tuple(fields_d.shape) == (2 * BATCH, 288, N), f"{key}: shape {tuple(fields_d.shape)}")
+    out = make_interlaced_pipeline(plan("pal"), "comb3", "kernel", dev)[1](fields_d, 0)
+    frame_row(key, out, resample_lines(rgb, 576), got, _max_err(fields_d, conv_p(fields, 0)))
+
+    # telecine: exact inverse at every cadence phase, the phase detected
+    one = smooth_scene(480, N, seed=2)
+    film = torch.tensor(np.stack([np.roll(one, 13 * i, axis=-1) for i in range(8)]),
+                        dtype=torch.float32, device=dev)
+    fields = telecine(film)
+    for phase in (0, 2, 4, 6, 8):
+        det, conf = detect_pulldown_phase(fields[phase:])
+        out = inverse_telecine(fields[phase:], det)
+        skip = 0 if phase == 0 else 4
+        _check(det == phase and torch.equal(out, film[skip : skip + out.shape[0]]),
+               f"telecine phase {phase}: detected {det}, inverse not exact")
+        print(f"telecine {tuple(film.shape)} -> {tuple(fields.shape)} from phase {phase}: "
+              f"detected {det} (confidence {conf:.1f}), inverse_telecine bit-exact on "
+              f"{tuple(out.shape)}")
+
+    # temporal_nr(sigma=None) above 2^24 elements: the lower quartile by sort
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.rand(2**24 + 2**20, generator=gen, device=dev)
+    lq = float(lower_quartile(d))
+    ref = float(np.percentile(d.cpu().numpy().astype(np.float64), 25.0))
+    print(f"lower_quartile of {d.numel()} elements: {lq:.9f} vs np.percentile {ref:.9f}")
+    _check(abs(lq - ref) <= 1e-6, f"lower_quartile disagrees with np.percentile: {lq}, {ref}")
+    clean = full_scene(576, dev, frames=48)
+    noisy = clean + 0.02 * torch.randn(clean.shape, generator=gen, device=dev)
+    with torch.inference_mode():
+        den = temporal_nr(noisy)
+    gain = psnr(den, clean) - psnr(noisy, clean)
+    print(f"temporal_nr(sigma=None) on {tuple(noisy.shape)} (motion metric "
+          f"{48 * 576 * N} > 2^24 elements): gain {gain:.3f} dB (> {NR_GAIN_DB})")
+    _check(bool(torch.isfinite(den).all()) and gain > NR_GAIN_DB, f"NR gain {gain} dB")
+    timed["temporal_nr sigma=None 48x3x576x720"] = (None, partial(temporal_nr, noisy))
+    small = noisy[:BATCH, :, :480]
+    timed["temporal_nr sigma=0.02 16x3x480x720"] = (None, partial(temporal_nr, small, 0.02))
+    return timed
+
+
+def time_frame_layer(card: str, timed: dict) -> dict:
+    """Phase 5e: the frame layer's round trips, kernel vs plain backend, and
+    the display-side pieces alone."""
+    import torch
+
+    times = {}
+    with torch.inference_mode():
+        for key, (plain, kernel) in timed.items():
+            times[key] = (time_pair(plain, kernel) if plain is not None
+                          else {"only": _stats(time_ms(kernel))})
+    print_times(card, "", None, times)
+    return times
+
+
+def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict:
+    """Phases 5/5c: the path's two kernels at its full shape against their
+    plain versions (held to the bounds here too), and its round trip."""
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
     from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.kernels import secam as sk
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
 
-    times = {}
-    for name, decoder in (("pal", "delayline"), ("niir", "avg")):
-        plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
-        lines = plan.cfg.active_lines
-        mpix = BATCH * lines * N / 1e6
-        rgb = full_scene(lines, dev)
-        with torch.inference_mode():
-            ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
-            cols = qk.phase_cols(plan, frame_line_index(plan, 0, BATCH, lines, dev))
+    plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
+    lines = plan.cfg.active_lines
+    rgb = full_scene(lines, dev)
+    with torch.inference_mode():
+        ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+        g = frame_line_index(plan, 0, BATCH, lines, dev)
+        if plan.cfg.is_fm:
+            isr = sk.isr_col(g)
+            comp = sk.encode_lines(plan, ycc, isr)
+            e_enc = _max_err(comp, sk.encode_lines_plain(plan, ycc, isr))
+            e_dec = _max_err(secam_rgb(plan, *sk.demodulate_lines(plan, comp, isr), g),
+                             secam_rgb(plan, *sk.demodulate_lines_plain(plan, comp, isr), g))
+            enc_atol = SECAM_ENC_ATOL
+            kernels = {
+                "secam_encode": (lambda: sk.encode_lines_plain(plan, ycc, isr),
+                                 lambda: sk.encode_lines(plan, ycc, isr)),
+                "secam_decode": (lambda: sk.demodulate_lines_plain(plan, comp, isr),
+                                 lambda: sk.demodulate_lines(plan, comp, isr)),
+            }
+        else:
+            cols = qk.phase_cols(plan, g)
             comp = qk.encode_lines(plan, ycc, cols)
             sep = stencil_signal(plan, comp, decoder)
             e_enc = _max_err(comp, qk.encode_lines_plain(plan, ycc, cols))
             e_dec = _max_err(qk.decode_lines(plan, sep, comp, cols),
                              qk.decode_lines_plain(plan, sep, comp, cols))
-            print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode "
-                  f"max|err| {e_enc:.3e} (<= {ENC_ATOL}), decode {e_dec:.3e} (<= {DEC_ATOL})")
-            _check(e_enc <= ENC_ATOL and e_dec <= DEC_ATOL, f"{name} kernels disagree")
-            rt_k, rt_p = roundtrips[name, decoder]
-            pair = {
-                f"qam_encode {name}": time_pair(
-                    lambda: qk.encode_lines_plain(plan, ycc, cols),
-                    lambda: qk.encode_lines(plan, ycc, cols)),
-                f"qam_decode {name}": time_pair(
-                    lambda: qk.decode_lines_plain(plan, sep, comp, cols),
-                    lambda: qk.decode_lines(plan, sep, comp, cols)),
-                f"{name} {decoder} roundtrip": time_pair(lambda: rt_p(rgb, 0),
-                                                         lambda: rt_k(rgb, 0)),
+            enc_atol = ENC_ATOL
+            kernels = {
+                "qam_encode": (lambda: qk.encode_lines_plain(plan, ycc, cols),
+                               lambda: qk.encode_lines(plan, ycc, cols)),
+                "qam_decode": (lambda: qk.decode_lines_plain(plan, sep, comp, cols),
+                               lambda: qk.decode_lines(plan, sep, comp, cols)),
             }
-        for key, (p_ms, k_ms) in pair.items():
-            print(f"time {key} {BATCH}x{lines}x{N} on {card}: kernel {k_ms:.4f} ms "
-                  f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
-                  f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
-        times.update(pair)
+        print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode max|err| "
+              f"{e_enc:.3e} (<= {enc_atol}), decode {e_dec:.3e} (<= {DEC_ATOL})")
+        _check(e_enc <= enc_atol and e_dec <= DEC_ATOL, f"{name} kernels disagree")
+        rt_k, rt_p = roundtrips[name, decoder]
+        kernels[f"{decoder} roundtrip"] = (lambda: rt_p(rgb, 0), lambda: rt_k(rgb, 0))
+        times = {key: time_pair(plain, kernel) for key, (plain, kernel) in kernels.items()}
+    print_times(card, f"{name} {BATCH}x{lines}x{N}", BATCH * lines * N / 1e6, times)
     return times
+
+
+def check_video(dev, card: str) -> dict:
+    """Phase 6: the chunked, resumable runner on the card."""
+    import glob
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    src = synthetic_device_source(480, N, seed=0, device=dev)
+    # on the card before any run, so no run's set-up copies it there
+    plan = make_plan(NTSC(), N).to(dev)
+    noise = {"noise_sigma": 0.02}
+    summaries = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(name, source, n_frames, **kw):
+            kw = {"decoder": "comb3", "chunk": VIDEO_CHUNK, "backend": "kernel", **kw}
+            return process_video(plan, source, n_frames, os.path.join(tmp, name),
+                                 device=dev, **kw)
+
+        label = f"video ntsc comb3 {VIDEO_FRAMES}x3x480x{N} chunk {VIDEO_CHUNK}"
+        reset_counts()
+        s = run("kernel", src, VIDEO_FRAMES)
+        chunks = VIDEO_FRAMES // VIDEO_CHUNK
+        got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+        _check(s["frames_processed_this_run"] == VIDEO_FRAMES, f"{label}: {s}")
+        print(f"{label}: min_psnr_db {s['min_psnr_db']} (expected {VIDEO_MIN_PSNR} +- "
+              f"{PSNR_TOL}), launches {got}, {s['mpix_per_s']} Mpix/s (first run, cold) on "
+              f"{card}")
+        _check(abs(s["min_psnr_db"] - VIDEO_MIN_PSNR) <= PSNR_TOL, f"{label}: {s}")
+        again = run("kernel", src, VIDEO_FRAMES)
+        _check(again["frames_processed_this_run"] == 0, f"resume processed frames: {again}")
+        print(f"{label}: the second call resumed and processed 0 frames")
+        # the host blocks on the card once per wave of chunks (the stacked
+        # metrics fetch), never per chunk: channel noise, NR and the
+        # parity-major comb3d included (the plan is already on the card)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run("sync", src, VIDEO_FRAMES, decoder="comb3d", interlaced=True,
+                    channel=dict(noise), nr=True)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
+        print(f"video interlaced comb3d noise 0.02 + nr, {VIDEO_FRAMES} frames in one wave: "
+              f"{len(syncs)} synchronising CUDA operation(s) (1 expected: the wave's fetch)")
+        _check(len(syncs) == 1, f"video runner syncs: {syncs}")
+        plain = run("plain", src, VIDEO_FRAMES, backend="plain")
+        _check(abs(plain["min_psnr_db"] - s["min_psnr_db"]) <= PSNR_TOL, f"plain: {plain}")
+        # throughput of fresh runs, warm, in the order plain, kernel, kernel, plain, twice
+        rates = {"kernel": [], "plain": []}
+        for i, backend in enumerate(("plain", "kernel", "kernel", "plain") * 2):
+            rates[backend].append(run(f"rate_{i}", src, VIDEO_FRAMES,
+                                      backend=backend)["mpix_per_s"])
+        print(f"{label}: kernel backend {_fmt_rate(rates['kernel'])} Mpix/s, plain backend "
+              f"{_fmt_rate(rates['plain'])} Mpix/s (median [min, max] of 4 fresh runs), "
+              f"on {card}")
+        summaries.update(kernel=s, plain=plain, rates=rates)
+
+        for name, kw in (("progressive comb3", {}),
+                         ("interlaced comb3d", {"decoder": "comb3d", "interlaced": True})):
+            outs = {}
+            for chunk in (16, 12):
+                d = f"{name} {chunk}".replace(" ", "_")
+                run(d, src, INDEP_FRAMES, chunk=chunk, channel=dict(noise), nr=True,
+                    save_outputs=True, **kw)
+                outs[chunk] = np.concatenate([
+                    np.load(f) for f in sorted(glob.glob(os.path.join(tmp, d, "rgb_*.npy")))])
+            _check(outs[16].shape == (INDEP_FRAMES, 3, 480, N), f"{name}: {outs[16].shape}")
+            e = float(np.abs(outs[16] - outs[12]).max())
+            print(f"video {name} noise 0.02 + nr, {INDEP_FRAMES} frames: chunk 16 vs 12 "
+                  f"max|diff| {e:.3e} (<= {CHUNK_ATOL})")
+            _check(e <= CHUNK_ATOL, f"{name}: chunk-size dependent output: {e}")
+
+        static = full_scene(480, dev)
+        raw = run("raw", lambda start, count: static[:count], BATCH, channel=dict(noise))
+        den = run("den", lambda start, count: static[:count], BATCH, channel=dict(noise),
+                  nr=True)
+        gain = den["min_psnr_db"] - raw["min_psnr_db"]
+        print(f"video nr on a noisy static source: {raw['min_psnr_db']} -> "
+              f"{den['min_psnr_db']} dB, gain {gain:.2f} dB (> {NR_GAIN_DB})")
+        _check(gain > NR_GAIN_DB, f"video NR gain {gain} dB")
+    return summaries
 
 
 def main() -> None:
@@ -410,15 +777,12 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this smoke test runs only on a CUDA GPU")
     sys.path.insert(0, REPO)
-    from color_modem_tpu_torch import NIIR, NTSC, PAL, SECAM
-    from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+    from color_modem_tpu_torch import NIIR, NTSC, PAL
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import qam as qk
-    from color_modem_tpu_torch.kernels import secam as sk
     from color_modem_tpu_torch.kernels.build import load_library
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
-    from color_modem_tpu_torch.utils.metrics import psnr
-    from color_modem_tpu_torch.utils.testimages import smooth_scene
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -428,6 +792,7 @@ def main() -> None:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}")
     dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
 
     # --- 2. build -----------------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -473,144 +838,53 @@ def main() -> None:
         max_err["secam_encode"] = max(max_err["secam_encode"], e_enc)
         max_err["secam_decode"] = max(max_err["secam_decode"], e_rgb)
 
-    # --- 4. main path -------------------------------------------------------
-    plan = make_plan(NTSC(), N)
-    lines = plan.cfg.active_lines
-    one = smooth_scene(lines, N, seed=0)
-    rgb = torch.tensor(np.broadcast_to(one, (BATCH, 3, lines, N)), dtype=torch.float32,
-                       device=dev)
-    _, _, rt_kernel = make_pipeline(plan, "comb3", backend="kernel", device=dev)
-    qk.reset_launches()
-    out = rt_kernel(rgb, 0)
-    torch.cuda.synchronize()
-    launches = dict(qk.LAUNCHES)
-    print(f"main path launches: {launches}")
-    _check(launches == {"qam_encode": 1, "qam_decode": 1},
-           f"one round trip must launch each kernel once: {launches}")
-    _check(tuple(out.shape) == (BATCH, 3, lines, N), f"output shape {tuple(out.shape)}")
-    _check(bool(torch.isfinite(out).all()), "non-finite output")
-    q = psnr(out, rgb)
-    print(f"main path ntsc comb3 {BATCH}x3x{lines}x{N}: psnr {q:.4f} dB "
-          f"(expected {PSNR_EXPECTED} +- {PSNR_TOL})")
-    _check(abs(q - PSNR_EXPECTED) <= PSNR_TOL, f"round-trip PSNR {q} dB")
-
-    plain_plan = make_plan(NTSC(), N)
-    _, _, rt_plain = make_pipeline(plain_plan, "comb3", backend="plain", device=dev)
-    e_rt = _max_err(out, rt_plain(rgb, 0))
-    print(f"main path kernel vs plain backend on the card: max|err| {e_rt:.3e} "
-          f"(<= {DEC_ATOL})")
-    _check(e_rt <= DEC_ATOL, f"kernel and plain round trips disagree: {e_rt}")
-    _, _, rt_cpu = make_pipeline(make_plan(NTSC(), N), "comb3", backend="plain",
-                                 device="cpu")
-    small = rgb[:2, :, :64]
-    e_cpu = _max_err(rt_kernel(small, 7).cpu(), rt_cpu(small.cpu(), 7))
-    print(f"small input (2x3x64x{N}) kernel on the card vs plain on the CPU: "
-          f"max|err| {e_cpu:.3e} (<= {DEC_ATOL})")
-    _check(e_cpu <= DEC_ATOL, f"card and CPU round trips disagree: {e_cpu}")
-
-    # --- 4b. the SECAM path ---------------------------------------------------
-    srgb = torch.tensor(
-        np.broadcast_to(smooth_scene(SECAM_LINES, N, seed=0), (BATCH, 3, SECAM_LINES, N)),
-        dtype=torch.float32, device=dev)
+    # --- 4. main path; 4b. the SECAM path -------------------------------------
+    paths = {}
+    rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED, QAM_1_1)
+    paths["ntsc", "comb3"] = (rt_k, rt_p)
     for decoder, expected in SECAM_PSNR.items():
-        _, _, rt_k = make_pipeline(make_plan(SECAM(), N), decoder, backend="kernel",
-                                   device=dev)
-        sk.reset_launches()
-        out = rt_k(srgb, 0)
-        torch.cuda.synchronize()
-        got = dict(sk.LAUNCHES)
-        print(f"secam {decoder} path launches: {got}")
-        _check(got == {"secam_encode": 1, "secam_decode": 1},
-               f"one SECAM round trip must launch each kernel once: {got}")
-        _check(tuple(out.shape) == (BATCH, 3, SECAM_LINES, N),
-               f"secam output shape {tuple(out.shape)}")
-        _check(bool(torch.isfinite(out).all()), "non-finite secam output")
-        q = psnr(out, srgb)
-        print(f"secam {decoder} {BATCH}x3x{SECAM_LINES}x{N}: psnr {q:.4f} dB "
-              f"(expected {expected} +- {PSNR_TOL})")
-        _check(abs(q - expected) <= PSNR_TOL, f"secam {decoder} round-trip PSNR {q} dB")
-        _, _, rt_p = make_pipeline(make_plan(SECAM(), N), decoder, backend="plain",
-                                   device=dev)
-        e_rt = _max_err(out, rt_p(srgb, 0))
-        _, _, rt_c = make_pipeline(make_plan(SECAM(), N), decoder, backend="plain",
-                                   device="cpu")
-        small = srgb[:2, :, :64]
-        e_cpu = _max_err(rt_k(small, 7).cpu(), rt_c(small.cpu(), 7))
-        print(f"secam {decoder} kernel vs plain backend on the card: max|err| {e_rt:.3e}; "
-              f"small input (2x3x64x{N}) kernel on the card vs plain on the CPU: "
-              f"{e_cpu:.3e} (each <= {DEC_ATOL})")
-        _check(e_rt <= DEC_ATOL, f"secam kernel and plain round trips disagree: {e_rt}")
-        _check(e_cpu <= DEC_ATOL, f"secam card and CPU round trips disagree: {e_cpu}")
+        rt_k, rt_p, got = check_path(dev, "secam", decoder, expected, SECAM_1_1)
         if decoder == "interp":
-            launches.update(got)
-            srt_kernel, srt_plain = rt_k, rt_p
+            launches.update({k: got[k] for k in SECAM_1_1})
+            paths["secam", decoder] = (rt_k, rt_p)
 
     # --- 4c. the rest of the QAM family ---------------------------------------
-    family = {}
-    for (name, decoder), (expected, want) in QAM_FAMILY.items():
-        family[name, decoder] = check_qam_path(dev, name, decoder, expected, want)
+    for (name, decoder), (expected, (n_enc, n_dec)) in QAM_FAMILY.items():
+        rt_k, rt_p, _ = check_path(dev, name, decoder, expected,
+                                   {"qam_encode": n_enc, "qam_decode": n_dec})
+        paths[name, decoder] = (rt_k, rt_p)
 
     # --- 4d. raster, channel and the receiver's countermeasures -----------------
     check_channel(dev)
 
-    # --- 5. timing ------------------------------------------------------------
-    mpix = BATCH * lines * N / 1e6
-    gline = frame_line_index(plan, 0, BATCH, lines, dev)
-    with torch.inference_mode():
-        from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
+    # --- 4e. the frame layer ----------------------------------------------------
+    timed = check_frame_layer(dev)
 
-        ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
-        cols = qk.phase_cols(plan, gline)
-        comp = qk.encode_lines(plan, ycc, cols)
-        sep = stencil_signal(plan, comp, "comb3")
-        times = {
-            "qam_encode": time_pair(lambda: qk.encode_lines_plain(plan, ycc, cols),
-                                    lambda: qk.encode_lines(plan, ycc, cols)),
-            "qam_decode": time_pair(lambda: qk.decode_lines_plain(plan, sep, comp, cols),
-                                    lambda: qk.decode_lines(plan, sep, comp, cols)),
-            "roundtrip": time_pair(lambda: rt_plain(rgb, 0), lambda: rt_kernel(rgb, 0)),
-        }
-    for name, (p_ms, k_ms) in times.items():
-        print(f"time {name} {BATCH}x{lines}x{N} on {card}: kernel {k_ms:.4f} ms "
-              f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
-              f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
+    # --- 5. timing: main path and SECAM; 5c. PAL/NIIR; 5e. frame layer ---------
+    times = {}
+    for name, decoder in (("ntsc", "comb3"), ("secam", "interp"), ("pal", "delayline"),
+                          ("niir", "avg")):
+        times[name] = time_path(dev, card, name, decoder, paths)
+    time_frame_layer(card, timed)
 
-    # --- 5b. SECAM timing -----------------------------------------------------
-    splan = make_plan(SECAM(), N).to(dev)
-    mpix = BATCH * SECAM_LINES * N / 1e6
-    with torch.inference_mode():
-        ycc = apply_mat3(splan.rgb_to_ycc, srgb).contiguous()
-        isr = sk.isr_col(frame_line_index(splan, 0, BATCH, SECAM_LINES, dev))
-        comp = sk.encode_lines(splan, ycc, isr)
-        stimes = {
-            "secam_encode": time_pair(lambda: sk.encode_lines_plain(splan, ycc, isr),
-                                      lambda: sk.encode_lines(splan, ycc, isr)),
-            "secam_decode": time_pair(lambda: sk.demodulate_lines_plain(splan, comp, isr),
-                                      lambda: sk.demodulate_lines(splan, comp, isr)),
-            "secam_roundtrip": time_pair(lambda: srt_plain(srgb, 0),
-                                         lambda: srt_kernel(srgb, 0)),
-        }
-    for name, (p_ms, k_ms) in stimes.items():
-        print(f"time {name} {BATCH}x{SECAM_LINES}x{N} on {card}: kernel {k_ms:.4f} ms "
-              f"({mpix / k_ms * 1e3:.1f} Mpix/s), plain {p_ms:.4f} ms "
-              f"({mpix / p_ms * 1e3:.1f} Mpix/s)")
-    times.update(stimes)
-
-    # --- 5c. QAM-family timing ------------------------------------------------
-    time_qam_family(dev, card, family)
+    # --- 6. the video runner ----------------------------------------------------
+    check_video(dev, card)
 
     _check("jax" not in sys.modules, "the port loaded jax")
-    replaces = {"qam_encode": "color_modem_tpu/kernels/qam.py:85",
-                "qam_decode": "color_modem_tpu/kernels/qam.py:129",
-                "secam_encode": "color_modem_tpu/kernels/secam.py:118",
-                "secam_decode": "color_modem_tpu/kernels/secam.py:231"}
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s")
+    replaces = {"qam_encode": ("ntsc", "color_modem_tpu/kernels/qam.py:85"),
+                "qam_decode": ("ntsc", "color_modem_tpu/kernels/qam.py:129"),
+                "secam_encode": ("secam", "color_modem_tpu/kernels/secam.py:118"),
+                "secam_decode": ("secam", "color_modem_tpu/kernels/secam.py:231")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"color_modem_tpu_torch/csrc/{name}.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[name][1],
-         "plain_ms": times[name][0]}
-        for name in replaces
+         "replaces": where, "launches": launches[name],
+         "max_abs_err": max_err[name], "ms": times[path][name]["kernel"][0],
+         "plain_ms": times[path][name]["plain"][0],
+         "ms_spread": list(times[path][name]["kernel"][1:]),
+         "plain_ms_spread": list(times[path][name]["plain"][1:])}
+        for name, (path, where) in replaces.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

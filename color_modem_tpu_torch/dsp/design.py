@@ -4,12 +4,15 @@ Port of ``color_modem_tpu/dsp/design.py``: the windowed-sinc low/band-pass
 designs of the QAM family, and the frequency-sampled designs of SECAM
 (pre-/de-emphasis, anti-cloche and cloche, the band mask, the
 differentiator), and the band-limited Hilbert FIR of the channel model.  The SECAM responses have intrinsic phase, so their taps
-are asymmetric (the differentiator's antisymmetric).  The arithmetic is the
-same NumPy code, so the taps are bit-identical to the JAX package's
-(tests/test_torch_plan.py).
+are asymmetric (the differentiator's antisymmetric).  The Kaiser-windowed
+sinc resampling matrix of ``dsp/resample.py`` is designed here too.  The
+arithmetic is the same NumPy code, so the taps are bit-identical to the JAX
+package's (tests/test_torch_plan.py, tests/test_torch_frame.py).
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -180,3 +183,35 @@ def raised_cosine_bandpass_response(f, f_lo, f_hi, transition):
     lo = edge((f - (f_lo - transition)) / transition)
     hi = 1.0 - edge((f - f_hi) / transition)
     return lo * hi
+
+
+# --- resampling ----------------------------------------------------------------
+
+
+@lru_cache(maxsize=32)
+def resample_matrix(n_in: int, n_out: int, taps_per_output: int = 17) -> np.ndarray:
+    """(n_in, n_out) float32 M with ``row @ M`` = windowed-sinc resample.
+
+    Sample i covers [i, i+1)/n of the active line (pixel centres at
+    (i + 0.5)/n).  Kaiser-windowed sinc (beta 8), cutoff at min(n_in, n_out)
+    so decimation is anti-aliased; each column is renormalised to unity DC
+    gain, so flat fields stay exactly flat.
+    """
+    ratio = n_in / n_out                      # input samples per output sample
+    cutoff = min(1.0, 1.0 / ratio)            # in units of the input Nyquist
+    half = taps_per_output / 2.0 * max(1.0, ratio)
+    mat = np.zeros((n_in, n_out), dtype=np.float64)
+    j = np.arange(n_in)
+    for o in range(n_out):
+        center = (o + 0.5) * ratio - 0.5      # input-sample position
+        x = j - center
+        keep = np.abs(x) <= half
+        xk = x[keep]
+        w = np.i0(8.0 * np.sqrt(np.maximum(0.0, 1.0 - (xk / half) ** 2)))
+        w /= np.i0(8.0)
+        kern = cutoff * np.sinc(cutoff * xk) * w
+        s = kern.sum()
+        mat[keep, o] = kern / (s if abs(s) > 1e-12 else 1.0)
+    mat = mat.astype(np.float32)
+    mat.flags.writeable = False  # the cache hands the same array to every caller
+    return mat

@@ -46,13 +46,21 @@ def sample_phase_ramp(fsc: float, fs: float, n_samples: int) -> np.ndarray:
     return TWO_PI * frac
 
 
+def frame_indices(frame0, n_frames: int, device: torch.device | str) -> torch.Tensor:
+    """(n_frames,) int32 frame numbers frame0, frame0 + 1, ...  ``frame0`` is
+    an int or a tensor; an int is not copied to the device (a blocking copy
+    that would stall the host on every batch)."""
+    if isinstance(frame0, torch.Tensor):
+        return (torch.arange(n_frames, dtype=torch.int32, device=device)
+                + frame0.to(device=device, dtype=torch.int32))
+    return torch.arange(int(frame0), int(frame0) + n_frames, dtype=torch.int32, device=device)
+
+
 def global_line_index(
     frame0, n_frames: int, n_lines: int, total_lines: int,
     device: torch.device | str,
 ) -> torch.Tensor:
     """Absolute line index g[b, l] = (frame0 + b) * total_lines + l, int32."""
-    b = torch.arange(n_frames, dtype=torch.int32, device=device) + torch.as_tensor(
-        frame0, dtype=torch.int32, device=device
-    )
+    b = frame_indices(frame0, n_frames, device)
     l = torch.arange(n_lines, dtype=torch.int32, device=device)
     return b[:, None] * int(total_lines) + l[None, :]

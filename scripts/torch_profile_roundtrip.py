@@ -1,13 +1,20 @@
 """Where the time of the PyTorch port's round trips goes on a CUDA GPU.
 
-Traces a round trip with ``torch.profiler`` over a short steady window and
-prints, per backend: the card, the host-clock time per round trip, the
-device busy share (kernel time over the window) and the device time by
-kernel.  Paths: ``ntsc-comb3`` (the main path, 16x3x480x720) and
-``secam-interp`` (16x3x576x720).
+Traces a path with ``torch.profiler`` over a short steady window and
+prints, per backend: the card, the host-clock time per call, the host time
+the profiler attributes to operators, the device busy share (kernel time
+over the window) and the device time by kernel.  Paths, 16 frames x 720
+samples at the standard's active lines:
+
+* ``ntsc-comb3`` (the main path) and ``secam-interp``: ``make_pipeline``;
+* ``ntsc-comb3-interlaced``: ``make_interlaced_pipeline`` (32 fields);
+* ``ntsc-svideo``: ``make_svideo_pipeline``;
+* ``ntsc-pal-transcode``: ``make_transcoder`` on an NTSC composite;
+* ``ntsc-comb3-video``: one ``process_video`` run of 48 frames in chunks of
+  16 from ``synthetic_device_source``, into a fresh directory each call.
 
     python3 scripts/torch_profile_roundtrip.py [--iters 20] [--backend kernel plain]
-        [--path ntsc-comb3 secam-interp]
+        [--path ntsc-comb3 secam-interp ...]
 """
 
 from __future__ import annotations
@@ -16,49 +23,93 @@ import argparse
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-#: path -> (standard, decoder, lines)
-PATHS = {"ntsc-comb3": ("NTSC", "comb3", 480), "secam-interp": ("SECAM", "interp", 576)}
+#: path -> (layer, standard, decoder or destination standard)
+PATHS = {
+    "ntsc-comb3": ("pipeline", "NTSC", "comb3"),
+    "secam-interp": ("pipeline", "SECAM", "interp"),
+    "ntsc-comb3-interlaced": ("interlaced", "NTSC", "comb3"),
+    "ntsc-svideo": ("svideo", "NTSC", None),
+    "ntsc-pal-transcode": ("transcode", "NTSC", "PAL"),
+    "ntsc-comb3-video": ("video", "NTSC", "comb3"),
+}
+
+
+def make_call(path: str, backend: str, dev, tmp: str):
+    """A zero-argument callable running ``path`` once, and its label."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    import color_modem_tpu_torch as cmt
+    from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
+    from color_modem_tpu_torch.frame.transcode import make_transcoder
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    layer, standard, arg = PATHS[path]
+    plan = make_plan(getattr(cmt, standard)(), 720)
+    lines = plan.cfg.active_lines
+    rgb = torch.tensor(np.broadcast_to(smooth_scene(lines, 720, seed=0), (16, 3, lines, 720)),
+                       dtype=torch.float32, device=dev)
+    label = f"{path} 16x3x{lines}x720"
+    if layer == "pipeline":
+        rt = make_pipeline(plan, arg, backend, device=dev)[2]
+    elif layer == "interlaced":
+        rt = make_interlaced_pipeline(plan, arg, backend, device=dev)[2]
+    elif layer == "svideo":
+        rt = make_svideo_pipeline(plan, backend, device=dev)[2]
+    elif layer == "transcode":
+        comp = make_pipeline(plan, "notch", backend, device=dev)[0](rgb, 0)
+        conv = make_transcoder(plan, make_plan(getattr(cmt, arg)(), 720), backend=backend,
+                               device=dev)
+        return (lambda: conv(comp, 0)), label
+    else:
+        src = synthetic_device_source(lines, 720, seed=0, device=dev)
+        runs = itertools.count()
+        return (lambda: process_video(plan, src, 48, os.path.join(tmp, str(next(runs))),
+                                      decoder=arg, chunk=16, backend=backend, device=dev),
+                f"{path} 48x3x{lines}x720 chunk 16")
+    return (lambda: rt(rgb, 0)), label
 
 
 def profile(path: str, backend: str, iters: int, card: str) -> None:
-    import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    import color_modem_tpu_torch as cmt
-    from color_modem_tpu_torch.frame.pipeline import make_pipeline
-    from color_modem_tpu_torch.modem.plan import make_plan
-    from color_modem_tpu_torch.utils.testimages import smooth_scene
-
-    standard, decoder, lines = PATHS[path]
     dev = torch.device("cuda:0")
-    rgb = torch.tensor(np.broadcast_to(smooth_scene(lines, 720, seed=0), (16, 3, lines, 720)),
-                       dtype=torch.float32, device=dev)
-    _, _, rt = make_pipeline(make_plan(getattr(cmt, standard)(), 720), decoder, backend,
-                             device=dev)
-    for _ in range(5):
-        rt(rgb, 0)
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            rt(rgb, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        call, label = make_call(path, backend, dev, tmp)
+        for _ in range(5):
+            call()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"== {path} 16x3x{lines}x720, backend {backend} on {card}: {wall_us / iters / 1e3:.4f} ms per round trip "
-          f"(host clock, profiler on), device busy {busy_us / iters / 1e3:.4f} ms "
-          f"= {100 * busy_us / wall_us:.1f}% of the window")
+    host_us = sum(e.self_cpu_time_total for e in events if e.device_type == DeviceType.CPU)
+    print(f"== {label}, backend {backend} on {card}: {wall_us / iters / 1e3:.4f} ms per call "
+          f"(host clock, profiler on), host operators {host_us / iters / 1e3:.4f} ms, "
+          f"device busy {busy_us / iters / 1e3:.4f} ms = {100 * busy_us / wall_us:.1f}% "
+          "of the window")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         share = 100 * e.self_device_time_total / busy_us
-        print(f"  {e.self_device_time_total / iters:9.2f} us/rt {share:5.1f}%  "
+        print(f"  {e.self_device_time_total / iters:9.2f} us/call {share:5.1f}%  "
               f"x{e.count // iters:<3d} {e.key[:110]}")
 
 

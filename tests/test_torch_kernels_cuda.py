@@ -235,3 +235,79 @@ def test_burst_locked_decode_under_channel_phase(dev):
     assert qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 1}
     assert abs(psnr(locked, rgb) - 39.4822) <= 0.02
     assert abs(psnr(dec(bad, 0), rgb) - 27.3564) <= 0.02
+
+
+def test_interlaced_comb3d_parity_major_one_launch_each(dev):
+    """The parity-major regroup hands the decode wrapper transposed planes
+    and a transposed line map: one launch for all 32 fields, and the plain
+    backend's result on the card."""
+    from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
+
+    cfg = ALL_STANDARDS["ntsc"]()
+    rgb = _scene(480, dev)
+    _, _, rt = make_interlaced_pipeline(make_plan(cfg, 720), "comb3d", "kernel", dev)
+    _, _, rt_p = make_interlaced_pipeline(make_plan(cfg, 720), "comb3d", "plain", dev)
+    qk.reset_launches()
+    out = rt(rgb, 0)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    assert abs(psnr(out, rgb) - 47.4153) <= 0.02
+    assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
+
+
+def test_transcode_ntsc_to_pal_through_the_kernels(dev):
+    """One NTSC decode launch and one PAL encode launch per batch; the
+    plain backend's composite on the card to the decode bound."""
+    from color_modem_tpu_torch.frame.transcode import make_transcoder
+
+    ntsc, pal = ALL_STANDARDS["ntsc"](), ALL_STANDARDS["pal"]()
+    rgb = _scene(480, dev)
+    enc, _, _ = make_pipeline(make_plan(ntsc, 720), "notch", backend="kernel", device=dev)
+    comp = enc(rgb, 0)
+    conv = make_transcoder(make_plan(ntsc, 720), make_plan(pal, 720), backend="kernel",
+                           device=dev)
+    conv_p = make_transcoder(make_plan(ntsc, 720), make_plan(pal, 720), backend="plain",
+                             device=dev)
+    qk.reset_launches()
+    out = conv(comp, 0)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    assert out.shape == (16, 576, 720)
+    assert float((out - conv_p(comp, 0)).abs().max()) <= DEC_ATOL
+
+
+@pytest.mark.parametrize("interlaced", [False, True])
+def test_round_trip_never_blocks_the_host(dev, interlaced):
+    """An int frame0 costs no host-to-device copy, so a round trip enqueues
+    without waiting for the card (the plans are on the card already)."""
+    from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
+
+    make = make_interlaced_pipeline if interlaced else make_pipeline
+    _, _, rt = make(make_plan(ALL_STANDARDS["ntsc"](), 720), "comb3d", "kernel", dev)
+    rgb = _scene(480, dev)
+    rt(rgb, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rt(rgb, 3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_temporal_nr_estimator_above_2_pow_24(dev):
+    """sigma=None takes the lower quartile of a motion metric with more than
+    2^24 elements (torch.quantile refuses those): the sort-based quartile
+    against NumPy, and the denoising gain on a noisy static scene."""
+    from color_modem_tpu_torch.frame.nr import lower_quartile, temporal_nr
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d = torch.rand(2**24 + 2**20, generator=gen, device=dev)
+    ref = np.percentile(d.cpu().numpy().astype(np.float64), 25.0)
+    assert abs(float(lower_quartile(d)) - ref) <= 1e-6
+    clean = torch.tensor(np.broadcast_to(smooth_scene(576, 720, seed=0), (48, 3, 576, 720)),
+                         dtype=torch.float32, device=dev)
+    noisy = clean + 0.02 * torch.randn(clean.shape, generator=gen, device=dev)
+    out = temporal_nr(noisy)
+    assert bool(torch.isfinite(out).all())
+    assert psnr(out, clean) - psnr(noisy, clean) > 2.5

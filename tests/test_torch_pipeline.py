@@ -195,6 +195,17 @@ def test_port_never_imports_jax():
         assert psnr(rt(rgb, 0), rgb) > 25.0
         bad = channel.impair(plan, enc(rgb, 0), chroma_gain=0.7)
         assert psnr(dec(bad, 0), rgb) > 25.0
+        import tempfile
+        from color_modem_tpu_torch.dsp import resample
+        from color_modem_tpu_torch.frame import (
+            deinterlace, interlace, nr, svideo, telecine, transcode, video)
+        from color_modem_tpu_torch.utils import manifest
+        _, _, rt = interlace.make_interlaced_pipeline(make_plan(NTSC(), 720), "comb3")
+        assert psnr(rt(rgb, 0), rgb) > 28.0
+        with tempfile.TemporaryDirectory() as d:
+            s = video.process_video(make_plan(PAL(), 720), video.synthetic_source(16, 720),
+                                    3, d, decoder="delayline", chunk=2)
+        assert s["frames_processed_this_run"] == 3 and s["min_psnr_db"] > 25.0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("ok")
     """)

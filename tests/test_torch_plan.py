@@ -229,6 +229,17 @@ def test_global_line_index_bit_equal_near_2_31(total_lines):
     )
 
 
+@pytest.mark.parametrize("kind", ["numpy int", "0-dim tensor"])
+def test_global_line_index_takes_frame0_as_int_or_tensor(kind):
+    """An int frame0 takes the no-copy arange; a tensor frame0 is added on
+    the device.  Both give the JAX package's indices."""
+    frame0 = INT32_MAX // 625 - 16
+    f0 = np.int64(frame0) if kind == "numpy int" else torch.tensor(frame0, dtype=torch.int32)
+    got = nco.global_line_index(f0, 16, 288, 625, "cpu")
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), np.asarray(jnco.global_line_index(frame0, 16, 288, 625)))
+
+
 def test_sample_phase_ramp_matches_jax():
     args = (315e6 / 88, 13.5e6, N)
     assert np.array_equal(nco.sample_phase_ramp(*args), jnco.sample_phase_ramp(*args))
