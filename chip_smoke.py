@@ -10,8 +10,10 @@ Phases; any failure raises and exits nonzero:
 2. build the CUDA kernels from ``color_modem_tpu_torch/csrc`` (TF32 off);
 3. each QAM kernel against its plain PyTorch version on the card: NTSC at
    16x480 lines, PAL and NIIR at 16x576 lines, 720 samples, seeded inputs;
-3b. the shared FIR (``csrc/fir.cuh``) against ``np.convolve`` on asymmetric
-   taps, zero and held edges; each SECAM kernel against its plain version at
+3b. the SECAM kernels' FIR (``csrc/fir.cuh``) against ``np.convolve`` on
+   asymmetric taps, zero and held edges, and the QAM kernels' tensor-core FIR
+   (``csrc/band_fir.cuh``) the same way, zero edges, <= 2e-6, over 16 shapes
+   (ragged last tiles of lines included); each SECAM kernel against its plain version at
    16x576x720 and 4x576x1440: encode <= 2e-4, decoded RGB <= 5e-4, and the
    raw demodulated component's error printed;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
@@ -41,7 +43,10 @@ Phases; any failure raises and exits nonzero:
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
-   case); 5e the frame layer's round trips, the resample matmul and NR;
+   case); per kernel its bound (bytes or operations, ``kernels/measure.py``)
+   and the share of it reached, and for the QAM kernels one grouped conv2d
+   of their FIRs alone as the library yardstick; 5e the frame layer's
+   round trips, the resample matmul and NR;
 6. the video runner: ``process_video`` NTSC comb3 at 480x720, 48 frames in
    chunks of 16 from the device source (PSNR +- 0.02 dB of the JAX CPU run,
    3 launches of each kernel), a resume that processes nothing, one
@@ -70,6 +75,7 @@ PSNR_EXPECTED, PSNR_TOL = 46.62, 0.02
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4  # kernel vs plain (tests/test_kernels.py bounds)
 SECAM_ENC_ATOL = 2e-4  # the phase scan sums in another order than torch.cumsum
 FIR_ATOL = 1e-6        # fir.cuh vs np.convolve, taps normalised to sum |t| ~ 1
+BAND_FIR_ATOL = 2e-6   # band_fir.cuh (three TF32 passes) vs np.convolve, the same taps
 YC_ATOL = 2.4e-7       # S-Video (comp - Y) + Y vs comp: float32 rounding, 2 ulp at 1.5
 CHUNK_ATOL = 1e-6      # video outputs at two chunk sizes (tests/test_video.py)
 NR_GAIN_DB = 2.5       # tests/test_video.py::test_video_nr
@@ -168,26 +174,6 @@ def read_counts(label: str, want: dict) -> dict:
     return got
 
 
-def time_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> list[float]:
-    """Milliseconds per call in each of ``windows`` CUDA-event windows of
-    ``iters`` back-to-back calls."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    per_call = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        per_call.append(start.elapsed_time(stop) / iters)
-    return per_call
-
-
 def _stats(windows: list[float]) -> tuple[float, float, float]:
     return statistics.median(windows), min(windows), max(windows)
 
@@ -195,6 +181,8 @@ def _stats(windows: list[float]) -> tuple[float, float, float]:
 def time_pair(plain, kernel) -> dict:
     """``{"plain": (median, min, max), "kernel": (...)}`` ms per call, over
     10 windows each, taken in the order plain, kernel, kernel, plain."""
+    from color_modem_tpu_torch.kernels.measure import time_ms
+
     p1, k1, k2, p2 = time_ms(plain), time_ms(kernel), time_ms(kernel), time_ms(plain)
     return {"plain": _stats(p1 + p2), "kernel": _stats(k1 + k2)}
 
@@ -257,6 +245,37 @@ def check_fir(dev) -> float:
                   f"{'held' if held else 'zero'} edge: max|err| {e:.3e} (<= {FIR_ATOL})")
             _check(e <= FIR_ATOL, f"fir.cuh disagrees with np.convolve: {e}")
             worst = max(worst, e)
+    return worst
+
+
+def check_band_fir(dev) -> float:
+    """band_fir.cuh through csrc/band_fir_check.cu against np.convolve on
+    random asymmetric taps: taps longer than the line, widths that are not
+    multiples of 8, lines cut into spans, 17 lines (a ragged last tile of
+    16) and 7681 lines at the main path's width."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.kernels import fir as fk
+
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    shapes = [(t, n, 17) for t in (31, 129, 259) for n in (61, 97, 720, 722, 1440)]
+    for ntaps, n, lines in shapes + [(129, 720, 7681)]:
+        taps = rng.normal(size=ntaps) / ntaps
+        x = rng.normal(size=(lines, n)).astype(np.float32)
+        h = (ntaps - 1) // 2
+        ref = np.stack([np.convolve(np.pad(r.astype(np.float64), h), taps, "same")[h : h + n]
+                        for r in x])
+        got = fk.band_fir_lines(torch.tensor(x, device=dev),
+                                torch.tensor(taps, dtype=torch.float32, device=dev))
+        torch.cuda.synchronize()
+        e = float(np.abs(got.cpu().numpy() - ref).max())
+        _check(e <= BAND_FIR_ATOL,
+               f"band_fir.cuh disagrees with np.convolve at {lines}x{n}, {ntaps} taps: {e}")
+        worst = max(worst, e)
+    print(f"band_fir.cuh vs np.convolve, {len(shapes) + 1} shapes (taps 31/129/259, widths "
+          f"61-1440, 17 and 7681 lines): max|err| {worst:.3e} (<= {BAND_FIR_ATOL})")
     return worst
 
 
@@ -613,6 +632,8 @@ def time_frame_layer(card: str, timed: dict) -> dict:
     the display-side pieces alone."""
     import torch
 
+    from color_modem_tpu_torch.kernels.measure import time_ms
+
     times = {}
     with torch.inference_mode():
         for key, (plain, kernel) in timed.items():
@@ -620,6 +641,33 @@ def time_frame_layer(card: str, timed: dict) -> dict:
                           else {"only": _stats(time_ms(kernel))})
     print_times(card, "", None, times)
     return times
+
+
+def qam_library_calls(plan, ycc, sep, comp, cols) -> dict:
+    """The yardstick of each QAM kernel: one grouped conv2d that runs the
+    kernel's FIRs alone on its inputs (TF32 off), checked against the plain
+    FIRs.  It computes less than the kernel (no carrier, mix or luma) and the
+    port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from color_modem_tpu_torch.dsp.apply import fir_same
+    from color_modem_tpu_torch.kernels import qam as qk
+
+    g, _, l, n = ycc.shape
+    t = plan.c1_lpf.numel()
+    pad = (0, (t - 1) // 2)
+    sin, cos = qk._carrier(cols[:, 0].reshape(g, l, 1), plan)
+    cb = fir_same(sep, plan.chroma_bpf_mat)
+    arms = torch.stack([sep, 2.0 * cb * sin, 2.0 * cb * cos], dim=1)
+    w_enc = torch.stack([plan.c1_lpf, plan.c2_lpf]).flip(-1).reshape(2, 1, 1, t)
+    w_dec = torch.stack([plan.chroma_bpf, plan.c1_lpf, plan.c2_lpf]).flip(-1).reshape(3, 1, 1, t)
+    calls = {"qam_encode": partial(F.conv2d, ycc[:, 1:3], w_enc, padding=pad, groups=2),
+             "qam_decode": partial(F.conv2d, arms, w_dec, padding=pad, groups=3)}
+    e = max(_max_err(calls["qam_encode"]()[:, 0], fir_same(ycc[:, 1], plan.c1_lpf_mat)),
+            _max_err(calls["qam_decode"]()[:, 2], fir_same(arms[:, 2], plan.c2_lpf_mat)))
+    _check(e <= 1e-5, f"the conv2d yardstick is not the kernels' FIRs: {e}")
+    return calls
 
 
 def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict:
@@ -632,6 +680,7 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
     from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import qam as qk
     from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels.measure import kernel_bound, time_ms
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
 
@@ -671,10 +720,22 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
         print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode max|err| "
               f"{e_enc:.3e} (<= {enc_atol}), decode {e_dec:.3e} (<= {DEC_ATOL})")
         _check(e_enc <= enc_atol and e_dec <= DEC_ATOL, f"{name} kernels disagree")
+        library = ({} if plan.cfg.is_fm
+                   else qam_library_calls(plan, ycc, sep, comp, cols))
         rt_k, rt_p = roundtrips[name, decoder]
         kernels[f"{decoder} roundtrip"] = (lambda: rt_p(rgb, 0), lambda: rt_k(rgb, 0))
         times = {key: time_pair(plain, kernel) for key, (plain, kernel) in kernels.items()}
+        for kernel in [k for k in kernels if "roundtrip" not in k]:
+            times[kernel]["bound"] = kernel_bound(plan, kernel, BATCH * lines)
+            times[kernel]["library"] = (_stats(time_ms(library[kernel], windows=10))
+                                        if kernel in library else None)
     print_times(card, f"{name} {BATCH}x{lines}x{N}", BATCH * lines * N / 1e6, times)
+    for kernel in [k for k in kernels if "roundtrip" not in k]:
+        t, (b, by), lib = times[kernel]["kernel"], times[kernel]["bound"], times[kernel]["library"]
+        print(f"bound {kernel} {name} {BATCH}x{lines}x{N} on {card}: {_fmt(t)}, bound {b:.4f} ms "
+              f"({by}), {100 * b / t[0]:.1f}% of it; " + (
+                  f"library: one grouped conv2d of its FIRs alone {_fmt(lib)}" if lib else
+                  "library: no single PyTorch call computes it"))
     return times
 
 
@@ -830,8 +891,9 @@ def main() -> None:
         max_err["qam_encode"] = max(max_err["qam_encode"], e_enc)
         max_err["qam_decode"] = max(max_err["qam_decode"], e_dec)
 
-    # --- 3b. shared FIR and SECAM kernels vs plain on the card -------------
+    # --- 3b. the FIRs alone, and SECAM kernels vs plain on the card -------
     check_fir(dev)
+    check_band_fir(dev)
     max_err["secam_encode"], max_err["secam_decode"] = 0.0, 0.0
     for frames, n in ((BATCH, N), (4, 2 * N)):
         e_enc, e_rgb = check_secam_kernels(dev, frames, n)
@@ -882,6 +944,9 @@ def main() -> None:
          "replaces": where, "launches": launches[name],
          "max_abs_err": max_err[name], "ms": times[path][name]["kernel"][0],
          "plain_ms": times[path][name]["plain"][0],
+         "bound_ms": times[path][name]["bound"][0], "bound_by": times[path][name]["bound"][1],
+         "library_ms": (times[path][name]["library"][0]
+                        if times[path][name]["library"] else None),
          "ms_spread": list(times[path][name]["kernel"][1:]),
          "plain_ms_spread": list(times[path][name]["plain"][1:])}
         for name, (path, where) in replaces.items()

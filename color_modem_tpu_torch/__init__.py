@@ -2,13 +2,14 @@
 hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of :mod:`color_modem_tpu` (JAX/Pallas on a TPU), which stays the
-reference.  This package imports ``torch`` and never ``jax``; of the JAX
-package it reads only the NumPy-only modules ``standards``,
-``standards.base``, ``standards.decoders``, ``utils.testimages`` and
-``utils.metrics``.
+reference.  This package imports ``torch`` and never ``jax``, nor any module
+of the JAX package: it keeps its own copies of the NumPy-only tables it
+needs (``standards/``, ``utils.testimages.smooth_scene``), held equal to the
+JAX ones by ``tests/test_torch_standards.py``.
 
 Layout mirrors the JAX package:
 
+- ``standards/`` the frozen standard configurations and the decoder registry
 - ``dsp/``       host FIR design (NumPy f64), the int32 NCO phase law,
                  colorimetry, the plain Toeplitz FIRs (zero and held edges)
 - ``modem/``     ``QamPlan`` and ``FmPlan`` (``nn.Module``s of float32
@@ -30,7 +31,7 @@ assume float32 matrix products (PyTorch's default; TF32 off).
 
 __version__ = "0.1.0"
 
-from color_modem_tpu.standards import (  # noqa: F401
+from color_modem_tpu_torch.standards import (  # noqa: F401
     ALL_STANDARDS,
     NIIR,
     NTSC,

@@ -1,0 +1,301 @@
+// The FIR on the tensor cores: a 'same' FIR of 16 lines at a time as a
+// banded product of 8x8 Toeplitz tiles, in three TF32 passes.
+//
+// With tr[m] = taps[T-1-m] (the taps reversed) and the line staged with a
+// halo, x~[i] = x[i - half], the output tile t (samples 8t..8t+7) is
+//
+//   out[l, 8t + r] = sum_{s<S} sum_{u<8} x~[l, 8(t+s) + u] * B_s[u, r],
+//   B_s[u, r] = tr[8s + u - r] (0 outside [0, T)),  S = (T + 6) / 8 + 1,
+//
+// one mma.sync.m16n8k8 per (t, s) with M = 16 lines, N = 8 outputs, K = 8
+// samples: 136 multiply-adds per output for 129 taps (5% above the direct
+// FIR).  Why mma.sync and not wgmma: the band makes every output tile cost
+// T + N - 1 multiply-adds per output, so N must stay at 8, the narrowest
+// tile; a wgmma of N = 8 issues no faster than mma.sync, and mma.sync keeps
+// the operands in registers, where a warp can reuse them.
+//
+// Precision: acc += A_lo*B_hi + A_hi*B_lo + A_hi*B_hi, fp32 accumulators.
+// The B tiles are built once per plan on the host in float64 and split
+// there into TF32 hi and lo parts (color_modem_tpu_torch/kernels/tiles.py::
+// band_tiles), laid out in fragment order: tile s, lane -> float4
+// (b0_hi, b1_hi, b0_lo, b1_lo), one 16-byte load per lane per step.  A is
+// split in registers: hi = a rounded to TF32 by cvt.rna.tf32.f32's rule,
+// written as two integer operations (the cvt itself compiles to about five
+// on sm_90a), and lo = a - hi exactly, of which the tensor core reads the
+// TF32 part (|lo| <= 2^-11 |a|, so the error is below 2^-21 |a|).  One
+// TF32 pass keeps about three decimal digits; three passes keep about six,
+// which the encoder's 2e-5 bound needs.
+//
+// Reuse: a warp computes kW = 4 neighbouring output tiles.  Per block of
+// kW steps it loads 2*kW - 1 A chunks (one ldmatrix each, split once) and
+// kW B fragments for 3*kW*kW products, as straight-line code: loads
+// guarded by the step count inside the block kept the scheduler from
+// issuing them ahead of the products, and made the kernels slower than
+// the SIMT FIR they replace.  The tensor cores' own ceiling for this
+// instruction is scripts/torch_mma_ceiling.py.
+//
+// Staging: a tile of 16 lines x a span of samples with its halo is copied
+// into shared memory by cp.async, which zero-fills what lies outside the
+// line (the 'same' FIR's zero edge) and below the last line (the ragged
+// last tile).  Rows are padded so that pitch % 32 == 4: a fragment
+// load (8 rows x 4 columns per instruction) hits 32 distinct banks.  The
+// kernels are persistent, two blocks per SM, and each block loads its next
+// tile while it computes this one: without that, every block waited for
+// its own load, and a launch took the sum of the memory and tensor-core
+// times.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace bf {
+
+constexpr int kRows = 16;   // lines per tile: the M of mma.m16n8k8
+constexpr int kW = 4;       // output tiles per warp group
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlocksPerSm = 2;
+// two blocks per SM: 228 KB of the SM's shared memory, 1 KB reserved per block
+constexpr size_t kSmemBudget = 113 * 1024;
+constexpr size_t kSmemMax = 227 * 1024;
+
+__host__ __device__ inline int n_steps(int ntaps) { return (ntaps + 6) / 8 + 1; }
+__host__ __device__ inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+// Floats per staged row holding `chunks` chunks of 8, padded to
+// pitch % 32 == 4.
+__host__ __device__ inline int pitch_of(int chunks) {
+  const int len = 8 * chunks;
+  return len + (36 - len % 32) % 32;
+}
+
+// Chunks a group loop over `tiles` output tiles reads (fir_group's bound).
+__host__ __device__ inline int plane_chunks(int tiles, int steps) {
+  return round_up(tiles, kW) + steps - 1;
+}
+
+// The widest span (a multiple of 8 samples, the line cut into equal spans)
+// whose shared memory fits two blocks per SM; 0 if not even 8 samples fit
+// one block.
+template <class SmemOf>
+inline int choose_span(int n, SmemOf smem_of, size_t& smem) {
+  for (int ns = 1;; ++ns) {
+    const int span = round_up((n + ns - 1) / ns, 8);
+    smem = smem_of(span);
+    if (smem <= kSmemBudget || span == 8) return smem <= kSmemMax ? span : 0;
+  }
+}
+
+// --- staging --------------------------------------------------------------
+
+__device__ inline void cp_async16(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ inline void cp_async4(float* dst, const float* src, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(bytes));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `pending` committed groups are still in flight.
+template <int pending>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// The work of a launch: tiles of 16 lines x one span, the spans of a line
+// block consecutive (their halos overlap, so neighbours meet in L2).  A
+// launch has one block per (SM, kBlocksPerSm); each block walks the tiles
+// blockIdx.x, blockIdx.x + gridDim.x, ...
+struct TileGrid {
+  int n_spans, total;
+  __host__ __device__ TileGrid(int n_lines, int n, int span)
+      : n_spans((n + span - 1) / span),
+        total((n_lines + kRows - 1) / kRows * ((n + span - 1) / span)) {}
+  __device__ void at(int tile, int span, int& line0, int& p0) const {
+    line0 = tile / n_spans * kRows;
+    p0 = tile % n_spans * span;
+  }
+};
+
+// sm[r * pitch + k] = x(line0 + r, base + k) for r < 16, k < pitch; zero
+// outside the line [0, n) and for lines >= n_lines.  row(line) is the
+// line's first sample in device memory; each thread stays on one row, so
+// it computes that address once.  16-byte copies where every row is
+// 16-byte aligned (vec) and base % 4 == 0 (129 taps: half = 64), else
+// 4-byte copies.  blockDim.x is a multiple of 16.
+template <class Row>
+__device__ inline void stage(float* sm, int pitch, int base, Row row, int line0,
+                             int n_lines, int n, bool vec) {
+  const int per_row = blockDim.x / kRows, r = threadIdx.x / per_row;
+  const int line = line0 + r;
+  const bool live = line < n_lines;
+  const float* src = row(live ? line : line0);  // a valid address either way
+  float* dst = sm + r * pitch;
+  if (vec && base % 4 == 0) {
+    for (int k = 4 * (threadIdx.x % per_row); k < pitch; k += 4 * per_row) {
+      const int pos = base + k;
+      const bool ok = live && pos >= 0 && pos + 4 <= n;
+      cp_async16(dst + k, ok ? src + pos : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int k = threadIdx.x % per_row; k < pitch; k += per_row) {
+      const int pos = base + k;
+      const bool ok = live && pos >= 0 && pos < n;
+      cp_async4(dst + k, ok ? src + pos : src, ok ? 4 : 0);
+    }
+  }
+}
+
+// --- the banded product ---------------------------------------------------
+
+constexpr int kMaxDevices = 64;
+
+// The host side of a launch: `blocks` = one per (SM, kBlocksPerSm), capped
+// at `total` tiles.  The SM count is read once per device.  The kernel's
+// dynamic shared memory is opted in (shared memory before L1, so that two
+// blocks of up to kSmemBudget fit an SM) once per device for the largest
+// size asked so far; `opted` is the kernel's own record of it, a static of
+// its caller.  After that a launch makes one runtime call here, cudaGetDevice.
+template <class Kernel>
+inline cudaError_t launch_blocks(Kernel kernel, size_t smem, int total,
+                                 size_t (&opted)[kMaxDevices], int& blocks) {
+  static int sms[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    sms[dev] = n;
+  }
+  if (opted[dev] < smem) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    opted[dev] = smem;
+  }
+  blocks = total < kBlocksPerSm * sms[dev] ? total : kBlocksPerSm * sms[dev];
+  return cudaSuccess;
+}
+
+__device__ inline void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+
+// The A fragment of a chunk by one ldmatrix: lanes 0-7 address rows 0-7 of
+// its columns 0-3 (a0), lanes 8-15 rows 8-15 (a1), lanes 16-31 the same
+// rows at columns 4-7 (a2, a3); each lane gets (row g, column q) of all
+// four, split into hi = TF32 rounding of a (cvt.rna.tf32.f32's rule, ties
+// away from zero, in two integer operations: the data are finite) and
+// lo = a - hi.
+__device__ inline void load_a(unsigned addr, Frag& f) {
+  uint32_t v[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f.hi[i] = (v[i] + 0x1000u) & 0xffffe000u;
+    f.lo[i] = __float_as_uint(__uint_as_float(v[i]) - __uint_as_float(f.hi[i]));
+  }
+}
+
+// acc += A * B in three TF32 passes, the small terms first; b is the step's
+// (b0_hi, b1_hi, b0_lo, b1_lo).
+__device__ inline void mma3(float (&acc)[4], const Frag& a, const float4& b) {
+  const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+  mma_tf32(acc, a.lo, bh0, bh1);
+  mma_tf32(acc, a.hi, __float_as_uint(b.z), __float_as_uint(b.w));
+  mma_tf32(acc, a.hi, bh0, bh1);
+}
+
+// acc[w] = FIR output tiles t0 + w (w < kW) of the staged plane xs, whose
+// chunk c starts at column 8c; bt holds the S steps' B fragments.
+// Accumulator element e of tile w is row g + 8 * (e >> 1), sample
+// 8 * (t0 + w) + 2 * q + (e & 1), with g = lane / 4, q = lane % 4.
+__device__ inline void fir_group(const float* xs, int pitch, int t0,
+                                 const float4* __restrict__ bt, int steps,
+                                 float (&acc)[kW][4]) {
+  const int lane = threadIdx.x & 31;
+  const unsigned a0 = static_cast<unsigned>(__cvta_generic_to_shared(
+      xs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * pitch + 4 * (lane >> 4) + 8 * t0));
+#pragma unroll
+  for (int w = 0; w < kW; ++w)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[w][e] = 0.0f;
+  // whole blocks of kW steps as straight-line code, so that the scheduler
+  // can issue all of a block's loads ahead of its products ...
+  int sb = 0;
+  for (; sb + kW <= steps; sb += kW) {
+    float4 b[kW];
+#pragma unroll
+    for (int sp = 0; sp < kW; ++sp) b[sp] = __ldg(bt + (sb + sp) * 32 + lane);
+    Frag a[2 * kW - 1];
+#pragma unroll
+    for (int j = 0; j < 2 * kW - 1; ++j) load_a(a0 + 32 * (sb + j), a[j]);
+#pragma unroll
+    for (int sp = 0; sp < kW; ++sp)
+#pragma unroll
+      for (int w = 0; w < kW; ++w) mma3(acc[w], a[w + sp], b[sp]);
+  }
+  // ... then the steps left over, one at a time
+  for (; sb < steps; ++sb) {
+    const float4 b = __ldg(bt + sb * 32 + lane);
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      Frag a;
+      load_a(a0 + 32 * (sb + w), a);
+      mma3(acc[w], a, b);
+    }
+  }
+}
+
+// (row[pos], row[pos + 1]), each 0 outside [lo, hi); one 8-byte load when
+// both are inside and the address is 8-byte aligned.
+__device__ inline float2 load2(const float* row, int pos, int lo, int hi) {
+  if (pos >= lo && pos + 1 < hi && (reinterpret_cast<uintptr_t>(row + pos) & 7) == 0)
+    return *reinterpret_cast<const float2*>(row + pos);
+  return make_float2(pos >= lo && pos < hi ? row[pos] : 0.0f,
+                     pos + 1 >= lo && pos + 1 < hi ? row[pos + 1] : 0.0f);
+}
+
+// row[pos] = v0, row[pos + 1] = v1 where the position lies in [lo, hi); one
+// 8-byte store when both do and the address is 8-byte aligned.
+__device__ inline void store2(float* row, int pos, int lo, int hi, float v0, float v1) {
+  if (pos >= lo && pos + 1 < hi && (reinterpret_cast<uintptr_t>(row + pos) & 7) == 0) {
+    *reinterpret_cast<float2*>(row + pos) = make_float2(v0, v1);
+    return;
+  }
+  if (pos >= lo && pos < hi) row[pos] = v0;
+  if (pos + 1 >= lo && pos + 1 < hi) row[pos + 1] = v1;
+}
+
+// Row (0..15) and sample offset within the group of accumulator (w, e).
+__device__ inline int acc_row(int e) { return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1); }
+__device__ inline int acc_col(int w, int e) {
+  return 8 * w + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+}  // namespace bf

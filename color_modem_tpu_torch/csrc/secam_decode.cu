@@ -20,10 +20,10 @@
 // unpadded 'same' convolutions do (the TPU's _compose_same).  The division
 // and the discriminator are IEEE (no --use_fast_math).
 //
-// What bounds it on an H100: at 9216 lines x 816 samples the six FIRs
-// (193, 193, 129 twice, 31 twice, 257, 129 taps) are about 16.4 GFLOP of
-// fp32 FMA against about 80 MB of device memory (one plane read, two
-// written): FP32 SIMT work.  Building the extended line in shared memory
+// What bounds it on an H100: at 9216 lines the FIRs (193, 193, 129 twice,
+// 31 twice and 257 taps over 816 samples, the 129-tap demod_lpf over the
+// cropped 720) are about 16.2 GFLOP of fp32 FMA against about 80 MB of
+// device memory (one plane read, two written): FP32 SIMT work.  Building the extended line in shared memory
 // keeps the (lines, N + 2M) tensor out of device memory.  Shared memory is
 // about 22.5 KB at 720 samples and 45 KB at 1440 (the buffers are reused
 // between stages); above the default 48 KB, from about 1800 samples, the

@@ -4,7 +4,9 @@
 ``np.convolve(line, taps, 'same')`` per line, with zero-padded edges.  The
 held-edge variant folds ``np.pad(mode='edge')`` into the matrix.  These are
 the plain versions the CUDA kernels are held against; the kernels compute
-the same sums directly over the taps (``csrc/fir.cuh``).  Port of
+the same sums directly over the taps (``csrc/fir.cuh``) or as products of
+8x8 Toeplitz tiles on the tensor cores (``csrc/band_fir.cuh``, tiles from
+``kernels/tiles.py``).  Port of
 ``color_modem_tpu/dsp/apply.py`` (``toeplitz_same``, ``toeplitz_same_held``,
 ``fir_same``, ``fir_same_held``).
 """

@@ -14,16 +14,17 @@ Port of ``color_modem_tpu/frame/channel.py``:
 Phase rotation of the chroma band uses a band-limited Hilbert FIR,
 ``rot(x, t) = cos(t) x + sin(t) H(x)``; luma passes untouched.  The
 filters have fixed tap counts (129, 193, 63), not the plan's, and run as
-the plain Toeplitz FIR; ``toeplitz_same`` builds each matrix once per
-(taps, width).
+the plain Toeplitz FIR; each matrix is built and uploaded once per
+(taps, width, device).
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
-from color_modem_tpu.standards.base import QamParams
 from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import fir_same, toeplitz_same
 from color_modem_tpu_torch.dsp.nco import f32
@@ -35,14 +36,21 @@ BAND_NTAPS, VHS_CHROMA_NTAPS, LUMA_EST_NTAPS = 129, 193, 63
 LUMA_EST_CUTOFF = 0.5e6
 
 
+@lru_cache(maxsize=32)
+def _toeplitz_on(taps_bytes: bytes, n: int, device: torch.device) -> torch.Tensor:
+    """The taps' (N, N) Toeplitz matrix, uploaded once per (taps, width, device)."""
+    return torch.tensor(toeplitz_same(np.frombuffer(taps_bytes, np.float64), n), device=device)
+
+
 def _fir(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     """'same' FIR of the last axis (zero edges) through the Toeplitz matrix."""
-    return fir_same(x, torch.tensor(toeplitz_same(taps, x.shape[-1]), device=x.device))
+    taps = np.asarray(taps, np.float64).tobytes()
+    return fir_same(x, _toeplitz_on(taps, x.shape[-1], x.device))
 
 
 def _chroma_band_edges(plan: QamPlan | FmPlan) -> tuple[float, float]:
     ch = plan.cfg.chroma
-    if isinstance(ch, QamParams):
+    if not plan.cfg.is_fm:
         return ch.fsc - ch.chroma_band, ch.fsc + ch.chroma_band
     return (ch.bell_f0 - SECAM_TAKEOFF_HALFWIDTH,
             ch.bell_f0 + SECAM_TAKEOFF_HALFWIDTH)
@@ -78,13 +86,13 @@ def vhs_playback(
     cb = _fir(comp, design.bandpass_taps(fs, f_lo, f_hi, BAND_NTAPS))
     luma = _fir(comp - cb, design.lowpass_taps(fs, luma_bw, BAND_NTAPS))
     ch = plan.cfg.chroma
-    fc = ch.fsc if isinstance(ch, QamParams) else ch.bell_f0
+    fc = ch.bell_f0 if plan.cfg.is_fm else ch.fsc
     cb = _fir(cb, design.bandpass_taps(fs, fc - chroma_bw, fc + chroma_bw,
                                        VHS_CHROMA_NTAPS))
     d = int(round(chroma_delay_us * 1e-6 * fs))
     if d:
         cb = _stream_delay(cb, d)
-        if isinstance(ch, QamParams):
+        if not plan.cfg.is_fm:
             theta = 2.0 * np.pi * fc * d / fs
             hil = design.hilbert_taps(fs, fc - chroma_bw, fc + chroma_bw, BAND_NTAPS)
             cb = f32(np.cos(theta)) * cb - f32(np.sin(theta)) * _fir(cb, hil)

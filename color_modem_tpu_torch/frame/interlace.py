@@ -34,6 +34,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     check_decoder,
     decode_block,
     encode_block,
+    resolve_device,
 )
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
 
@@ -91,7 +92,7 @@ def _decode_fields(plan: Plan, comp_fields: torch.Tensor, g: torch.Tensor,
 
 
 def make_interlaced_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
-                             device: torch.device | str = "cpu", raster: bool = False):
+                             device: torch.device | str = "cuda", raster: bool = False):
     """Closures between RGB frames and field-sequential composite, over a
     fixed plan moved to ``device`` (in place).
 
@@ -105,7 +106,7 @@ def make_interlaced_pipeline(plan: Plan, decoder: str = "notch", backend: str = 
     """
     check_decoder(plan, decoder)
     _check_backend(backend)
-    device = torch.device(device)
+    device = resolve_device(device)
     plan = plan.to(device)
     rp = make_raster(plan) if raster else None
 

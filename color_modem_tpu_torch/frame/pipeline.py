@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from color_modem_tpu.standards.decoders import allowed_decoders
+from color_modem_tpu_torch.standards.decoders import allowed_decoders
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
 from color_modem_tpu_torch.dsp.nco import global_line_index
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
@@ -162,8 +162,20 @@ def frame_line_index(plan: Plan, frame0, n_frames: int, n_lines: int,
     return global_line_index(frame0, n_frames, n_lines, plan.total_lines, device)
 
 
+def resolve_device(device: torch.device | str) -> torch.device:
+    """``torch.device(device)``.  The factories default to ``"cuda"``; on a
+    machine without CUDA that raises here, before any work, and a CPU run
+    passes ``device="cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: CUDA is not available; pass device='cpu' to run on the CPU"
+        )
+    return device
+
+
 def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
-                  device: torch.device | str = "cpu", raster: bool = False):
+                  device: torch.device | str = "cuda", raster: bool = False):
     """Closures over a fixed plan, moved to ``device`` (in place).
 
     Returns ``(encode, decode, roundtrip)``; each takes a ``(B, ...)`` batch
@@ -176,7 +188,7 @@ def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
     """
     check_decoder(plan, decoder)
     _check_backend(backend)
-    device = torch.device(device)
+    device = resolve_device(device)
     plan = plan.to(device)
     rp = make_raster(plan) if raster else None
 

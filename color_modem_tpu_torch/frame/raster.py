@@ -20,11 +20,11 @@ PAL V-switch parity from the swinging burst.
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from color_modem_tpu.standards.base import QamParams
 from color_modem_tpu_torch.dsp.nco import TWO_PI, f32, line_phase0
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan
 from color_modem_tpu_torch.modem.qam import v_sign
@@ -65,7 +65,7 @@ def make_raster(plan: QamPlan | FmPlan) -> RasterPlan:
     )
     sync_start = int(round(front * fs))
     sync_len = int(round(sync_w * fs))
-    if isinstance(cfg.chroma, QamParams):
+    if not cfg.is_fm:
         fsc = cfg.chroma.fsc
         burst_start = sync_start + int(round(burst_t0 * fs))
         burst_len = int(round(burst_cycles / fsc * fs))
@@ -102,6 +102,14 @@ def _expected_angle(plan: QamPlan, rp: RasterPlan, gline: torch.Tensor) -> torch
     return _burst_sign(plan, rp, gline) * f32(rp.burst_phase)
 
 
+@lru_cache(maxsize=32)
+def _blank_ramp(k: float, n_blank: int, device: torch.device) -> torch.Tensor:
+    """(n_blank,) float32 ``(k*m) mod 2*pi`` at ``m = -n_blank .. -1``,
+    reduced in float64 on the host and uploaded once per (k, width, device)."""
+    m = np.arange(n_blank, dtype=np.float64) - n_blank
+    return torch.tensor((k * m) % (2.0 * np.pi), dtype=torch.float32, device=device)
+
+
 def _blank_phase(plan: QamPlan, rp: RasterPlan, gline: torch.Tensor) -> torch.Tensor:
     """(..., L, n_blank) carrier phase over the blanking interval.
 
@@ -111,15 +119,14 @@ def _blank_phase(plan: QamPlan, rp: RasterPlan, gline: torch.Tensor) -> torch.Te
     the burst angle is on the un-rotated U axis.
     """
     k = TWO_PI * plan.cfg.chroma.fsc / plan.fs
-    m = np.arange(rp.n_blank, dtype=np.float64) - rp.n_blank
-    ramp = (k * m) % (2.0 * np.pi)
     phi0 = line_phase0(plan.cfg.cpl_num, plan.cfg.cpl_den, gline)
-    return phi0[..., None] + torch.tensor(ramp, dtype=torch.float32, device=gline.device)
+    return phi0[..., None] + _blank_ramp(k, rp.n_blank, gline.device)
 
 
 def _window(rp: RasterPlan, start: int, length: int, device) -> torch.Tensor:
-    idx = np.arange(rp.n_blank)
-    return torch.tensor((idx >= start) & (idx < start + length), device=device)
+    """(n_blank,) bool mask of ``[start, start + length)``, built on the device."""
+    idx = torch.arange(rp.n_blank, device=device)
+    return (idx >= start) & (idx < start + length)
 
 
 def add_raster(plan: QamPlan | FmPlan, rp: RasterPlan, comp: torch.Tensor,

@@ -23,6 +23,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     _check_backend,
     encode_block,
     frame_line_index,
+    resolve_device,
 )
 from color_modem_tpu_torch.modem import niir, qam, secam
 
@@ -50,11 +51,11 @@ def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor) -> torch.Tensor
 
 
 def make_svideo_pipeline(plan: Plan, backend: str = "kernel",
-                         device: torch.device | str = "cpu"):
+                         device: torch.device | str = "cuda"):
     """``(encode, decode, roundtrip)`` closures like ``make_pipeline``'s,
     over ``(B, 2, L, N)`` Y/C signals; the plan moves to ``device``."""
     _check_backend(backend)
-    device = torch.device(device)
+    device = resolve_device(device)
     plan = plan.to(device)
 
     def _input(x) -> torch.Tensor:

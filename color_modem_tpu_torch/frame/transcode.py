@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from color_modem_tpu.standards.decoders import allowed_decoders
+from color_modem_tpu_torch.standards.decoders import allowed_decoders
 from color_modem_tpu_torch.dsp.colorimetry import clamp01
 from color_modem_tpu_torch.dsp.resample import resample_width
 from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
@@ -27,6 +27,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     decode_block,
     encode_block,
     frame_line_index,
+    resolve_device,
 )
 
 
@@ -62,12 +63,12 @@ def transcode_block(plan_src: Plan, plan_dst: Plan, comp: torch.Tensor,
 
 
 def make_transcoder(plan_src: Plan, plan_dst: Plan, decoder: str | None = None,
-                    backend: str = "kernel", device: torch.device | str = "cpu"):
+                    backend: str = "kernel", device: torch.device | str = "cuda"):
     """``(comp_src (B, L, N), frame0) -> comp_dst`` closure; frame
     ``frame0+i`` of the source drives frame ``frame0+i`` of the
     destination's phase sequence.  Both plans move to ``device``."""
     _check_backend(backend)
-    device = torch.device(device)
+    device = resolve_device(device)
     plan_src, plan_dst = plan_src.to(device), plan_dst.to(device)
 
     @torch.inference_mode()
@@ -83,7 +84,7 @@ def make_transcoder(plan_src: Plan, plan_dst: Plan, decoder: str | None = None,
 
 
 def make_interlaced_transcoder(plan_src: Plan, plan_dst: Plan, decoder: str | None = None,
-                               backend: str = "kernel", device: torch.device | str = "cpu"):
+                               backend: str = "kernel", device: torch.device | str = "cuda"):
     """Field-sequential converter: (2B, L/2, N) source fields -> (2B, L'/2,
     N) destination fields.  Decodes the source fields (weaving the frame),
     resamples the woven raster to an even line count, and re-splits it with

@@ -29,11 +29,11 @@ from typing import Callable
 import numpy as np
 import torch
 
-from color_modem_tpu.standards.decoders import temporal_comb_spacing
+from color_modem_tpu_torch.standards.decoders import temporal_comb_spacing
 from color_modem_tpu_torch.frame.channel import impair, vhs_playback
 from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
 from color_modem_tpu_torch.frame.nr import temporal_nr
-from color_modem_tpu_torch.frame.pipeline import Plan, make_pipeline
+from color_modem_tpu_torch.frame.pipeline import Plan, make_pipeline, resolve_device
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
 
@@ -59,14 +59,14 @@ def synthetic_source(lines: int, samples: int) -> FrameSource:
 
 
 def synthetic_device_source(lines: int, samples: int, seed: int = 0,
-                            device: torch.device | str = "cpu") -> FrameSource:
+                            device: torch.device | str = "cuda") -> FrameSource:
     """Synthetic frames made on ``device``: one base scene uploads once, and
     frame ``g`` is the scene rolled by ``(g*37) % samples`` samples, times
     ``0.85 + 0.1*cos(0.37 g)`` (float32), plus 0.05, clipped to [0, 1];
     keyed on the absolute frame index, so a resume reproduces it."""
     from color_modem_tpu_torch.utils.testimages import smooth_scene
 
-    device = torch.device(device)
+    device = resolve_device(device)
     state = {}
 
     def src(start: int, count: int) -> torch.Tensor:
@@ -116,7 +116,7 @@ def process_video(
     chunk: int = 8,
     mesh=None,
     backend: str = "kernel",
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     save_outputs: bool = False,
     resume: bool = True,
     lines: int | None = None,
@@ -156,7 +156,7 @@ def process_video(
     """
     _refuse_unported(mesh, channel, rf, rf_audio, rf_audio_bw, satellite, sat_cnr,
                      caption_bits, scramble)
-    device = torch.device(device)
+    device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     manifest = ChunkManifest(out_dir) if resume else None
     if lines is None:

@@ -33,10 +33,10 @@ NVCC_FLAGS = (
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of the launch functions; each returns its cudaError_t
 SIGNATURES = {
-    # ycc, cols, ramp_cos, ramp_sin, taps1, taps2, out,
+    # ycc, cols, ramp_cos, ramp_sin, tiles1, tiles2, out,
     # n_lines, lines_per_group, n, ntaps, a_ref, stream
     "qam_encode": (_P,) * 7 + (_I,) * 4 + (_F, _P),
-    # sep, comp, cols, ramp_cos, ramp_sin, bpf, taps1, taps2, out,
+    # sep, comp, cols, ramp_cos, ramp_sin, bpf_tiles, tiles1, tiles2, out,
     # n_lines, lines_per_group, n, ntaps, stream
     "qam_decode": (_P,) * 9 + (_I,) * 4 + (_P,),
     # ycc, isr, ramp, comp_lpf, preemph, anticloche, out,
@@ -50,6 +50,8 @@ SIGNATURES = {
     "secam_decode": (_P,) * 13 + (_I,) * 9 + (_F,) * 6 + (_P,),
     # x, taps, out, n_lines, n, ntaps, held, stream
     "fir_check": (_P,) * 3 + (_I,) * 4 + (_P,),
+    # x, tiles, out, n_lines, n, ntaps, stream
+    "band_fir_check": (_P,) * 3 + (_I,) * 3 + (_P,),
 }
 
 

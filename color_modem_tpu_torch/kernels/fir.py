@@ -1,10 +1,12 @@
-"""The shared FIR of ``csrc/fir.cuh`` on its own (``csrc/fir_check.cu``).
+"""The kernels' FIRs on their own: the SIMT FIR of ``csrc/fir.cuh`` (the
+SECAM kernels'; ``csrc/fir_check.cu``) and the tensor-core FIR of
+``csrc/band_fir.cuh`` (the QAM kernels'; ``csrc/band_fir_check.cu``).
 
-No pipeline path calls this: it exists so that a card test can hold the
-FIR every kernel is built from against ``np.convolve(mode='same')`` on
-asymmetric taps, with zero and with held edges.  A CPU tensor runs the
-plain version (the Toeplitz matmul); a CUDA tensor launches the kernel or
-raises.
+No pipeline path calls these: they exist so that a card test can hold each
+FIR against ``np.convolve(mode='same')`` on asymmetric taps (zero and held
+edges for the first, zero edges, spans and ragged tiles of lines for the
+second).  A CPU tensor runs the plain version (the Toeplitz matmul); a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -13,9 +15,10 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp.apply import toeplitz_same, toeplitz_same_held
+from color_modem_tpu_torch.kernels.tiles import band_tiles
 
-#: launches of the CUDA kernel in this process
-LAUNCHES = {"fir_check": 0}
+#: launches of each CUDA kernel in this process
+LAUNCHES = {"fir_check": 0, "band_fir_check": 0}
 
 
 def fir_lines_plain(x: torch.Tensor, taps: torch.Tensor, held: bool) -> torch.Tensor:
@@ -25,9 +28,7 @@ def fir_lines_plain(x: torch.Tensor, taps: torch.Tensor, held: bool) -> torch.Te
     return torch.matmul(x, torch.tensor(mat, device=x.device))
 
 
-def fir_lines(x: torch.Tensor, taps: torch.Tensor, held: bool = False) -> torch.Tensor:
-    """(lines, N) float32 -> each line convolved 'same' with ``taps`` (T,),
-    T odd; ``held`` repeats the edge samples instead of zero padding."""
+def _check(x: torch.Tensor, taps: torch.Tensor) -> None:
     if x.dim() != 2 or taps.dim() != 1 or taps.numel() % 2 != 1:
         raise ValueError(
             f"x (lines, N) and odd taps (T,) expected, got {tuple(x.shape)}, "
@@ -36,19 +37,42 @@ def fir_lines(x: torch.Tensor, taps: torch.Tensor, held: bool = False) -> torch.
     for name, t in (("x", x), ("taps", taps)):
         if t.dtype != torch.float32 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"{name}: expected contiguous float32 on {x.device}")
-    if x.device.type == "cpu":
-        return fir_lines_plain(x, taps, held)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no FIR kernel or plain version for device {x.device}")
+
+
+def _launch(name: str, x: torch.Tensor, ptrs: tuple, ints: tuple) -> torch.Tensor:
+    """Launch ``name(x, *ptrs, out, lines, N, *ints, stream)``; returns out."""
     from color_modem_tpu_torch.kernels.build import load_library
 
     out = torch.empty_like(x)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fir_check(x.data_ptr(), taps.data_ptr(), out.data_ptr(),
-                            x.shape[0], x.shape[1], taps.numel(), int(held), stream)
+        err = getattr(lib, name)(x.data_ptr(), *ptrs, out.data_ptr(), *x.shape, *ints,
+                                 stream)
     if err != 0:
-        raise RuntimeError(f"fir_check: CUDA launch failed with cudaError_t {err}")
-    LAUNCHES["fir_check"] += 1
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+    LAUNCHES[name] += 1
     return out
+
+
+def fir_lines(x: torch.Tensor, taps: torch.Tensor, held: bool = False) -> torch.Tensor:
+    """(lines, N) float32 -> each line convolved 'same' with ``taps`` (T,),
+    T odd, by ``csrc/fir.cuh``; ``held`` repeats the edge samples instead of
+    zero padding."""
+    _check(x, taps)
+    if x.device.type == "cpu":
+        return fir_lines_plain(x, taps, held)
+    return _launch("fir_check", x, (taps.data_ptr(),), (taps.numel(), int(held)))
+
+
+def band_fir_lines(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
+    """(lines, N) float32 -> each line convolved 'same' (zero edges) with
+    ``taps`` (T,), T odd, by the tensor-core FIR of ``csrc/band_fir.cuh``;
+    its band tiles are built here on the host from the float32 taps."""
+    _check(x, taps)
+    if x.device.type == "cpu":
+        return fir_lines_plain(x, taps, False)
+    tiles = torch.tensor(band_tiles(taps.detach().cpu().numpy()), device=x.device)
+    return _launch("band_fir_check", x, (tiles.data_ptr(),), (taps.numel(),))

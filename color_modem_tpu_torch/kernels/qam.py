@@ -1,6 +1,10 @@
 """Fused QAM encode/decode: wrappers of the CUDA kernels in ``csrc/`` and
 their plain PyTorch versions.
 
+Both kernels run their FIRs on the tensor cores as banded products of 8x8
+Toeplitz tiles in three TF32 passes (``csrc/band_fir.cuh``); the tiles are
+the plan's ``*_tiles`` buffers, built once on the host.
+
 * ``encode_lines`` (``csrc/qam_encode.cu``) replaces
   ``color_modem_tpu/kernels/qam.py::_encode_kernel`` and ``_encode_kernel_shared``:
   I/Q (U/V) low-pass, angle-addition carrier, V-switch, NIIR reference
@@ -123,7 +127,7 @@ def encode_lines(plan: QamPlan, ycc: torch.Tensor, cols: torch.Tensor) -> torch.
     _launch(
         "qam_encode", dev,
         *(t.data_ptr() for t in (ycc, cols, plan.ramp_cos, plan.ramp_sin,
-                                 plan.c1_lpf, plan.c2_lpf, out)),
+                                 plan.c1_lpf_tiles, plan.c2_lpf_tiles, out)),
         g * l, l, n, plan.c1_lpf.numel(), _ref_amplitude(plan),
     )
     return out
@@ -163,7 +167,8 @@ def decode_lines(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
     _launch(
         "qam_decode", dev,
         *(t.data_ptr() for t in (sep, comp, cols, plan.ramp_cos, plan.ramp_sin,
-                                 plan.chroma_bpf, plan.c1_lpf, plan.c2_lpf, out)),
+                                 plan.chroma_bpf_tiles, plan.c1_lpf_tiles,
+                                 plan.c2_lpf_tiles, out)),
         g * l, l, n, plan.c1_lpf.numel(),
     )
     return out

@@ -17,9 +17,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from color_modem_tpu.standards.base import FmParams, QamParams, StandardConfig
+from color_modem_tpu_torch.standards.base import StandardConfig
 from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import toeplitz_same, toeplitz_same_held
+from color_modem_tpu_torch.kernels.tiles import band_tiles
 from color_modem_tpu_torch.dsp.nco import sample_phase_ramp
 
 #: the sample rate the default tap counts were tuned at (every standard's
@@ -115,14 +116,18 @@ class QamPlan(_Plan):
     ``c1_lpf``, ``c2_lpf``, ``chroma_bpf`` (T,); ``comb_sel_lpf`` (63,), the
     adaptive combs' energy smoother; ``rgb_to_ycc``, ``ycc_to_rgb`` (3, 3);
     and the ``(N, N)`` Toeplitz matrices ``c1_lpf_mat``, ``c2_lpf_mat``,
-    ``chroma_bpf_mat``, ``comb_sel_lpf_mat`` of the plain FIR.
+    ``chroma_bpf_mat``, ``comb_sel_lpf_mat`` of the plain FIR; the
+    ``(S, 32, 4)`` TF32 hi/lo band tiles ``c1_lpf_tiles``, ``c2_lpf_tiles``,
+    ``chroma_bpf_tiles`` of the kernels' tensor-core FIR
+    (:func:`~color_modem_tpu_torch.kernels.tiles.band_tiles`, built from the
+    float64 taps).
     Python scalars: ``theta``, ``cpl_num``, ``cpl_den``, ``total_lines``,
     ``n_samples``, ``fs``.  ``host`` keeps the float64 arrays as designed.
     """
 
     def __init__(self, cfg: StandardConfig, n_samples: int, fs: float, *,
                  theta: float, **host: np.ndarray):
-        if not isinstance(cfg.chroma, QamParams):
+        if cfg.is_fm:
             raise TypeError(f"QamPlan takes a QAM standard, got {cfg.name}")
         super().__init__(cfg, n_samples, fs, HOST_FIELDS, host)
         self.theta = float(theta)
@@ -134,6 +139,9 @@ class QamPlan(_Plan):
         self._register_mats("_mat", toeplitz_same,
                             ("c1_lpf", "c2_lpf", "chroma_bpf", "comb_sel_lpf"),
                             self.n_samples)
+        for name in ("c1_lpf", "c2_lpf", "chroma_bpf"):
+            self.register_buffer(name + "_tiles",
+                                 torch.tensor(band_tiles(self.host[name])))
 
 
 class FmPlan(_Plan):
@@ -155,7 +163,7 @@ class FmPlan(_Plan):
     def __init__(self, cfg: StandardConfig, n_samples: int, fs: float, *,
                  f_center: float, fm_margin: int, fm_luma_est: int,
                  **host: np.ndarray):
-        if not isinstance(cfg.chroma, FmParams):
+        if not cfg.is_fm:
             raise TypeError(f"FmPlan takes an FM standard, got {cfg.name}")
         super().__init__(cfg, n_samples, fs, FM_HOST_FIELDS, host)
         self.f_center = float(f_center)

@@ -22,6 +22,8 @@ JAX package's ``xla`` path.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -172,14 +174,17 @@ def identify_parity(plan: FmPlan, comp: torch.Tensor,
 _IDENT_PEAK = 1.0
 
 
+@lru_cache(maxsize=16)
+def _ident_ramp(n: int, device: torch.device) -> torch.Tensor:
+    """The bottles' sawtooth (N,), uploaded once per width and device."""
+    return torch.tensor(np.linspace(0.0, _IDENT_PEAK, n, dtype=np.float32), device=device)
+
+
 def ident_lines(plan: FmPlan, gline: torch.Tensor) -> torch.Tensor:
     """Content-free identification lines, the SECAM "bottles": D'R lines
     sweep up from rest, D'B lines down.  ``gline`` (..., R) -> (..., R, N)
     composite rows (zero luma plus the swept carrier)."""
-    ramp = torch.tensor(
-        np.linspace(0.0, _IDENT_PEAK, plan.n_samples, dtype=np.float32),
-        device=gline.device,
-    )
+    ramp = _ident_ramp(plan.n_samples, gline.device)
     r = is_r_line(gline)[..., None]
     d = torch.where(r, ramp, -ramp)
     y = torch.zeros_like(d)

@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from color_modem_tpu.standards.decoders import (
+from color_modem_tpu_torch.standards.decoders import (
     ADAPTIVE_BIAS,
     ADAPTIVE_EPS,
     comb_spacing,

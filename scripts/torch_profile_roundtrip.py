@@ -6,7 +6,8 @@ the profiler attributes to operators, the device busy share (kernel time
 over the window) and the device time by kernel.  Paths, 16 frames x 720
 samples at the standard's active lines:
 
-* ``ntsc-comb3`` (the main path) and ``secam-interp``: ``make_pipeline``;
+* ``ntsc-comb3`` (the main path), ``secam-interp`` and ``pal-delayline``:
+  ``make_pipeline``;
 * ``ntsc-comb3-interlaced``: ``make_interlaced_pipeline`` (32 fields);
 * ``ntsc-svideo``: ``make_svideo_pipeline``;
 * ``ntsc-pal-transcode``: ``make_transcoder`` on an NTSC composite;
@@ -33,6 +34,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PATHS = {
     "ntsc-comb3": ("pipeline", "NTSC", "comb3"),
     "secam-interp": ("pipeline", "SECAM", "interp"),
+    "pal-delayline": ("pipeline", "PAL", "delayline"),
     "ntsc-comb3-interlaced": ("interlaced", "NTSC", "comb3"),
     "ntsc-svideo": ("svideo", "NTSC", None),
     "ntsc-pal-transcode": ("transcode", "NTSC", "PAL"),

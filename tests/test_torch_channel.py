@@ -139,8 +139,23 @@ def test_niir_cancels_gain_and_phase_where_ntsc_does_not():
     loss = {}
     for name in ("niir", "ntsc"):
         tp = plan_from_numpy(get_plan(name))
-        enc, dec, _ = make_pipeline(tp, "notch", "kernel")
+        enc, dec, _ = make_pipeline(tp, "notch", "kernel", device="cpu")
         comp = enc(rgb, 0)
         bad = channel.impair(tp, comp, chroma_phase_deg=25.0, chroma_gain=0.6)
         loss[name] = np_psnr(dec(comp, 0).numpy(), rgb) - np_psnr(dec(bad, 0).numpy(), rgb)
     assert loss["niir"] < 1.5 and loss["ntsc"] > 8.0, loss
+
+
+def test_channel_filters_upload_once():
+    """Each Toeplitz matrix of the channel's FIRs is built and uploaded once
+    per (taps, width, device) and equals toeplitz_same's."""
+    from color_modem_tpu_torch.dsp.apply import toeplitz_same
+
+    taps = np.random.default_rng(0).normal(size=63)
+    x = torch.tensor(np.random.default_rng(1).normal(size=(2, 3, 97)), dtype=torch.float32)
+    first = channel._fir(x, taps)
+    hits = channel._toeplitz_on.cache_info().hits
+    torch.testing.assert_close(channel._fir(x, taps), first, rtol=0, atol=0)
+    assert channel._toeplitz_on.cache_info().hits == hits + 1
+    mat = channel._toeplitz_on(taps.tobytes(), 97, torch.device("cpu"))
+    np.testing.assert_array_equal(mat.numpy(), toeplitz_same(taps, 97))

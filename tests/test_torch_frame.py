@@ -160,7 +160,7 @@ def _jax_interlaced(name, decoder, rgb):
                                           ("secam", "notch")])
 def test_interlaced_roundtrip_matches_jax(name, decoder, backend, img):
     comp_j, out_j = _jax_interlaced(name, decoder, img)
-    enc, dec, rt = il.make_interlaced_pipeline(tplan(name), decoder, backend)
+    enc, dec, rt = il.make_interlaced_pipeline(tplan(name), decoder, backend, device="cpu")
     comp = enc(img, 0)
     assert comp.shape == (2, L // 2, N)
     np.testing.assert_allclose(comp.numpy(), comp_j, atol=enc_atol(name))
@@ -178,8 +178,8 @@ def test_interlaced_comb3d_parity_major_matches_jax(backend, img):
     beats the spatial one by more than 3 dB."""
     rgb = np.ascontiguousarray(np.broadcast_to(img[0], (4,) + img.shape[1:]))
     _, out_j = _jax_interlaced("ntsc", "comb3d", rgb)
-    _, _, rt_t = il.make_interlaced_pipeline(tplan("ntsc"), "comb3d", backend)
-    _, _, rt_s = il.make_interlaced_pipeline(tplan("ntsc"), "comb3", backend)
+    _, _, rt_t = il.make_interlaced_pipeline(tplan("ntsc"), "comb3d", backend, device="cpu")
+    _, _, rt_s = il.make_interlaced_pipeline(tplan("ntsc"), "comb3", backend, device="cpu")
     out = rt_t(rgb, 0)
     np.testing.assert_allclose(out.numpy(), out_j, atol=DEC_ATOL)
     p_t, p_s = psnr(out.numpy(), rgb), psnr(rt_s(rgb, 0).numpy(), rgb)
@@ -190,8 +190,8 @@ def test_interlaced_raster_strip_is_exact(img):
     from color_modem_tpu_torch.frame import raster
 
     plan = tplan("ntsc")
-    enc_r, dec_r, _ = il.make_interlaced_pipeline(plan, "comb3", raster=True)
-    enc, _, rt = il.make_interlaced_pipeline(plan, "comb3")
+    enc_r, dec_r, _ = il.make_interlaced_pipeline(plan, "comb3", raster=True, device="cpu")
+    enc, _, rt = il.make_interlaced_pipeline(plan, "comb3", device="cpu")
     comp_r, comp = enc_r(img, 0), enc(img, 0)
     assert comp_r.shape[-1] > N
     assert torch.equal(raster.strip_raster(raster.make_raster(plan), comp_r), comp)
@@ -200,7 +200,7 @@ def test_interlaced_raster_strip_is_exact(img):
 
 def test_field_blocks_decoded_apart_equal_together(img):
     plan = tplan("ntsc")
-    enc, dec, _ = il.make_interlaced_pipeline(plan, "comb3")
+    enc, dec, _ = il.make_interlaced_pipeline(plan, "comb3", device="cpu")
     comp = enc(img, 0)
     g = il.field_line_index(plan, 0, 1, L // 2, "cpu")
     parts = [decode_block(plan, comp[k : k + 1], g[k : k + 1], "comb3") for k in range(2)]
@@ -227,10 +227,11 @@ def test_svideo_matches_jax_and_y_plus_c_is_the_composite(name, backend, sv_img)
         return np.asarray(enc(x, 2)), np.asarray(rt(x, 2))
 
     yc_j, out_j = cached(("svideo", name), run)
-    enc, dec, rt = make_svideo_pipeline(tplan(name), backend)
+    enc, dec, rt = make_svideo_pipeline(tplan(name), backend, device="cpu")
     yc = enc(sv_img, 2)
     np.testing.assert_allclose(yc.numpy(), yc_j, atol=enc_atol(name))
-    comp, _, _ = make_pipeline(tplan(name), allowed_decoders(get_plan(name).cfg)[0], backend)
+    comp, _, _ = make_pipeline(tplan(name), allowed_decoders(get_plan(name).cfg)[0], backend,
+                               device="cpu")
     np.testing.assert_allclose((yc[:, 0] + yc[:, 1]).numpy(), comp(sv_img, 2).numpy(), atol=1e-7)
     out = rt(sv_img, 2)
     np.testing.assert_allclose(out.numpy(), out_j, atol=DEC_ATOL)
@@ -238,7 +239,7 @@ def test_svideo_matches_jax_and_y_plus_c_is_the_composite(name, backend, sv_img)
 
 
 def test_svideo_luma_plane_is_unfiltered_matrix_luma(sv_img):
-    enc, _, _ = make_svideo_pipeline(tplan("ntsc"))
+    enc, _, _ = make_svideo_pipeline(tplan("ntsc"), device="cpu")
     y = enc(sv_img, 0)[0, 0].numpy()
     expect = 0.299 * sv_img[0, 0] + 0.587 * sv_img[0, 1] + 0.114 * sv_img[0, 2]
     np.testing.assert_allclose(y, expect, atol=2e-6)
@@ -248,13 +249,13 @@ def test_svideo_luma_plane_is_unfiltered_matrix_luma(sv_img):
 def test_svideo_beats_every_composite_decoder(name, sv_img):
     """tests/test_svideo.py's margins: over 2 dB on QAM, never a loss on
     SECAM (its FM demodulator is the same on both wires)."""
-    _, _, rt_s = make_svideo_pipeline(tplan(name))
+    _, _, rt_s = make_svideo_pipeline(tplan(name), device="cpu")
     p_s = psnr(rt_s(sv_img, 0).numpy(), sv_img)
     margin = 0.0 if get_plan(name).cfg.is_fm else 2.0
     for decoder in allowed_decoders(get_plan(name).cfg):
         if decoder in ("comb3d", "comb3dA"):
             continue
-        _, _, rt_c = make_pipeline(tplan(name), decoder)
+        _, _, rt_c = make_pipeline(tplan(name), decoder, device="cpu")
         assert p_s > psnr(rt_c(sv_img, 0).numpy(), sv_img) + margin, (name, decoder)
 
 
@@ -278,11 +279,11 @@ def test_conversion_matches_jax(src, dst, backend):
             jnp.asarray(comp_s), 0))
 
     comp_s, comp_j = cached(("transcode", src, dst), run)
-    comp_d = tr.make_transcoder(tplan(src), tplan(dst), backend=backend)(comp_s, 0)
+    comp_d = tr.make_transcoder(tplan(src), tplan(dst), backend=backend, device="cpu")(comp_s, 0)
     l_dst = round(l_src * get_plan(dst).cfg.active_lines / get_plan(src).cfg.active_lines)
     assert comp_d.shape == (1, l_dst, N)
     np.testing.assert_allclose(comp_d.numpy(), comp_j, atol=DEC_ATOL)
-    _, dec_d, _ = make_pipeline(tplan(dst), tr.best_decoder(tplan(dst)), backend)
+    _, dec_d, _ = make_pipeline(tplan(dst), tr.best_decoder(tplan(dst)), backend, device="cpu")
     ref = tr.resample_lines(torch.from_numpy(img), l_dst)
     assert psnr(dec_d(comp_d, 0).numpy(), ref.numpy()) > 26.0
 
@@ -297,11 +298,12 @@ def test_interlaced_conversion_matches_jax(backend):
         return np.asarray(fields), np.asarray(conv(fields, 0))
 
     fields_s, fields_j = cached(("transcode-interlaced",), run)
-    conv = tr.make_interlaced_transcoder(tplan("ntsc"), tplan("pal"), backend=backend)
+    conv = tr.make_interlaced_transcoder(tplan("ntsc"), tplan("pal"), backend=backend,
+                                         device="cpu")
     fields_d = conv(fields_s, 0)
     assert fields_d.shape == (2, 24, N)
     np.testing.assert_allclose(fields_d.numpy(), fields_j, atol=DEC_ATOL)
-    _, dec_d, _ = il.make_interlaced_pipeline(tplan("pal"), "comb3", backend)
+    _, dec_d, _ = il.make_interlaced_pipeline(tplan("pal"), "comb3", backend, device="cpu")
     ref = tr.resample_lines(torch.from_numpy(img), 48)
     assert psnr(dec_d(fields_d, 0).numpy(), ref.numpy()) > 26.0
 
@@ -383,7 +385,7 @@ def test_flicker_is_compensated_not_averaged_in():
 def test_nr_end_to_end_noisy_channel(name, decoder, gain):
     plan = tplan(name)
     rgb = np.ascontiguousarray(np.broadcast_to(_scene(33), (6, 3, NR_LINES, N)))
-    enc, dec, _ = make_pipeline(plan, decoder)
+    enc, dec, _ = make_pipeline(plan, decoder, device="cpu")
     comp = impair(plan, enc(rgb, 0), noise_sigma=0.02,
                   generator=torch.Generator().manual_seed(2))
     out = dec(comp, 0)
@@ -461,7 +463,7 @@ def test_adaptive_tracks_the_better_regime():
 def test_deinterlace_end_to_end_through_the_modem():
     motion = 7
     fields_rgb = di.fields_from_framerate(torch.from_numpy(_field_rate_frames(8, motion)))
-    enc, dec, _ = il.make_interlaced_pipeline(tplan("ntsc"), "combA")
+    enc, dec, _ = il.make_interlaced_pipeline(tplan("ntsc"), "combA", device="cpu")
     decoded = dec(enc(il.weave_fields(fields_rgb), 0), 0)
     adap = di.deinterlace(il.split_fields(decoded), sigma=0.01)
     p_weave = float(np.mean([psnr(decoded[t].numpy(), _scene_at(2 * t, motion))
@@ -541,7 +543,7 @@ def test_film_through_interlaced_broadcast():
     plan = tplan("ntsc")
     film = _film(8)
     frames = il.weave_fields(tc.telecine(film))
-    _, _, rt = il.make_interlaced_pipeline(plan, "comb3")
+    _, _, rt = il.make_interlaced_pipeline(plan, "comb3", device="cpu")
     rx_fields = il.split_fields(rt(frames, 0))
     det, conf = tc.detect_pulldown_phase(rx_fields)
     assert det == 0 and conf > 5.0

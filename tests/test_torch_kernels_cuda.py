@@ -124,6 +124,29 @@ def test_fir_orientation_on_asymmetric_taps(dev, n, ntaps, held):
     np.testing.assert_allclose(got.cpu().numpy(), ref, atol=1e-6)
 
 
+@pytest.mark.parametrize("lines", [1, 17, 7681])
+@pytest.mark.parametrize("n", [61, 97, 720, 722, 1440])
+@pytest.mark.parametrize("ntaps", [31, 129, 259])
+def test_band_fir_against_np_convolve(dev, ntaps, n, lines):
+    """csrc/band_fir.cuh alone (three TF32 passes on the tensor cores)
+    against np.convolve(mode='same') on random asymmetric taps, <= 2e-6:
+    taps longer than the line, widths that are not multiples of 4 or 8,
+    lines cut into spans, and 1, 17 and 7681 lines (ragged last tiles of
+    16)."""
+    rng = np.random.default_rng(ntaps * n + lines)
+    taps = rng.normal(size=ntaps) / ntaps
+    x = rng.normal(size=(lines, n)).astype(np.float32)
+    h = (ntaps - 1) // 2
+    ref = np.stack([np.convolve(np.pad(r.astype(np.float64), h), taps, "same")[h : h + n]
+                    for r in x])
+    fk.LAUNCHES["band_fir_check"] = 0
+    got = fk.band_fir_lines(torch.tensor(x, device=dev),
+                            torch.tensor(taps, dtype=torch.float32, device=dev))
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["band_fir_check"] == 1
+    np.testing.assert_allclose(got.cpu().numpy(), ref, atol=2e-6, rtol=0)
+
+
 def _secam_rgb(plan, luma, v, gline, pairing="interp"):
     dr, db = secam.pair(v, gline, pairing)
     return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
@@ -276,20 +299,43 @@ def test_transcode_ntsc_to_pal_through_the_kernels(dev):
     assert float((out - conv_p(comp, 0)).abs().max()) <= DEC_ATOL
 
 
-@pytest.mark.parametrize("interlaced", [False, True])
-def test_round_trip_never_blocks_the_host(dev, interlaced):
+@pytest.mark.parametrize("case", ["progressive", "interlaced", "burst-locked", "secam-ident"])
+def test_round_trip_never_blocks_the_host(dev, case):
     """An int frame0 costs no host-to-device copy, so a round trip enqueues
-    without waiting for the card (the plans are on the card already)."""
+    without waiting for the card (the plans are on the card already); so do
+    a rastered, burst-locked decode and the SECAM ident lines, whose host-
+    built constants upload once per shape and device."""
+    from color_modem_tpu_torch.frame import raster
     from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
 
-    make = make_interlaced_pipeline if interlaced else make_pipeline
-    _, _, rt = make(make_plan(ALL_STANDARDS["ntsc"](), 720), "comb3d", "kernel", dev)
-    rgb = _scene(480, dev)
-    rt(rgb, 0)
+    if case in ("progressive", "interlaced"):
+        make = make_interlaced_pipeline if case == "interlaced" else make_pipeline
+        _, _, rt = make(make_plan(ALL_STANDARDS["ntsc"](), 720), "comb3d", "kernel", dev)
+        rgb = _scene(480, dev)
+        rt(rgb, 0)
+
+        def call():
+            return rt(rgb, 3)
+    elif case == "burst-locked":
+        plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+        enc, _, _ = make_pipeline(plan, "notch", "kernel", dev, raster=True)
+        rast = enc(_scene(480, dev), 0)
+        rp = raster.make_raster(plan)
+        g = frame_line_index(plan, 0, 16, 480, dev)
+
+        def call():
+            return raster.decode_burst_locked(plan, rp, rast, g, "notch")
+    else:
+        plan = make_plan(SECAM(), 720).to(dev)
+        g = frame_line_index(plan, 0, 16, 2, dev)
+
+        def call():
+            return secam.ident_lines(plan, g)
+    call()
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rt(rgb, 3)
+        call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()

@@ -1,0 +1,55 @@
+"""The kernels' bounds (``kernels/measure.py``) counted from the plans on the
+CPU: each filter at the width its kernel runs it, each plane once."""
+
+from __future__ import annotations
+
+import pytest
+
+from color_modem_tpu_torch import NTSC, PAL, SECAM
+from color_modem_tpu_torch.kernels import measure
+from color_modem_tpu_torch.modem.plan import make_plan
+
+
+@pytest.mark.parametrize("kernel,want", [("qam_encode", 0.026409), ("qam_decode", 0.033012)])
+def test_qam_bounds_are_the_bytes_at_the_main_path(kernel, want):
+    """NTSC 16x480x720: 4 (encode) or 5 (decode) float32 planes at 3.35 TB/s."""
+    ms, by = measure.kernel_bound(make_plan(NTSC(), 720), kernel, 16 * 480)
+    assert by == "bytes"
+    assert ms == pytest.approx(want, rel=1e-4)
+
+
+@pytest.mark.parametrize("std,kernel,filters", [(NTSC, "qam_encode", 2), (PAL, "qam_decode", 3)])
+def test_qam_flops(std, kernel, filters):
+    plan = make_plan(std(), 720)
+    want = 2.0 * plan.c1_lpf.numel() * filters * 100 * 720
+    assert measure.kernel_flops(plan, kernel, 100) == want
+
+
+def test_secam_decode_counts_demod_lpf_at_the_cropped_width():
+    """Five filters run over N + 2M; demod_lpf only over the N samples the
+    kernel writes out."""
+    plan = make_plan(SECAM(), 720)
+    n, n_ext = 720, 720 + 2 * plan.fm_margin
+    widths = {"bell_takeoff": n_ext, "luma_notch": n_ext, "mix_lpf": 2 * n_ext,
+              "diff": 2 * n_ext, "deemph": n_ext, "demod_lpf": n}
+    want = sum(2.0 * getattr(plan, f).numel() * w for f, w in widths.items()) * 9216
+    assert plan.luma_notch.numel() == plan.bell_takeoff.numel()
+    assert measure.kernel_flops(plan, "secam_decode", 9216) == want
+    ms, by = measure.kernel_bound(plan, "secam_decode", 9216)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * want / measure.FP32_FLOPS_PER_S)
+
+
+def test_secam_encode_bound():
+    plan = make_plan(SECAM(), 720)
+    taps = sum(getattr(plan, f).numel() for f in ("comp_lpf", "preemph", "anticloche"))
+    assert measure.kernel_flops(plan, "secam_encode", 10) == 2.0 * taps * 10 * 720
+    ms, by = measure.kernel_bound(plan, "secam_encode", 9216)
+    t_bytes = 1e3 * 4.0 * 3 * 9216 * 720 / measure.HBM_BYTES_PER_S
+    assert ms == pytest.approx(max(t_bytes, 1e3 * 2.0 * taps * 9216 * 720
+                                   / measure.FP32_FLOPS_PER_S))
+
+
+def test_unknown_kernel_raises():
+    with pytest.raises(ValueError):
+        measure.kernel_flops(make_plan(NTSC(), 720), "fir_check", 1)

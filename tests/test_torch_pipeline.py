@@ -164,9 +164,9 @@ def test_raises_where_jax_raises(case):
 def test_bad_arguments_raise():
     plan = plan_from_numpy(get_plan("ntsc"))
     with pytest.raises(ValueError, match="supports decoders"):
-        make_pipeline(plan, "interp", "kernel")
+        make_pipeline(plan, "interp", "kernel", device="cpu")
     with pytest.raises(ValueError, match="backend"):
-        make_pipeline(plan, "comb3", "xla")
+        make_pipeline(plan, "comb3", "xla", device="cpu")
 
 
 def test_port_never_imports_jax():
@@ -200,13 +200,20 @@ def test_port_never_imports_jax():
         from color_modem_tpu_torch.frame import (
             deinterlace, interlace, nr, svideo, telecine, transcode, video)
         from color_modem_tpu_torch.utils import manifest
-        _, _, rt = interlace.make_interlaced_pipeline(make_plan(NTSC(), 720), "comb3")
+        _, _, rt = interlace.make_interlaced_pipeline(make_plan(NTSC(), 720), "comb3",
+                                                      device="cpu")
         assert psnr(rt(rgb, 0), rgb) > 28.0
         with tempfile.TemporaryDirectory() as d:
             s = video.process_video(make_plan(PAL(), 720), video.synthetic_source(16, 720),
-                                    3, d, decoder="delayline", chunk=2)
+                                    3, d, decoder="delayline", chunk=2, device="cpu")
         assert s["frames_processed_this_run"] == 3 and s["min_psnr_db"] > 25.0
+        import importlib, pkgutil
+        import color_modem_tpu_torch as port
+        for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+            importlib.import_module(m.name)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        ref = sorted(m for m in sys.modules if m.split(".")[0] == "color_modem_tpu")
+        assert not ref, ref
         print("ok")
     """)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -224,3 +231,51 @@ def test_chip_smoke_imports_only_the_port():
     tops = {m.split(".")[0] for m in names}
     assert "color_modem_tpu_torch" in tops
     assert not tops & {"jax", "jaxlib", "color_modem_tpu"}, sorted(tops)
+
+
+def _factories():
+    from color_modem_tpu_torch.frame import interlace, svideo, transcode, video
+    from color_modem_tpu_torch.frame import pipeline as pl
+
+    return {
+        "make_pipeline": pl.make_pipeline,
+        "make_interlaced_pipeline": interlace.make_interlaced_pipeline,
+        "make_svideo_pipeline": svideo.make_svideo_pipeline,
+        "make_transcoder": transcode.make_transcoder,
+        "make_interlaced_transcoder": transcode.make_interlaced_transcoder,
+        "synthetic_device_source": video.synthetic_device_source,
+        "process_video": video.process_video,
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_factories()))
+def test_factories_default_to_the_card(name):
+    """Every entry point runs on the card unless the caller asks for the
+    CPU, as the CPU tests do."""
+    import inspect
+
+    assert inspect.signature(_factories()[name]).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("name", ["make_pipeline", "make_interlaced_pipeline",
+                                  "make_svideo_pipeline", "make_transcoder",
+                                  "synthetic_device_source", "process_video"])
+def test_default_device_raises_without_cuda(name, monkeypatch, tmp_path):
+    """With the default device and no CUDA, a factory raises before it does
+    any work."""
+    from color_modem_tpu_torch import NTSC, PAL
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ntsc = make_plan(NTSC(), 720)
+    calls = {
+        "make_pipeline": lambda f: f(ntsc, "comb3"),
+        "make_interlaced_pipeline": lambda f: f(ntsc, "comb3"),
+        "make_svideo_pipeline": lambda f: f(ntsc),
+        "make_transcoder": lambda f: f(ntsc, make_plan(PAL(), 720)),
+        "synthetic_device_source": lambda f: f(8, 720),
+        "process_video": lambda f: f(ntsc, lambda s, c: np.zeros((c, 3, 8, 720), np.float32),
+                                     2, str(tmp_path)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[name](_factories()[name])

@@ -118,7 +118,7 @@ def test_decode_burst_locked_matches_jax(case, backend):
     assert qk.LAUNCHES["qam_decode"] == 0  # CPU tensors run the plain versions
     np.testing.assert_allclose(got.numpy(), ref, atol=DEC_ATOL)
     if imp:  # the lock undoes the channel: better than a nominal decode
-        _, dec, _ = make_pipeline(tp, decoder, backend, raster=True)
+        _, dec, _ = make_pipeline(tp, decoder, backend, raster=True, device="cpu")
         nominal = np_psnr(dec(bad, 0).numpy(), rgb)
         assert np_psnr(got.numpy(), rgb) > nominal + 0.5, case
 
@@ -164,10 +164,27 @@ def test_rastered_pipeline_roundtrip_identical(name, decoder, backend):
     and the rastered composite equals JAX's to the composite bound."""
     rgb = smooth_scene(TEST_LINES, TEST_SAMPLES, seed=4)[None].astype(np.float32)
     tp = plan_from_numpy(get_plan(name))
-    enc_r, dec_r, _ = make_pipeline(tp, decoder, backend, raster=True)
-    _, _, rt = make_pipeline(tp, decoder, backend)
+    enc_r, dec_r, _ = make_pipeline(tp, decoder, backend, raster=True, device="cpu")
+    _, _, rt = make_pipeline(tp, decoder, backend, device="cpu")
     comp = enc_r(rgb, 2)
     assert torch.equal(dec_r(comp, 2), rt(rgb, 2))
     enc_j, _, _ = jax_make_pipeline(get_plan(name), decoder, raster=True)
     np.testing.assert_allclose(comp.numpy(), np.asarray(enc_j(jnp.asarray(rgb), 2)),
                                atol=ENC_ATOL)
+
+
+def test_blanking_constants_upload_once():
+    """The blanking ramp is reduced mod 2*pi in float64 on the host and
+    uploaded once per (frequency, width, device); the sync and burst
+    windows are built on the device.  Values are those of the host build."""
+    tp = plan_from_numpy(get_plan("ntsc"))
+    rp = raster.make_raster(tp)
+    k = 2.0 * np.pi * tp.cfg.chroma.fsc / tp.fs
+    first = raster._blank_ramp(k, rp.n_blank, torch.device("cpu"))
+    assert raster._blank_ramp(k, rp.n_blank, torch.device("cpu")) is first
+    m = np.arange(rp.n_blank, dtype=np.float64) - rp.n_blank
+    np.testing.assert_array_equal(first.numpy(), ((k * m) % (2.0 * np.pi)).astype(np.float32))
+    idx = np.arange(rp.n_blank)
+    win = raster._window(rp, rp.burst_start, rp.burst_len, torch.device("cpu"))
+    np.testing.assert_array_equal(
+        win.numpy(), (idx >= rp.burst_start) & (idx < rp.burst_start + rp.burst_len))

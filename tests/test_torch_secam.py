@@ -293,7 +293,7 @@ def test_fm_rejects_qam_hooks():
         decode_block(tp, torch.zeros((1, 4, N)), g, "notch",
                      phase_err=torch.zeros((1, 4)))
     with pytest.raises(ValueError, match="supports decoders"):
-        make_pipeline(tp, "comb3")
+        make_pipeline(tp, "comb3", device="cpu")
 
 
 # --- line identification (tests/test_secam_ident.py decisions) -------------
@@ -391,3 +391,17 @@ def test_ident_lines_under_noise(ident_setup):
     ref = secam.decode(tp, noisy, g)
     assert torch.equal(got[..., n_id:, :], ref[..., n_id:, :])
 
+
+
+def test_ident_ramp_uploads_once():
+    """The ident bottles' sawtooth is np.linspace's, uploaded once per
+    width and device."""
+    tp = plan_from_numpy(get_plan("secam"))
+    g = torch.arange(4, dtype=torch.int32)
+    first = secam.ident_lines(tp, g)
+    hits = secam._ident_ramp.cache_info().hits
+    torch.testing.assert_close(secam.ident_lines(tp, g), first, rtol=0, atol=0)
+    assert secam._ident_ramp.cache_info().hits == hits + 1
+    np.testing.assert_array_equal(
+        secam._ident_ramp(tp.n_samples, torch.device("cpu")).numpy(),
+        np.linspace(0.0, 1.0, tp.n_samples, dtype=np.float32))

@@ -63,10 +63,10 @@ def no_launches_on_cpu():
 def test_video_run_and_resume(tmp_path):
     src = synthetic_source(L, N)
     out = str(tmp_path / "run")
-    s1 = process_video(tplan(), src, 6, out, decoder="notch", chunk=2)
+    s1 = process_video(tplan(), src, 6, out, decoder="notch", chunk=2, device="cpu")
     assert s1["frames_processed_this_run"] == 6
     assert s1["min_psnr_db"] > 35 and s1["backend"] == "kernel"
-    s2 = process_video(tplan(), src, 6, out, decoder="notch", chunk=2)
+    s2 = process_video(tplan(), src, 6, out, decoder="notch", chunk=2, device="cpu")
     assert s2["frames_processed_this_run"] == 0
     assert ChunkManifest(out).summary() == {"chunks_done": 3, "frames_done": 6}
     results = sorted(os.listdir(os.path.join(out, "results")))
@@ -78,11 +78,12 @@ def test_video_run_and_resume(tmp_path):
 def test_resume_rejects_config_change(tmp_path):
     src = synthetic_source(L, N)
     out = str(tmp_path / "run")
-    process_video(tplan(), src, 2, out, decoder="notch", chunk=2)
+    process_video(tplan(), src, 2, out, decoder="notch", chunk=2, device="cpu")
     with pytest.raises(ValueError, match="refusing to resume"):
-        process_video(tplan(), src, 2, out, decoder="comb3", chunk=2)
+        process_video(tplan(), src, 2, out, decoder="comb3", chunk=2, device="cpu")
     with pytest.raises(ValueError, match="refusing to resume"):
-        process_video(tplan(), src, 2, out, decoder="notch", chunk=2, backend="plain")
+        process_video(tplan(), src, 2, out, decoder="notch", chunk=2, backend="plain",
+                      device="cpu")
 
 
 def test_jax_manifests_resume_clean_and_refuse_noisy(tmp_path):
@@ -101,12 +102,13 @@ def test_jax_manifests_resume_clean_and_refuse_noisy(tmp_path):
         with open(path, "w") as f:
             json.dump(m, f)
         if chan is None:
-            s = process_video(tplan(), src, 2, d, decoder="notch", chunk=2)
+            s = process_video(tplan(), src, 2, d, decoder="notch", chunk=2, device="cpu")
             assert s["frames_processed_this_run"] == 0
         else:
             assert m["config"]["noise_keying"] == "abs-frame"
             with pytest.raises(ValueError, match="refusing to resume"):
-                process_video(tplan(), src, 2, d, decoder="notch", chunk=2, channel=chan)
+                process_video(tplan(), src, 2, d, decoder="notch", chunk=2, channel=chan,
+                              device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -123,8 +125,9 @@ def jax_clean_run(tmp_path_factory):
 def test_clean_run_matches_jax(backend, jax_clean_run, tmp_path):
     s_j, frames_j, chunks_j = jax_clean_run
     d = str(tmp_path / backend)
-    s = process_video(tplan(), synthetic_device_source(L, N, seed=3), 5, d, decoder="comb3",
-                      chunk=2, backend=backend, save_outputs=True)
+    s = process_video(tplan(), synthetic_device_source(L, N, seed=3, device="cpu"), 5, d,
+                      decoder="comb3", chunk=2, backend=backend, save_outputs=True,
+                      device="cpu")
     assert s["frames_processed_this_run"] == 5
     assert abs(s["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.01, (s, s_j)
     np.testing.assert_allclose(saved(d, 5, 2), frames_j, atol=DEC_ATOL)
@@ -136,7 +139,7 @@ def test_clean_run_matches_jax(backend, jax_clean_run, tmp_path):
 
 def test_device_source_matches_jax():
     src_j = jvideo.synthetic_device_source(L, N, seed=1)
-    src = synthetic_device_source(L, N, seed=1)
+    src = synthetic_device_source(L, N, seed=1, device="cpu")
     got = src(5, 3)
     assert got.dtype == torch.float32 and got.shape == (3, 3, L, N)
     np.testing.assert_allclose(got.numpy(), np.asarray(src_j(5, 3)), atol=1e-6)
@@ -145,27 +148,27 @@ def test_device_source_matches_jax():
 
 def test_video_interlaced(tmp_path):
     s = process_video(tplan(), synthetic_source(L, N), 4, str(tmp_path / "int"),
-                      decoder="comb3", chunk=2, interlaced=True)
+                      decoder="comb3", chunk=2, interlaced=True, device="cpu")
     assert s["frames_processed_this_run"] == 4 and s["interlaced"] is True
     assert s["min_psnr_db"] > 33
     # same-parity temporal comb with the chunk overlap, on a static source
     s3d = process_video(tplan(), static_source(0), 4, str(tmp_path / "int3d"),
-                        decoder="comb3d", chunk=2, interlaced=True)
+                        decoder="comb3d", chunk=2, interlaced=True, device="cpu")
     assert s3d["frames_processed_this_run"] == 4 and s3d["min_psnr_db"] > 40
 
 
 def test_video_nr_and_tail_padding(tmp_path):
     noise = {"noise_sigma": 0.02}
     raw = process_video(tplan(), static_source(3), 4, str(tmp_path / "raw"),
-                        decoder="comb3", chunk=4, channel=dict(noise))
+                        decoder="comb3", chunk=4, channel=dict(noise), device="cpu")
     den = process_video(tplan(), static_source(3), 4, str(tmp_path / "den"),
-                        decoder="comb3", chunk=4, channel=dict(noise), nr=True)
+                        decoder="comb3", chunk=4, channel=dict(noise), nr=True, device="cpu")
     assert den["min_psnr_db"] - raw["min_psnr_db"] > 2.5, (raw, den)
     assert den["noise_keying"] == "abs-frame-torch"
     # a one-frame tail chunk pads with repeats of its last frame
     d = str(tmp_path / "tail")
     s = process_video(tplan(), static_source(3), 5, d, decoder="comb3", chunk=4,
-                      channel=dict(noise), nr=True, save_outputs=True)
+                      channel=dict(noise), nr=True, save_outputs=True, device="cpu")
     assert s["frames_processed_this_run"] == 5
     assert np.load(os.path.join(d, "rgb_000004.npy")).shape == (1, 3, L, N)
 
@@ -191,7 +194,7 @@ def test_chunk_independent(case, tmp_path):
     for chunk in chunks:
         d = str(tmp_path / f"c{chunk}")
         process_video(tplan(), synthetic_source(L, N), n, d, chunk=chunk,
-                      save_outputs=True, **kw)
+                      save_outputs=True, device="cpu", **kw)
         outs[chunk] = saved(d, n, chunk)
     np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], atol=CHUNK_ATOL, rtol=0)
 
