@@ -10,12 +10,14 @@ Phases; any failure raises and exits nonzero:
 2. build the CUDA kernels from ``color_modem_tpu_torch/csrc`` (TF32 off);
 3. each QAM kernel against its plain PyTorch version on the card: NTSC at
    16x480 lines, PAL and NIIR at 16x576 lines, 720 samples, seeded inputs;
-3b. the SECAM kernels' FIR (``csrc/fir.cuh``) against ``np.convolve`` on
-   asymmetric taps, zero and held edges, and the QAM kernels' tensor-core FIR
-   (``csrc/band_fir.cuh``) the same way, zero edges, <= 2e-6, over 16 shapes
-   (ragged last tiles of lines included); each SECAM kernel against its plain version at
-   16x576x720 and 4x576x1440: encode <= 2e-4, decoded RGB <= 5e-4, and the
-   raw demodulated component's error printed;
+3b. the SIMT FIR (``csrc/fir.cuh``, whose zero and held edges the SECAM
+   kernels' staging matches) against ``np.convolve`` on asymmetric taps, and
+   the tensor-core FIR in the QAM kernels' form (``csrc/band_fir.cuh``) the
+   same way, zero edges, <= 2e-6, over 16 shapes (ragged last tiles of lines
+   included); each SECAM kernel (the tensor-core form with the lines as
+   columns) against its plain version at 16x576x720 and 4x576x1440: encode
+   <= 2e-4, decoded RGB <= 5e-4, and the raw demodulated component's error
+   printed;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel, agreement with the plain backend on the card
@@ -40,12 +42,16 @@ Phases; any failure raises and exits nonzero:
    JAX CPU value with its launches and the plain backend on the card
    (<= 5e-4); telecine's inverse bit-exact at every cadence phase;
    ``temporal_nr(sigma=None)`` above 2^24 elements;
+4f. the NTSC comb3 and SECAM interp round trips again with TF32 switched on
+   for the whole process (``allow_tf32`` and ``set_float32_matmul_precision
+   ("high")``): the same PSNRs, outputs bit-identical to phase 4's on both
+   backends (the port pins its own precision), then the settings restored;
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
    case); per kernel its bound (bytes or operations, ``kernels/measure.py``)
-   and the share of it reached, and for the QAM kernels one grouped conv2d
-   of their FIRs alone as the library yardstick; 5e the frame layer's
+   and the share of it reached, and one grouped conv2d of each kernel's
+   FIRs alone (TF32 off) as the library yardstick; 5e the frame layer's
    round trips, the resample matmul and NR;
 6. the video runner: ``process_video`` NTSC comb3 at 480x720, 48 frames in
    chunks of 16 from the device source (PSNR +- 0.02 dB of the JAX CPU run,
@@ -55,8 +61,10 @@ Phases; any failure raises and exits nonzero:
    noise with NR (progressive comb3 and interlaced comb3d), NR gaining >
    2.5 dB on a noisy static source, and Mpix/s on both backends.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is ``{"kernels": [...]}``, one entry per Pallas
+kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
+CUDA kernels with equal tile arrays, on the PAL delayline path); the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -393,6 +401,40 @@ def check_path(dev, name: str, decoder: str, expected: float, want: dict):
     return rt_k, rt_plain, got
 
 
+def check_tf32_on(dev, paths: dict) -> None:
+    """Phase 4f: NTSC comb3 and SECAM interp with TF32 switched on for the
+    whole process, on both backends: the same PSNR, and outputs identical
+    to the ones with TF32 off, since every product of the port pins its own
+    precision (the kernels, colorimetry's scaled adds, the plain FIRs'
+    guarded matmuls).  The settings are restored afterwards."""
+    import torch
+
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    cases = (("ntsc", "comb3", PSNR_EXPECTED), ("secam", "interp", SECAM_PSNR["interp"]))
+    rgbs = {name: full_scene(480 if name == "ntsc" else SECAM_LINES, dev)
+            for name, _, _ in cases}
+    off = {(name, b): f(rgbs[name], 0) for name, decoder, _ in cases
+           for b, f in zip(("kernel", "plain"), paths[name, decoder])}
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, decoder, expected in cases:
+            for b, f in zip(("kernel", "plain"), paths[name, decoder]):
+                out = f(rgbs[name], 0)
+                q, diff = psnr(out, rgbs[name]), _max_err(out, off[name, b])
+                print(f"TF32 on: {name} {decoder} {b} backend: psnr {q:.4f} dB (expected "
+                      f"{expected} +- {PSNR_TOL}), max|diff| to TF32 off {diff:.3e} (== 0)")
+                _check(abs(q - expected) <= PSNR_TOL and diff == 0.0,
+                       f"TF32 on changed {name} {decoder} ({b}): {q} dB, {diff}")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    _check(torch.get_float32_matmul_precision() == "highest"
+           and not torch.backends.cuda.matmul.allow_tf32, "TF32 settings not restored")
+
+
 def check_channel(dev) -> None:
     """Phase 4d through the kernel backend: raster identities, burst lock,
     ACC, PAL ident and NIIR normalisation against CHANNEL_PSNR."""
@@ -419,7 +461,7 @@ def check_channel(dev) -> None:
         return out
 
     def rastered(name, decoder, **imp):
-        plan = make_plan(ALL_STANDARDS[name](), N)
+        plan = make_plan(ALL_STANDARDS[name](), N).to(dev)  # used below with card data
         enc, dec, rt = make_pipeline(plan, decoder, "kernel", dev, raster=True)
         enc0, _, _ = make_pipeline(plan, decoder, "kernel", dev)
         rgb = full_scene(plan.cfg.active_lines, dev)
@@ -455,7 +497,7 @@ def check_channel(dev) -> None:
                f"PAL ident must read slip 1 in every frame: {slip.tolist()}")
         expect("pal delayline rastered, 20 deg: identified on gline + 1", out, rgb)
         for name, decoder in (("niir", "notch"), ("niir", "avg"), ("ntsc", "notch")):
-            plan = make_plan(ALL_STANDARDS[name](), N)
+            plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
             enc, dec, _ = make_pipeline(plan, decoder, "kernel", dev)
             rgb = full_scene(plan.cfg.active_lines, dev)
             bad = impair(plan, enc(rgb, 0), chroma_phase_deg=25.0, chroma_gain=0.6)
@@ -670,6 +712,46 @@ def qam_library_calls(plan, ycc, sep, comp, cols) -> dict:
     return calls
 
 
+def secam_library_calls(plan, ycc, comp, isr) -> dict:
+    """The yardstick of each SECAM kernel: one grouped conv2d that runs the
+    kernel's FIRs alone (TF32 off), each filter zero-padded to the longest,
+    on inputs of the kernel's widths: encode comp_lpf, preemph and
+    anticloche over N; decode bell_takeoff, luma_notch, mix_lpf twice, diff
+    twice and deemph over the extended line N + 2M, and demod_lpf with them
+    (so it does more multiply-adds than the kernel).  Checked against the
+    plain zero-edged FIRs; it computes no held edge, mix, discriminator or
+    scan, and the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from color_modem_tpu_torch.dsp.apply import fir_same
+    from color_modem_tpu_torch.modem import secam
+
+    def weights(names):
+        taps = [getattr(plan, k) for k in names]
+        t = max(x.numel() for x in taps)
+        w = torch.zeros(len(taps), 1, 1, t, device=ycc.device)
+        for i, x in enumerate(taps):
+            o = (t - x.numel()) // 2
+            w[i, 0, 0, o : o + x.numel()] = x.flip(-1)
+        return w, (0, (t - 1) // 2)
+
+    g, _, l, n = ycc.shape
+    w_enc, pad_enc = weights(("comp_lpf", "preemph", "anticloche"))
+    x_enc = torch.stack([ycc[:, 1], ycc[:, 2], ycc[:, 0]], dim=1).contiguous()
+    dec = ("bell_takeoff", "luma_notch", "mix_lpf", "mix_lpf", "diff", "diff", "deemph",
+           "demod_lpf")
+    w_dec, pad_dec = weights(dec)
+    ext = secam.extend_blanking_parity(plan, comp, isr.reshape(g, l) != 0.0)
+    x_dec = ext[:, None].expand(g, len(dec), l, ext.shape[-1]).contiguous()
+    calls = {"secam_encode": partial(F.conv2d, x_enc, w_enc, padding=pad_enc, groups=3),
+             "secam_decode": partial(F.conv2d, x_dec, w_dec, padding=pad_dec, groups=len(dec))}
+    e = max(_max_err(calls["secam_encode"]()[:, 2], fir_same(ycc[:, 0], plan.anticloche_mat)),
+            _max_err(calls["secam_decode"]()[:, 0], fir_same(ext, plan.bell_takeoff_mat)))
+    _check(e <= 1e-5, f"the conv2d yardstick is not the SECAM kernels' FIRs: {e}")
+    return calls
+
+
 def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict:
     """Phases 5/5c: the path's two kernels at its full shape against their
     plain versions (held to the bounds here too), and its round trip."""
@@ -720,7 +802,7 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
         print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode max|err| "
               f"{e_enc:.3e} (<= {enc_atol}), decode {e_dec:.3e} (<= {DEC_ATOL})")
         _check(e_enc <= enc_atol and e_dec <= DEC_ATOL, f"{name} kernels disagree")
-        library = ({} if plan.cfg.is_fm
+        library = (secam_library_calls(plan, ycc, comp, isr) if plan.cfg.is_fm
                    else qam_library_calls(plan, ycc, sep, comp, cols))
         rt_k, rt_p = roundtrips[name, decoder]
         kernels[f"{decoder} roundtrip"] = (lambda: rt_p(rgb, 0), lambda: rt_k(rgb, 0))
@@ -912,15 +994,22 @@ def main() -> None:
 
     # --- 4c. the rest of the QAM family ---------------------------------------
     for (name, decoder), (expected, (n_enc, n_dec)) in QAM_FAMILY.items():
-        rt_k, rt_p, _ = check_path(dev, name, decoder, expected,
-                                   {"qam_encode": n_enc, "qam_decode": n_dec})
+        rt_k, rt_p, got = check_path(dev, name, decoder, expected,
+                                     {"qam_encode": n_enc, "qam_decode": n_dec})
         paths[name, decoder] = (rt_k, rt_p)
+        if (name, decoder) == ("pal", "delayline"):
+            # the _shared forms: the same CUDA kernels with equal tile arrays
+            launches["qam_encode_shared"] = got["qam_encode"]
+            launches["qam_decode_shared"] = got["qam_decode"]
 
     # --- 4d. raster, channel and the receiver's countermeasures -----------------
     check_channel(dev)
 
     # --- 4e. the frame layer ----------------------------------------------------
     timed = check_frame_layer(dev)
+
+    # --- 4f. TF32 switched on for the whole process ------------------------------
+    check_tf32_on(dev, paths)
 
     # --- 5. timing: main path and SECAM; 5c. PAL/NIIR; 5e. frame layer ---------
     times = {}
@@ -934,22 +1023,28 @@ def main() -> None:
 
     _check("jax" not in sys.modules, "the port loaded jax")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
-    replaces = {"qam_encode": ("ntsc", "color_modem_tpu/kernels/qam.py:85"),
-                "qam_decode": ("ntsc", "color_modem_tpu/kernels/qam.py:129"),
-                "secam_encode": ("secam", "color_modem_tpu/kernels/secam.py:118"),
-                "secam_decode": ("secam", "color_modem_tpu/kernels/secam.py:231")}
+    # entry -> (its CUDA kernel, the path it is timed on, the Pallas kernel)
+    replaces = {
+        "qam_encode": ("qam_encode", "ntsc", "color_modem_tpu/kernels/qam.py:85"),
+        "qam_decode": ("qam_decode", "ntsc", "color_modem_tpu/kernels/qam.py:129"),
+        "qam_encode_shared": ("qam_encode", "pal", "color_modem_tpu/kernels/qam.py:98"),
+        "qam_decode_shared": ("qam_decode", "pal", "color_modem_tpu/kernels/qam.py:115"),
+        "secam_encode": ("secam_encode", "secam", "color_modem_tpu/kernels/secam.py:118"),
+        "secam_decode": ("secam_decode", "secam", "color_modem_tpu/kernels/secam.py:231"),
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
-         "source": f"color_modem_tpu_torch/csrc/{name}.cu",
+         "source": f"color_modem_tpu_torch/csrc/{kernel}.cu",
          "replaces": where, "launches": launches[name],
-         "max_abs_err": max_err[name], "ms": times[path][name]["kernel"][0],
-         "plain_ms": times[path][name]["plain"][0],
-         "bound_ms": times[path][name]["bound"][0], "bound_by": times[path][name]["bound"][1],
-         "library_ms": (times[path][name]["library"][0]
-                        if times[path][name]["library"] else None),
-         "ms_spread": list(times[path][name]["kernel"][1:]),
-         "plain_ms_spread": list(times[path][name]["plain"][1:])}
-        for name, (path, where) in replaces.items()
+         "max_abs_err": max_err[kernel], "ms": times[path][kernel]["kernel"][0],
+         "plain_ms": times[path][kernel]["plain"][0],
+         "bound_ms": times[path][kernel]["bound"][0],
+         "bound_by": times[path][kernel]["bound"][1],
+         "library_ms": (times[path][kernel]["library"][0]
+                        if times[path][kernel]["library"] else None),
+         "ms_spread": list(times[path][kernel]["kernel"][1:]),
+         "plain_ms_spread": list(times[path][kernel]["plain"][1:])}
+        for name, (kernel, path, where) in replaces.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,5 +1,8 @@
-// The FIR on the tensor cores: a 'same' FIR of 16 lines at a time as a
-// banded product of 8x8 Toeplitz tiles, in three TF32 passes.
+// The FIR on the tensor cores: a 'same' FIR as a banded product of Toeplitz
+// tiles, in three TF32 passes.  Two forms: 16 lines x 8 outputs per
+// mma.sync (fir_group, the QAM kernels: the lines are its rows, A), and 16
+// outputs x 8 lines (fir16, the SECAM kernels: the lines are its columns,
+// B; see "The product with the outputs as rows" below).
 //
 // With tr[m] = taps[T-1-m] (the taps reversed) and the line staged with a
 // halo, x~[i] = x[i - half], the output tile t (samples 8t..8t+7) is
@@ -111,6 +114,20 @@ __device__ inline void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
+// Copy a row of n floats from device to shared memory by one warp, with
+// cp.async (the caller commits and waits): 16-byte copies where both rows
+// are 16-byte aligned and n % 4 == 0, else 4-byte ones; zeros, and `src`
+// only a valid address, where `live` is false.
+__device__ inline void warp_copy_row(float* dst, const float* src, int n, bool live) {
+  const int lane = threadIdx.x & 31;
+  const bool vec = n % 4 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0 &&
+                   (__cvta_generic_to_shared(dst) & 15) == 0;
+  if (vec)
+    for (int k = 4 * lane; k < n; k += 128) cp_async16(dst + k, src + k, live ? 16 : 0);
+  else
+    for (int k = lane; k < n; k += 32) cp_async4(dst + k, src + k, live ? 4 : 0);
+}
+
 // The work of a launch: tiles of 16 lines x one span, the spans of a line
 // block consecutive (their halos overlap, so neighbours meet in L2).  A
 // launch has one block per (SM, kBlocksPerSm); each block walks the tiles
@@ -159,15 +176,16 @@ __device__ inline void stage(float* sm, int pitch, int base, Row row, int line0,
 
 constexpr int kMaxDevices = 64;
 
-// The host side of a launch: `blocks` = one per (SM, kBlocksPerSm), capped
-// at `total` tiles.  The SM count is read once per device.  The kernel's
+// The host side of a launch: `blocks` = one per (SM, per_sm), capped at
+// `total` tiles.  The SM count is read once per device.  The kernel's
 // dynamic shared memory is opted in (shared memory before L1, so that two
 // blocks of up to kSmemBudget fit an SM) once per device for the largest
 // size asked so far; `opted` is the kernel's own record of it, a static of
 // its caller.  After that a launch makes one runtime call here, cudaGetDevice.
 template <class Kernel>
 inline cudaError_t launch_blocks(Kernel kernel, size_t smem, int total,
-                                 size_t (&opted)[kMaxDevices], int& blocks) {
+                                 size_t (&opted)[kMaxDevices], int& blocks,
+                                 int per_sm = kBlocksPerSm) {
   static int sms[kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -188,7 +206,7 @@ inline cudaError_t launch_blocks(Kernel kernel, size_t smem, int total,
     if (err != cudaSuccess) return err;
     opted[dev] = smem;
   }
-  blocks = total < kBlocksPerSm * sms[dev] ? total : kBlocksPerSm * sms[dev];
+  blocks = total < per_sm * sms[dev] ? total : per_sm * sms[dev];
   return cudaSuccess;
 }
 
@@ -296,6 +314,188 @@ __device__ inline void store2(float* row, int pos, int lo, int hi, float v0, flo
 __device__ inline int acc_row(int e) { return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1); }
 __device__ inline int acc_col(int w, int e) {
   return 8 * w + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// --- the product with the outputs as rows (the SECAM kernels) ------------
+//
+// The SECAM kernels chain up to six FIRs per line through shared memory,
+// with nonlinear stages between them, so every plane of 16 lines would cost
+// twice the shared memory of a plane of 8 (a decoder of 16 lines needs
+// about 300 KB).  So there the lines are the N = 8 columns of
+// mma.m16n8k8 and 16 outputs its M rows:
+//
+//   out[l, 16t + r] = sum_{s<S} sum_{u<8} A_s[r, u] * x~[l, 8(2t + s) + u],
+//   A_s[r, u] = tr[8s + u - r] (0 outside [0, T)),  S = (T + 14) / 8 + 1,
+//
+// 144 multiply-adds per output for 129 taps (12% above the direct FIR).
+//
+// A is the 16x8 Toeplitz tile.  Its fragment for lane (g, q) is tr at
+// d = 8s + q - g, d - 8, d + 4 and d - 4 (a0, a1, a2, a3), so step s + 1
+// reads two new values and reuses two of step s: the kernel reads A from a
+// table of the reversed taps, split into TF32 hi and lo on the host in
+// float64 (kernels/tiles.py::band_tiles16: row m + 16 = (hi, lo) of tr[m]),
+// a few KB per filter that stay in L1, where the fragments themselves (1 KB
+// per warp per step) streamed from L2.
+//
+// B is the signal, read from a plane of 8 rows in shared memory that the
+// kernel itself wrote between its nonlinear stages: lane (g, q) needs row g
+// at columns 8c + q and 8c + q + 4; one ldmatrix.x4 gives it both for two
+// chunks (conflict-free where pitch % 32 == 4).  B is split in registers:
+// hi = b with its low 13 bits cleared, lo = b - hi (exact), of which the
+// tensor core reads the TF32 part: the error is below 2^-20 |b|.
+//
+// A warp computes kW output tiles; each A value serves kW tiles, and tiles
+// 2 chunks apart share B chunks in a straight-line block of kS >= 3 steps.
+// kA tables (two filters on one signal) and kB signals (two arms through
+// one filter) share the loads further.
+
+__host__ __device__ inline int n_steps16(int ntaps) { return (ntaps + 14) / 8 + 1; }
+
+struct Split {
+  uint32_t hi, lo;
+};
+
+__device__ inline Split split_tf32(float v) {
+  const uint32_t hi = __float_as_uint(v) & 0xffffe000u;
+  return {hi, __float_as_uint(v - __uint_as_float(hi))};
+}
+
+// acc += A * B in three TF32 passes, the small terms first.
+__device__ inline void mma3_rows(float (&acc)[4], const uint32_t (&ah)[4],
+                                 const uint32_t (&al)[4], const Split& b0,
+                                 const Split& b1) {
+  mma_tf32(acc, al, b0.hi, b1.hi);
+  mma_tf32(acc, ah, b0.lo, b1.lo);
+  mma_tf32(acc, ah, b0.hi, b1.hi);
+}
+
+// r[k] = plane[row lane & 7][8c + 4k + ...]: lane (g, q) gets columns
+// 8c + q, + 4, + 8, + 12 of row g from `addr`, the lane's ldmatrix address
+// (ld_addr) plus 32 bytes per chunk.
+__device__ inline void ldmatrix_x4(unsigned addr, float (&r)[4]) {
+  uint32_t v[4];
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+               : "r"(addr));
+#pragma unroll
+  for (int k = 0; k < 4; ++k) r[k] = __uint_as_float(v[k]);
+}
+
+// The lane's ldmatrix address of chunk 0 of an 8-row plane: lanes 0-7 rows
+// 0-7 at column 0, lanes 8-15 at column 4, lanes 16-31 the same at 8, 12.
+__device__ inline unsigned ld_addr(const float* plane, int pitch) {
+  const int lane = threadIdx.x & 31;
+  return static_cast<unsigned>(__cvta_generic_to_shared(
+      plane + (lane & 7) * pitch + 4 * ((lane >> 3) & 1) + 8 * (lane >> 4)));
+}
+
+// The B loader of one plane: pair(c) chunks c and c + 1 by ldmatrix, one(c)
+// chunk c by two loads (for a last step whose pair would leave the plane).
+struct PlaneB {
+  unsigned addr;     // ld_addr(plane, pitch)
+  const float* row;  // plane + g * pitch + q
+  __device__ PlaneB(const float* plane, int pitch)
+      : addr(ld_addr(plane, pitch)),
+        row(plane + ((threadIdx.x & 31) >> 2) * pitch + (threadIdx.x & 3)) {}
+  __device__ void pair(int c, float (&v)[1][2][2]) const {
+    float r[4];
+    ldmatrix_x4(addr + 32u * c, r);
+    v[0][0][0] = r[0], v[0][0][1] = r[1], v[0][1][0] = r[2], v[0][1][1] = r[3];
+  }
+  __device__ void one(int c, float (&v)[1][2]) const {
+    v[0][0] = row[8 * c];
+    v[0][1] = row[8 * c + 4];
+  }
+};
+
+// One straight-line block of kS steps from step sb, for the kW tiles whose
+// first chunk is c0: all of its B chunks and A values are loaded before its
+// products.  acc[a * kB + j][w] += table a (*) signal j, tile w; tr[a] is the
+// lane's pointer into table a (fir16).
+template <int kW, int kS, int kA, int kB, class LoadB>
+__device__ inline void fir16_block(int c0, int sb, const float2* const (&tr)[kA],
+                                   const LoadB& ldb, float (&acc)[kA * kB][kW][4]) {
+  constexpr int kC = 2 * kW + kS - 2;  // chunks the block reads
+  Split b[kC][kB][2];
+  if constexpr (kS % 2 == 0) {
+#pragma unroll
+    for (int o = 0; o < kC; o += 2) {
+      float v[kB][2][2];
+      ldb.pair(c0 + sb + o, v);
+#pragma unroll
+      for (int j = 0; j < kB; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          b[o + h][j][0] = split_tf32(v[j][h][0]);
+          b[o + h][j][1] = split_tf32(v[j][h][1]);
+        }
+    }
+  } else {
+#pragma unroll
+    for (int o = 0; o < kC; ++o) {
+      if (kS == 1 && (o & 1)) continue;  // one step reads only even offsets
+      float v[kB][2];
+      ldb.one(c0 + sb + o, v);
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        b[o][j][0] = split_tf32(v[j][0]);
+        b[o][j][1] = split_tf32(v[j][1]);
+      }
+    }
+  }
+  // the A window: tr[d - 8 + 4k] for k < 2 kS + 2, d = 8 sb + q - g
+  float2 wa[kA][2 * kS + 2];
+#pragma unroll
+  for (int a = 0; a < kA; ++a)
+#pragma unroll
+    for (int k = 0; k < 2 * kS + 2; ++k) wa[a][k] = __ldg(tr[a] + 8 * sb + 4 * k);
+#pragma unroll
+  for (int sp = 0; sp < kS; ++sp)
+#pragma unroll
+    for (int a = 0; a < kA; ++a) {
+      const float2* f = wa[a] + 2 * sp;
+      const uint32_t ah[4] = {__float_as_uint(f[2].x), __float_as_uint(f[0].x),
+                              __float_as_uint(f[3].x), __float_as_uint(f[1].x)};
+      const uint32_t al[4] = {__float_as_uint(f[2].y), __float_as_uint(f[0].y),
+                              __float_as_uint(f[3].y), __float_as_uint(f[1].y)};
+#pragma unroll
+      for (int w = 0; w < kW; ++w)
+#pragma unroll
+        for (int j = 0; j < kB; ++j)
+          mma3_rows(acc[a * kB + j][w], ah, al, b[2 * w + sp][j][0], b[2 * w + sp][j][1]);
+    }
+}
+
+// acc = output tiles t0 .. t0 + kW - 1 (16 outputs each, out[16t + r]
+// reading chunks 2t .. 2t + S - 1 of the loader's plane) of kA filters
+// (tables, kernels/tiles.py::band_tiles16) on kB signals, S = steps;
+// blocks of kS steps, then the rest one at a time.
+template <int kW, int kS, int kA, int kB, class LoadB>
+__device__ inline void fir16(int t0, const float2* const (&table)[kA], int steps,
+                             const LoadB& ldb, float (&acc)[kA * kB][kW][4]) {
+  const int lane = threadIdx.x & 31;
+  const float2* tr[kA];
+#pragma unroll
+  for (int a = 0; a < kA; ++a) tr[a] = table[a] + 8 + (lane & 3) - (lane >> 2);
+#pragma unroll
+  for (int k = 0; k < kA * kB; ++k)
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[k][w][e] = 0.0f;
+  int sb = 0;
+  for (; sb + kS <= steps; sb += kS) fir16_block<kW, kS, kA, kB>(2 * t0, sb, tr, ldb, acc);
+  for (; sb < steps; ++sb) fir16_block<kW, 1, kA, kB>(2 * t0, sb, tr, ldb, acc);
+}
+
+// Output (0..15) within its tile, and plane row (0..7), of accumulator e.
+__device__ inline int acc16_out(int e) { return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1); }
+__device__ inline int acc16_row(int e) { return 2 * (threadIdx.x & 3) + (e & 1); }
+
+// Columns a loop over `tiles` output tiles in groups of kW reads from its
+// plane (fir16's bound).
+__host__ __device__ inline int plane16_cols(int tiles, int kw, int steps) {
+  return 8 * (2 * round_up(tiles, kw) + steps - 2);
 }
 
 }  // namespace bf

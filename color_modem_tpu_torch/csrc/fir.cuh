@@ -1,4 +1,7 @@
-// Shared pieces of the kernels: line staging and a direct 'same' FIR.
+// Shared pieces of the kernels (the tap-count check, plane offsets, the
+// QAM carrier), and the direct SIMT 'same' FIR with its line staging that
+// csrc/fir_check.cu runs: the card tests pin the zero and held edges that
+// the SECAM kernels' staging must match with it.
 //
 // A line of N samples is staged in shared memory with a halo of
 // half = (T-1)/2 samples on each side, so the FIR needs no bounds checks.
@@ -16,10 +19,6 @@
 namespace cm {
 
 constexpr int kThreads = 192;  // 6 warps; 180 groups of 4 cover a 720-sample line
-// the SECAM kernels: 204 groups of 4 cover the 816-sample extended line of
-// the 720-sample plan in one pass (192 threads would need a second, nearly
-// empty one)
-constexpr int kThreadsWide = 256;
 constexpr int kOut = 4;        // outputs per thread per group (one float4)
 
 __host__ __device__ inline int round4(int v) { return (v + 3) / 4 * 4; }
@@ -47,13 +46,6 @@ __device__ inline void stage_line_held(float* xs, const float* __restrict__ x,
                                        int n, int half, int len) {
   for (int i = threadIdx.x; i < len; i += blockDim.x)
     xs[i] = x[min(max(i - half, 0), n - 1)];
-}
-
-// xs[i] = 0 outside the interior [half, half + n), for i < len: re-stages a
-// buffer whose interior the caller writes next.
-__device__ inline void zero_halo(float* xs, int n, int half, int len) {
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    if (i < half || i >= half + n) xs[i] = 0.0f;
 }
 
 // tr[m] = taps[ntaps - 1 - m] for m < ntaps, 0 up to round4(ntaps).

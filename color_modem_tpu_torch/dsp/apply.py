@@ -13,6 +13,7 @@ the same sums directly over the taps (``csrc/fir.cuh``) or as products of
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
@@ -67,10 +68,49 @@ def toeplitz_same_held(taps, n: int, n_valid: int | None = None) -> np.ndarray:
     return _toeplitz_held_cached(taps.tobytes(), len(taps), n, n_valid or n)
 
 
+#: the per-backend float32 matmul precision flags of PyTorch >= 2.9
+_FP32_FLAGS = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+
+
+@contextmanager
+def full_float32():
+    """Run float32 matrix products in full float32 inside the block, whatever
+    the process-wide setting (``torch.set_float32_matmul_precision``,
+    ``torch.backends.cuda.matmul.allow_tf32``, or the per-backend
+    ``fp32_precision`` flags where PyTorch has them), and restore the
+    caller's setting on the way out.  The JAX package pins each product's
+    precision the same way (``Precision.HIGH``/``HIGHEST``).  The setting is
+    process-wide, so two threads must not race through this block."""
+    if all(hasattr(f, "fp32_precision") for f in _FP32_FLAGS):
+        saved = [f.fp32_precision for f in _FP32_FLAGS]
+        try:
+            for f in _FP32_FLAGS:
+                f.fp32_precision = "ieee"
+            yield
+        finally:
+            for f, v in zip(_FP32_FLAGS, saved):
+                f.fp32_precision = v
+        return
+    saved = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cuda.matmul.allow_tf32 = saved[1]
+
+
+def matmul_f32(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """``x @ mat`` in full float32 (:func:`full_float32`)."""
+    with full_float32():
+        return torch.matmul(x, mat)
+
+
 def fir_same(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """Convolve the last axis of ``x`` (..., N) with the filter whose
-    :func:`toeplitz_same` matrix is ``mat``, in float32."""
-    return torch.matmul(x, mat)
+    :func:`toeplitz_same` matrix is ``mat``, in full float32."""
+    return matmul_f32(x, mat)
 
 
 def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
@@ -81,4 +121,4 @@ def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     full-scale step through the long SECAM emphasis filters.  Carrier-band
     filters keep the zero edge of :func:`fir_same`.
     """
-    return torch.matmul(x, mat)
+    return matmul_f32(x, mat)

@@ -4,8 +4,9 @@ Port of ``color_modem_tpu/dsp/resample.py``.  Resampling is a linear map,
 so it is one float32 matmul against the host-designed ``(n_in, n_out)``
 windowed-sinc matrix of :func:`design.resample_matrix`; anti-aliasing for
 decimation is built into the matrix.  The JAX package runs this product
-outside any Pallas kernel, and so does the port (TF32 off, so it is full
-float32).  The matrix is dense although only 17 taps per output are non-zero.
+outside any Pallas kernel, and so does the port, in full float32 whatever
+the process-wide matmul precision (``dsp/apply.py::matmul_f32``).  The
+matrix is dense although only 17 taps per output are non-zero.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from functools import lru_cache
 
 import torch
 
+from color_modem_tpu_torch.dsp.apply import matmul_f32
 from color_modem_tpu_torch.dsp.design import resample_matrix
 
 
@@ -31,4 +33,4 @@ def resample_width(x: torch.Tensor, n_out: int, taps_per_output: int = 17) -> to
     if n_in == n_out:
         return x
     mat = _matrix(n_in, n_out, taps_per_output, x.device)
-    return torch.matmul(x.to(torch.float32), mat)
+    return matmul_f32(x.to(torch.float32), mat)

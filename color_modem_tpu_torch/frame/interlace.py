@@ -37,6 +37,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     resolve_device,
 )
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
+from color_modem_tpu_torch.modem.plan import plan_on
 
 
 def field_offset(plan: Plan) -> int:
@@ -94,7 +95,7 @@ def _decode_fields(plan: Plan, comp_fields: torch.Tensor, g: torch.Tensor,
 def make_interlaced_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
                              device: torch.device | str = "cuda", raster: bool = False):
     """Closures between RGB frames and field-sequential composite, over a
-    fixed plan moved to ``device`` (in place).
+    fixed plan, on a copy of it on ``device`` (the caller's plan stays).
 
     ``encode(rgb (B, 3, L, N), frame0) -> (2B, L/2, N)`` composite fields in
     transmission order; ``decode`` weaves the two decoded fields back into
@@ -107,7 +108,7 @@ def make_interlaced_pipeline(plan: Plan, decoder: str = "notch", backend: str = 
     check_decoder(plan, decoder)
     _check_backend(backend)
     device = resolve_device(device)
-    plan = plan.to(device)
+    plan = plan_on(plan, device)
     rp = make_raster(plan) if raster else None
 
     def _input(x) -> torch.Tensor:

@@ -28,7 +28,7 @@ from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_ra
 from color_modem_tpu_torch.kernels import qam as qam_k
 from color_modem_tpu_torch.kernels import secam as secam_k
 from color_modem_tpu_torch.modem import niir, qam, secam
-from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan
+from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan, plan_on
 from color_modem_tpu_torch.separate.comb import ADAPTIVE, separate, stencil_signal
 from color_modem_tpu_torch.separate.delayline import average_with_neighbor
 
@@ -176,7 +176,9 @@ def resolve_device(device: torch.device | str) -> torch.device:
 
 def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
                   device: torch.device | str = "cuda", raster: bool = False):
-    """Closures over a fixed plan, moved to ``device`` (in place).
+    """Closures over a fixed plan, on a copy of it on ``device``
+    (:func:`~color_modem_tpu_torch.modem.plan.plan_on`; the caller's plan
+    stays where it is).
 
     Returns ``(encode, decode, roundtrip)``; each takes a ``(B, ...)`` batch
     (tensor or array) and ``frame0``, the index of the first frame, which
@@ -189,7 +191,7 @@ def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
     check_decoder(plan, decoder)
     _check_backend(backend)
     device = resolve_device(device)
-    plan = plan.to(device)
+    plan = plan_on(plan, device)
     rp = make_raster(plan) if raster else None
 
     def _input(x) -> torch.Tensor:

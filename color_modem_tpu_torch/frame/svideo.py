@@ -26,6 +26,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     resolve_device,
 )
 from color_modem_tpu_torch.modem import niir, qam, secam
+from color_modem_tpu_torch.modem.plan import plan_on
 
 
 def encode_yc(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
@@ -53,10 +54,10 @@ def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor) -> torch.Tensor
 def make_svideo_pipeline(plan: Plan, backend: str = "kernel",
                          device: torch.device | str = "cuda"):
     """``(encode, decode, roundtrip)`` closures like ``make_pipeline``'s,
-    over ``(B, 2, L, N)`` Y/C signals; the plan moves to ``device``."""
+    over ``(B, 2, L, N)`` Y/C signals, on a copy of the plan on ``device``."""
     _check_backend(backend)
     device = resolve_device(device)
-    plan = plan.to(device)
+    plan = plan_on(plan, device)
 
     def _input(x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=device)

@@ -29,6 +29,7 @@ from color_modem_tpu_torch.frame.pipeline import (
     frame_line_index,
     resolve_device,
 )
+from color_modem_tpu_torch.modem.plan import plan_on
 
 
 def resample_lines(x: torch.Tensor, l_out: int) -> torch.Tensor:
@@ -66,10 +67,11 @@ def make_transcoder(plan_src: Plan, plan_dst: Plan, decoder: str | None = None,
                     backend: str = "kernel", device: torch.device | str = "cuda"):
     """``(comp_src (B, L, N), frame0) -> comp_dst`` closure; frame
     ``frame0+i`` of the source drives frame ``frame0+i`` of the
-    destination's phase sequence.  Both plans move to ``device``."""
+    destination's phase sequence.  It runs on copies of both plans on
+    ``device``; the caller's plans stay where they are."""
     _check_backend(backend)
     device = resolve_device(device)
-    plan_src, plan_dst = plan_src.to(device), plan_dst.to(device)
+    plan_src, plan_dst = plan_on(plan_src, device), plan_on(plan_dst, device)
 
     @torch.inference_mode()
     def transcode(comp, frame0=0):

@@ -15,8 +15,9 @@ Channel noise is keyed on the absolute leading-axis index (frames, or
 fields when interlaced): each index draws from its own
 ``torch.Generator`` seeded with that index, so chunk size and resume
 points cannot change the realisation.  The realisation differs from the
-JAX package's PRNG, and the manifest says so (``noise_keying``), so neither
-package resumes the other's noisy run.
+JAX package's PRNG, and between devices (a CUDA generator is Philox, a CPU
+one mt19937), and the manifest says so (``noise_keying`` names the device
+type), so no noisy run resumes on another package or device type.
 """
 
 from __future__ import annotations
@@ -40,9 +41,13 @@ from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
 #: (start, count) -> (count, 3, L, N) frames, a NumPy array or a tensor
 FrameSource = Callable[[int, int], object]
 
-#: the channel-noise keying recorded in the manifest of a noisy run (the JAX
-#: package records "abs-frame" for its own PRNG)
-NOISE_KEYING = "abs-frame-torch"
+
+def noise_keying(device: torch.device) -> str:
+    """The channel-noise keying recorded in the manifest of a noisy run on
+    ``device``: ``"abs-frame-torch-cuda"`` or ``"abs-frame-torch-cpu"`` (the
+    same seed draws other numbers on each device type; the JAX package
+    records "abs-frame" for its own PRNG)."""
+    return f"abs-frame-torch-{torch.device(device).type}"
 
 
 def synthetic_source(lines: int, samples: int) -> FrameSource:
@@ -175,7 +180,7 @@ def process_video(
         # manifest; the sigma is part of the config, since resuming with
         # another gate threshold would mix denoise levels
         **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
-        **({"noise_keying": NOISE_KEYING} if noisy else {}),
+        **({"noise_keying": noise_keying(device)} if noisy else {}),
         "mesh": None,
     }
     if manifest:

@@ -39,12 +39,12 @@ SIGNATURES = {
     # sep, comp, cols, ramp_cos, ramp_sin, bpf_tiles, tiles1, tiles2, out,
     # n_lines, lines_per_group, n, ntaps, stream
     "qam_decode": (_P,) * 9 + (_I,) * 4 + (_P,),
-    # ycc, isr, ramp, comp_lpf, preemph, anticloche, out,
+    # ycc, isr, ramp, and the band tiles of comp_lpf, preemph, anticloche, out,
     # n_lines, lines_per_group, n, nt_lpf, nt_pre, nt_anti,
     # f0r_c, f0b_c, devr_c, devb_c, stream
     "secam_encode": (_P,) * 7 + (_I,) * 6 + (_F,) * 4 + (_P,),
-    # comp, isr, margin_carrier, mixcos, mixsin, bell_takeoff, luma_notch,
-    # mix_lpf, diff, deemph, demod_lpf, luma_out, v_out,
+    # comp, isr, margin_carrier, mixcos, mixsin, and the band tiles of
+    # bell_takeoff, luma_notch, mix_lpf, diff, deemph, demod_lpf, luma_out, v_out,
     # n_lines, n, margin, luma_est, nt_band, nt_mix, nt_diff, nt_de, nt_dm,
     # fc, fs/2pi, f0r, f0b, devr, devb, stream
     "secam_decode": (_P,) * 13 + (_I,) * 9 + (_F,) * 6 + (_P,),

@@ -1,6 +1,7 @@
-"""The kernels' FIRs on their own: the SIMT FIR of ``csrc/fir.cuh`` (the
-SECAM kernels'; ``csrc/fir_check.cu``) and the tensor-core FIR of
-``csrc/band_fir.cuh`` (the QAM kernels'; ``csrc/band_fir_check.cu``).
+"""FIRs on their own: the SIMT FIR of ``csrc/fir.cuh``
+(``csrc/fir_check.cu``; its zero and held edges are the ones the SECAM
+kernels' staging matches) and the tensor-core FIR of ``csrc/band_fir.cuh``
+(the QAM kernels' form; ``csrc/band_fir_check.cu``).
 
 No pipeline path calls these: they exist so that a card test can hold each
 FIR against ``np.convolve(mode='same')`` on asymmetric taps (zero and held
@@ -14,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from color_modem_tpu_torch.dsp.apply import toeplitz_same, toeplitz_same_held
+from color_modem_tpu_torch.dsp.apply import matmul_f32, toeplitz_same, toeplitz_same_held
 from color_modem_tpu_torch.kernels.tiles import band_tiles
 
 #: launches of each CUDA kernel in this process
@@ -25,7 +26,7 @@ def fir_lines_plain(x: torch.Tensor, taps: torch.Tensor, held: bool) -> torch.Te
     """Plain version of :func:`fir_lines`."""
     build = toeplitz_same_held if held else toeplitz_same
     mat = build(taps.detach().cpu().numpy().astype(np.float64), x.shape[-1])
-    return torch.matmul(x, torch.tensor(mat, device=x.device))
+    return matmul_f32(x, torch.tensor(mat, device=x.device))
 
 
 def _check(x: torch.Tensor, taps: torch.Tensor) -> None:

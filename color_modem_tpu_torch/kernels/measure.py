@@ -1,6 +1,6 @@
 """What a kernel's times are held against: the least time the card could
 take for a launch's work, and CUDA-event timing.  The port's code never
-calls this module; ``chip_smoke.py`` and ``scripts/torch_qam_kernel_ab.py``
+calls this module; ``chip_smoke.py`` and ``scripts/torch_kernel_ab.py``
 both read it, so their bounds and windows are the same.
 
 It imports nothing of the package (a plan is read by its attributes only),

@@ -1,6 +1,10 @@
 """Fused SECAM FM encode/decode: wrappers of the CUDA kernels in ``csrc/``
 and their plain PyTorch versions.
 
+Both kernels run their FIRs on the tensor cores (``csrc/band_fir.cuh``'s
+``fir16``: 8 lines x 16 outputs per ``mma.sync``, three TF32 passes) against
+the plan's 16x8 band tiles (``FmPlan.<filter>_tiles``).
+
 * ``encode_lines`` (``csrc/secam_encode.cu``) replaces
   ``color_modem_tpu/kernels/secam.py::encode``'s kernel: D'R/D'B select,
   held-edge component LPF and pre-emphasis, FM phase scan (midpoint rule),
@@ -126,8 +130,8 @@ def encode_lines(plan: FmPlan, ycc: torch.Tensor, isr: torch.Tensor) -> torch.Te
     out = torch.empty((g, l, n), dtype=torch.float32, device=dev)
     _launch(
         "secam_encode", dev,
-        *(t.data_ptr() for t in (ycc, isr, plan.fm_carrier_ramp, plan.comp_lpf,
-                                 plan.preemph, plan.anticloche, out)),
+        *(t.data_ptr() for t in (ycc, isr, plan.fm_carrier_ramp, plan.comp_lpf_tiles,
+                                 plan.preemph_tiles, plan.anticloche_tiles, out)),
         g * l, l, n, plan.comp_lpf.numel(), plan.preemph.numel(),
         plan.anticloche.numel(), *_encode_consts(plan),
     )
@@ -172,9 +176,10 @@ def demodulate_lines(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor):
     _launch(
         "secam_decode", dev,
         *(t.data_ptr() for t in (comp, isr, plan.fm_margin_carrier, plan.mix_cos,
-                                 plan.mix_sin, plan.bell_takeoff, plan.luma_notch,
-                                 plan.mix_lpf, plan.diff, plan.deemph, plan.demod_lpf,
-                                 luma, v)),
+                                 plan.mix_sin, plan.bell_takeoff_tiles,
+                                 plan.luma_notch_tiles, plan.mix_lpf_tiles,
+                                 plan.diff_tiles, plan.deemph_tiles,
+                                 plan.demod_lpf_tiles, luma, v)),
         g * l, n, plan.fm_margin, plan.fm_luma_est,
         *(t.numel() for t in (plan.bell_takeoff, plan.mix_lpf, plan.diff,
                               plan.deemph, plan.demod_lpf)),

@@ -6,12 +6,16 @@ family (NTSC, PAL and its variants, NIIR) and :class:`FmPlan` for SECAM.
 The taps are designed once on the host in float64
 (:mod:`color_modem_tpu_torch.dsp.design`), kept as designed in
 ``plan.host``, and registered as float32 buffers so that
-``plan.to(device)`` moves them to the card.  :func:`plan_from_numpy`
+:func:`plan_on` gives a copy of them on the card (``plan.to(device)``
+would move the caller's plan in place).  :func:`plan_from_numpy`
 carries a JAX ``ModemPlan``'s own arrays across instead, so a test can feed
 both packages the same parameters.
 """
 
 from __future__ import annotations
+
+import copy
+import weakref
 
 import numpy as np
 import torch
@@ -20,7 +24,7 @@ from torch import nn
 from color_modem_tpu_torch.standards.base import StandardConfig
 from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import toeplitz_same, toeplitz_same_held
-from color_modem_tpu_torch.kernels.tiles import band_tiles
+from color_modem_tpu_torch.kernels.tiles import band_tiles, band_tiles16
 from color_modem_tpu_torch.dsp.nco import sample_phase_ramp
 
 #: the sample rate the default tap counts were tuned at (every standard's
@@ -155,7 +159,11 @@ class FmPlan(_Plan):
     plain FIR's Toeplitz matrices: held at N, ``comp_lpf_held``,
     ``preemph_held``; zero-edged at N, ``anticloche_mat``; zero-edged at
     N+2M, ``bell_takeoff_mat``, ``luma_notch_mat``, ``mix_lpf_mat``,
-    ``diff_mat``, ``deemph_mat``, ``demod_lpf_mat``.  Python scalars:
+    ``diff_mat``, ``deemph_mat``, ``demod_lpf_mat``.  The kernels'
+    tensor-core FIR: the ``(8S + 24, 2)`` TF32 hi/lo tables of the 16x8
+    band tiles, ``<filter>_tiles``, of each of the nine filters
+    (:func:`~color_modem_tpu_torch.kernels.tiles.band_tiles16`, built from
+    the float64 taps).  Python scalars:
     ``f_center``, ``fm_margin`` (M), ``fm_luma_est``, ``total_lines``,
     ``n_samples``, ``fs``.
     """
@@ -181,6 +189,9 @@ class FmPlan(_Plan):
             ("bell_takeoff", "luma_notch", "mix_lpf", "diff", "deemph", "demod_lpf"),
             n_ext,
         )
+        for name in FM_TAPS:
+            self.register_buffer(name + "_tiles",
+                                 torch.tensor(band_tiles16(self.host[name])))
 
 
 def make_plan(cfg: StandardConfig, n_samples: int, *,
@@ -275,6 +286,37 @@ def make_plan(cfg: StandardConfig, n_samples: int, *,
         * np.mod(f_center / fs * (np.arange(n_samples) + 0.5), 1.0),
         **common,
     )
+
+
+#: plan -> {device: its copy there}, kept while the plan lives
+_COPIES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _placed(device: torch.device) -> tuple[str, int | None]:
+    """(type, index) of a device, a bare "cuda" read as the current card."""
+    if device.type == "cuda" and device.index is None:
+        return "cuda", torch.cuda.current_device()
+    return device.type, device.index
+
+
+def plan_on(plan: QamPlan | FmPlan, device: torch.device | str) -> QamPlan | FmPlan:
+    """``plan`` itself when its buffers lie on ``device``, else a copy of it
+    whose buffers lie there: made once per (plan, device) and kept while the
+    plan lives, so a factory uploads nothing per call.  The caller's plan is
+    never moved: any number of pipelines on any devices share it, as they
+    share a JAX ``ModemPlan``."""
+    device = torch.device(device)
+    if _placed(plan.rgb_to_ycc.device) == _placed(device):
+        return plan
+    copies = _COPIES.setdefault(plan, {})
+    key = str(device)
+    if key not in copies:
+        # a shallow copy with buffers of its own: the host arrays and the
+        # config are shared and never written
+        new = copy.copy(plan)
+        new._buffers = {k: v.to(device) for k, v in plan._buffers.items()}
+        copies[key] = new
+    return copies[key]
 
 
 def plan_from_numpy(p) -> QamPlan | FmPlan:

@@ -1,0 +1,200 @@
+"""Time the QAM or the SECAM kernels of one or more trees of this repository
+on one CUDA GPU, in turns, at the paths' shapes.
+
+    python3 scripts/torch_kernel_ab.py [--family qam|secam] [--tree DIR ...] [--rounds 1]
+
+QAM: NTSC 16x480 and PAL 16x576 lines x 720 samples.  SECAM: 16x576x720 and
+4x576x1440, the plans of chip_smoke.py's phase 3b.  Each tree (default:
+this one) runs in its own process, which imports that tree's
+``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
+forward then backward (A, B, B, A for two trees).  Each process holds the
+kernels against their plain versions (QAM 2e-5 encode, 5e-4 decode; SECAM
+2e-4 encode, 5e-4 on the decoded RGB) and prints, per kernel and shape,
+the CUDA-event median ms of 10 windows of
+20 launches with their spread, the bound and the share of it reached, and
+the host-clock us per call of the wrapper while 100 calls are queued (the
+host's cost of a launch, checks and CUDA runtime calls included).  The
+timer and the bound are this tree's ``color_modem_tpu_torch/kernels/measure.py``
+(loaded by its path, so every tree is timed and bounded alike).  The last
+line is a JSON object of every measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+#: QAM: (standard, lines, decoder) at 16 frames x 720 samples
+SHAPES = (("NTSC", 480, "comb3"), ("PAL", 576, "delayline"))
+#: SECAM: (frames, samples) at 576 lines
+SECAM_SHAPES = ((16, 720), (4, 1440))
+
+
+def _measure():
+    """This tree's ``kernels/measure.py``, whichever package is imported."""
+    path = os.path.join(HERE, "color_modem_tpu_torch", "kernels", "measure.py")
+    spec = importlib.util.spec_from_file_location("_kernel_ab_measure", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timed(measure, fn) -> tuple[list[float], float]:
+    """CUDA-event windows of ``fn``, and the host-clock us per call while
+    100 calls are queued."""
+    import torch
+
+    w = measure.time_ms(fn, windows=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        fn()
+    host_us = (time.perf_counter() - t0) / 100 * 1e6
+    torch.cuda.synchronize()
+    return w, host_us
+
+
+def _record(w, host_us, bound, err) -> dict:
+    med = statistics.median(w)
+    return {"ms": med, "min": min(w), "max": max(w), "bound_ms": bound[0],
+            "bound_by": bound[1], "share": bound[0] / med, "host_us": host_us,
+            "max_abs_err": err}
+
+
+def secam_worker() -> dict:
+    """The SECAM kernels of the imported tree on the scene (decode) and on
+    random chroma (encode), first frame odd."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import SECAM
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index
+    from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.modem import secam
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    measure = _measure()
+    dev = torch.device("cuda:0")
+    res = {}
+    for frames, n in SECAM_SHAPES:
+        plan = make_plan(SECAM(), n).to(dev)
+        g = frame_line_index(plan, 3, frames, 576, dev)
+        isr = sk.isr_col(g)
+        rgb = torch.tensor(np.broadcast_to(smooth_scene(576, n, seed=0), (frames, 3, 576, n)),
+                           dtype=torch.float32, device=dev)
+        ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+        rng = np.random.default_rng(n)
+        ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, 576, n)),
+                                                       dtype=torch.float32, device=dev)],
+                             dim=1).contiguous()
+        comp = sk.encode_lines_plain(plan, ycc, isr)
+
+        def rgb_of(luma_v):
+            dr, db = secam.pair(luma_v[1], g, "interp")
+            return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma_v[0], dr, db], 1)))
+
+        e_enc = float((sk.encode_lines(plan, ycc_rand, isr)
+                       - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max())
+        e_dec = float((rgb_of(sk.demodulate_lines(plan, comp, isr))
+                       - rgb_of(sk.demodulate_lines_plain(plan, comp, isr))).abs().max())
+        if e_enc > 2e-4 or e_dec > 5e-4:
+            raise AssertionError(f"SECAM {n}: kernel vs plain {e_enc}, {e_dec}")
+        for name, fn, err in (
+                ("secam_encode", lambda: sk.encode_lines(plan, ycc_rand, isr), e_enc),
+                ("secam_decode", lambda: sk.demodulate_lines(plan, comp, isr), e_dec)):
+            w, host_us = _timed(measure, fn)
+            res[f"{name} {frames}x576x{n}"] = _record(
+                w, host_us, measure.kernel_bound(plan, name, frames * 576), err)
+    return res
+
+
+def worker(tree: str, family: str) -> None:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+
+    import color_modem_tpu_torch as cmt
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index
+    from color_modem_tpu_torch.kernels import qam as qk
+    from color_modem_tpu_torch.kernels.build import load_library
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.separate.comb import stencil_signal
+
+    assert os.path.dirname(os.path.abspath(cmt.__file__)) == os.path.join(
+        os.path.abspath(tree), "color_modem_tpu_torch"), cmt.__file__
+    measure = _measure()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    if family == "secam":
+        print(json.dumps({"tree": tree, "results": secam_worker()}))
+        return
+    dev = torch.device("cuda:0")
+    rng = np.random.default_rng(0)
+    res = {}
+    for std, lines, decoder in SHAPES:
+        plan = make_plan(getattr(cmt, std)(), 720).to(dev)
+        ycc = torch.tensor(np.stack([rng.uniform(0.0, 1.0, (16, lines, 720)),
+                                     rng.uniform(-0.6, 0.6, (16, lines, 720)),
+                                     rng.uniform(-0.6, 0.6, (16, lines, 720))], axis=1),
+                           dtype=torch.float32, device=dev)
+        cols = qk.phase_cols(plan, frame_line_index(plan, 0, 16, lines, dev))
+        comp = qk.encode_lines(plan, ycc, cols)
+        sep = stencil_signal(plan, comp, decoder)
+        e_enc = float((comp - qk.encode_lines_plain(plan, ycc, cols)).abs().max())
+        e_dec = float((qk.decode_lines(plan, sep, comp, cols)
+                       - qk.decode_lines_plain(plan, sep, comp, cols)).abs().max())
+        if e_enc > 2e-5 or e_dec > 5e-4:
+            raise AssertionError(f"{std}: kernel vs plain {e_enc}, {e_dec}")
+        for name, fn in (("qam_encode", lambda: qk.encode_lines(plan, ycc, cols)),
+                         ("qam_decode", lambda: qk.decode_lines(plan, sep, comp, cols))):
+            w, host_us = _timed(measure, fn)
+            res[f"{name} {std} 16x{lines}x720"] = _record(
+                w, host_us, measure.kernel_bound(plan, name, 16 * lines),
+                e_enc if name == "qam_encode" else e_dec)
+    print(json.dumps({"tree": tree, "results": res}))
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--family", choices=("qam", "secam"), default="qam")
+    ap.add_argument("--tree", nargs="+", default=[HERE])
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.worker:
+        worker(args.worker, args.family)
+        return
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+    runs = []
+    for _ in range(args.rounds):
+        for tree in list(args.tree) + list(reversed(args.tree)):
+            out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", tree,
+                                  "--family", args.family],
+                                 check=True, capture_output=True, text=True, timeout=600)
+            run = json.loads(out.stdout.strip().splitlines()[-1])
+            runs.append(run)
+            for key, r in run["results"].items():
+                print(f"{tree} {key} on {card}: {r['ms']:.4f} ms [{r['min']:.4f}, "
+                      f"{r['max']:.4f}], bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                      f"{100 * r['share']:.1f}% of it, host {r['host_us']:.2f} us per call, "
+                      f"max|err| {r['max_abs_err']:.3e}")
+    print(json.dumps({"card": card, "runs": runs}))
+
+
+if __name__ == "__main__":
+    main()

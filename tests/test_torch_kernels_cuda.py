@@ -187,6 +187,34 @@ def test_secam_kernels_match_plain(dev, frames, lines, n):
     _secam_kernel_vs_plain(dev, frames, lines, n)
 
 
+@pytest.mark.parametrize("frames,lines,n", [(1, 1, 720), (1, 17, 722), (3, 13, 1440),
+                                            (2, 33, 720)])
+def test_secam_kernels_match_plain_at_odd_line_counts(dev, frames, lines, n):
+    """One line, 17 lines and odd counts leave a ragged last tile of 8 lines
+    in the tensor-core kernels; one launch each.  The demodulated luma and
+    component are held directly (the line pairing needs two lines)."""
+    plan = make_plan(SECAM(), n).to(dev)
+    isr = sk.isr_col(frame_line_index(plan, 3, frames, lines, dev))
+    rng = np.random.default_rng(lines)
+    rgb = torch.tensor(np.stack([smooth_scene(max(lines, 2), n, seed=s)[:, :lines]
+                                 for s in range(frames)]), dtype=torch.float32, device=dev)
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
+                                                   dtype=torch.float32, device=dev)],
+                         dim=1).contiguous()
+    sk.reset_launches()
+    comp_k = sk.encode_lines(plan, ycc_rand, isr)
+    comp = sk.encode_lines_plain(plan, ycc, isr)
+    luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    e_enc = float((comp_k - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max())
+    assert e_enc <= SECAM_ENC_ATOL
+    luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
+    assert float((luma_k - luma_p).abs().max()) <= DEC_ATOL
+    assert float((v_k - v_p).abs().max()) <= DEC_ATOL
+
+
 def test_secam_roundtrip_one_launch_each(dev):
     plan = make_plan(SECAM(), 720)
     one = smooth_scene(576, 720, seed=0)
@@ -247,7 +275,7 @@ def test_burst_locked_decode_under_channel_phase(dev):
     from color_modem_tpu_torch.frame import raster
     from color_modem_tpu_torch.frame.channel import impair
 
-    plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)  # used below with card data
     enc, dec, _ = make_pipeline(plan, "notch", backend="kernel", device=dev, raster=True)
     rgb = _scene(480, dev)
     bad = impair(plan, enc(rgb, 0), chroma_phase_deg=25.0)
@@ -357,3 +385,54 @@ def test_temporal_nr_estimator_above_2_pow_24(dev):
     out = temporal_nr(noisy)
     assert bool(torch.isfinite(out).all())
     assert psnr(out, clean) - psnr(noisy, clean) > 2.5
+
+
+def test_global_tf32_changes_nothing(dev):
+    """TF32 switched on for the whole process (``allow_tf32`` and the
+    "high" matmul precision): the kernel-vs-plain bounds and the NTSC comb3
+    and SECAM interp PSNRs hold, since the port pins its own products."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        _kernel_vs_plain(dev, "ntsc", 16, 480, 720, "comb3")
+        _secam_kernel_vs_plain(dev, 4, 576, 720)
+        test_main_path_roundtrip(dev)
+        test_secam_roundtrip_one_launch_each(dev)
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_cpu_noisy_manifest_is_refused_on_the_card(dev, tmp_path):
+    """A noisy run begun on the CPU (mt19937 noise) does not resume on the
+    card (Philox noise): its manifest's keying names the device."""
+    from color_modem_tpu_torch.frame.video import process_video
+
+    one = smooth_scene(16, 720, seed=1).astype(np.float32)
+    src = lambda start, count: np.broadcast_to(one, (count,) + one.shape)  # noqa: E731
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
+    kw = dict(decoder="notch", chunk=1, channel={"noise_sigma": 0.02})
+    process_video(plan, src, 2, str(tmp_path), device="cpu", **kw)
+    with pytest.raises(ValueError, match="refusing to resume"):
+        process_video(plan, src, 2, str(tmp_path), device=dev, **kw)
+
+
+@pytest.mark.parametrize("first", ["cpu", "cuda"])
+def test_pipelines_on_two_devices_share_one_plan(dev, first):
+    """A card pipeline still runs after a CPU pipeline is built from the
+    same plan, and the other way round; the plan stays where it was."""
+    plan = make_plan(SECAM(), 720)
+    if first == "cuda":
+        plan = plan.to(dev)
+    home = plan.mix_cos.device
+    _, _, rt_card = make_pipeline(plan, "interp", "kernel", dev)
+    _, _, rt_cpu = make_pipeline(plan, "interp", "kernel", "cpu")
+    rgb = torch.tensor(np.broadcast_to(smooth_scene(16, 720, seed=0), (2, 3, 16, 720)),
+                       dtype=torch.float32)
+    sk.reset_launches()
+    out = rt_card(rgb.to(dev), 0)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    assert float((out.cpu() - rt_cpu(rgb, 0)).abs().max()) <= DEC_ATOL
+    assert plan.mix_cos.device == home

@@ -164,7 +164,7 @@ def test_video_nr_and_tail_padding(tmp_path):
     den = process_video(tplan(), static_source(3), 4, str(tmp_path / "den"),
                         decoder="comb3", chunk=4, channel=dict(noise), nr=True, device="cpu")
     assert den["min_psnr_db"] - raw["min_psnr_db"] > 2.5, (raw, den)
-    assert den["noise_keying"] == "abs-frame-torch"
+    assert den["noise_keying"] == "abs-frame-torch-cpu"
     # a one-frame tail chunk pads with repeats of its last frame
     d = str(tmp_path / "tail")
     s = process_video(tplan(), static_source(3), 5, d, decoder="comb3", chunk=4,
