@@ -46,20 +46,35 @@ Phases; any failure raises and exits nonzero:
    for the whole process (``allow_tf32`` and ``set_float32_matmul_precision
    ("high")``): the same PSNRs, outputs bit-identical to phase 4's on both
    backends (the port pins its own precision), then the settings restored;
+4g. the transmission layer at full width, which has no kernel of its own
+   (``torch.fft`` and elementwise work around the QAM kernels): the NTSC
+   rf-vsb-hop (16x480x720 composite from ``qam_encode``, transparency over
+   lines [2:-2]), the satellite-fm-hop, the D2-MAC round trip at 16x576x720
+   with its data burst decoded bit for bit, MAC over satellite, an RF ghost
+   and the GCR equalizer, the TBC on a rastered composite, each PSNR +- 0.02
+   dB of the JAX CPU value (``scripts/jax_transmission_reference.py``) or at
+   the JAX tests' bound; sync-tip AGC above 2^24 elements against a float64
+   quantile; each hop against the CPU on a small input; the hops
+   bit-identical with TF32 on; no host-blocking operation in any hop
+   (``set_sync_debug_mode("error")``);
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
    case); per kernel its bound (bytes or operations, ``kernels/measure.py``)
    and the share of it reached, and one grouped conv2d of each kernel's
    FIRs alone (TF32 off) as the library yardstick; 5e the frame layer's
-   round trips, the resample matmul and NR;
+   round trips, the resample matmul and NR; 5g the three hops (and each
+   half), in Mpix/s of composite or picture pixels;
 6. the video runner: ``process_video`` NTSC comb3 at 480x720, 48 frames in
    chunks of 16 from the device source (PSNR +- 0.02 dB of the JAX CPU run,
    3 launches of each kernel), a resume that processes nothing, one
    synchronising CUDA operation per wave of chunks (interlaced comb3d with
    noise and NR), chunk sizes 16 and 12 agreeing to 1e-6 under channel
    noise with NR (progressive comb3 and interlaced comb3d), NR gaining >
-   2.5 dB on a noisy static source, and Mpix/s on both backends.
+   2.5 dB on a noisy static source, and Mpix/s on both backends; then the
+   same run through the RF hop and through the satellite hop at 12 dB CNR
+   (PSNR +- 0.02 dB of the JAX CPU run), and chunk sizes 16 and 12 through
+   the RF hop, the satellite hop, and the satellite hop at 12 dB CNR.
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
@@ -145,6 +160,35 @@ VIDEO_MIN_PSNR = 47.37  # the summary rounds to 0.01 dB
 VIDEO_FRAMES, VIDEO_CHUNK = 48, 16
 #: frames of the chunk-independence runs (chunk edges at 12, 16, 24)
 INDEP_FRAMES = 24
+#: phase 4g: the JAX xla values on the CPU at the card's shapes
+#: (scripts/jax_transmission_reference.py), each held to PSNR_TOL
+HOP_PSNR = {
+    "rf-vsb-hop": 69.1816,        # composite transparency over lines [2:-2]
+    "satellite-fm-hop": 51.2345,  # composite transparency
+    "d2mac": 53.6966,             # RGB round trip, 16x576x720
+    "mac-satellite": 58.7737,     # MAC-line transparency through the FM hop
+    "rf-ghost": 15.4154,          # RF ghost 3 us / 0.3, before the equalizer
+    "tbc-clean": 46.6200, "tbc-wrecked": 19.4785, "tbc-fixed": 46.4589,
+}
+#: the equalized RF ghost moves ~0.1 dB with the float32 rounding of the
+#: design (JAX 52.0473, a float64 design 52.1526): held to the JAX test's
+#: bound (tests/test_rf.py::test_rf_multipath_ghost_and_gcr_equalizer)
+GCR_RF_MIN_DB = 45.0
+MAC_SAT_MIN_DB = 54.0       # tests/test_satellite.py::test_mac_transparency_and_picture
+AGC_MIN_DB = 40.0           # tests/test_rf.py::test_rf_sync_tip_agc
+AGC_FRAMES = 48             # 48 x 480 x 858 rastered samples > 2^24
+#: the hops on the card against the CPU on 2 x 32 lines: float32 FFT
+#: rounding; the FM phase carries it to ~1e-4 (tests/test_torch_satellite.py)
+HOP_CPU_ATOL = {"rf": 1e-5, "satellite": 5e-4, "d2mac": 1e-5}
+#: phase 6 through the hops: min_psnr_db of the JAX xla run on the CPU
+#: (scripts/jax_transmission_reference.py video-rf / video-satellite)
+VIDEO_HOP = {"rf": ({"rf": True}, 47.28),
+             "satellite": ({"satellite": True, "sat_cnr": 12.0}, 27.92)}
+#: chunk sizes 16 and 12 through the hops: the FFTs' batch-dependent last
+#: bits; at 12 dB CNR, near the FM threshold, the discriminator carries
+#: them further on the noisiest samples
+HOP_CHUNK = {"rf": ({"rf": True}, 1e-5), "satellite": ({"satellite": True}, 1e-5),
+             "satellite cnr 12": ({"satellite": True, "sat_cnr": 12.0}, 2e-3)}
 QAM_1_1 = {"qam_encode": 1, "qam_decode": 1}
 SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1}
 
@@ -821,6 +865,186 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
     return times
 
 
+def check_transmission(dev, card: str) -> dict:
+    """Phase 4g: the hops, MAC, the equalizer and the TBC at full width.
+    Returns the callables phase 5g times, with their Mpix per call."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.frame.equalize import (
+        apply_equalizer,
+        design_equalizer,
+        gcr_record_guarded,
+    )
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+    from color_modem_tpu_torch.frame.raster import make_raster
+    from color_modem_tpu_torch.frame.timebase import impair_timebase, tbc_correct
+    from color_modem_tpu_torch.modem import mac
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    def hold(key: str, q: float) -> None:
+        print(f"4g {key}: {q:.4f} dB (expected {HOP_PSNR[key]} +- {PSNR_TOL}) on {card}")
+        _check(abs(q - HOP_PSNR[key]) <= PSNR_TOL, f"4g {key}: {q} dB")
+
+    plan = make_plan(NTSC(), N).to(dev)
+    enc, _, _ = make_pipeline(plan, "notch", "kernel", dev)
+    rgb = full_scene(480, dev)
+    reset_counts()
+    comp = enc(rgb, 0)
+    read_counts("4g ntsc notch composite", {"qam_encode": 1})
+    rfp = rf_mod.make_rf_plan(plan)
+    sp = sat_mod.make_sat_plan(plan.fs, N)
+    mplan = mac.make_mac_plan(N)
+    mrgb = full_scene(576, dev)
+    g = (torch.arange(BATCH, dtype=torch.int32, device=dev)[:, None] * mplan.cfg.total_lines
+         + torch.arange(576, dtype=torch.int32, device=dev))
+    msp = sat_mod.make_sat_plan(mplan.cfg.fs, mplan.cfg.samples_per_line)
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    rf_rt = partial(rf_mod.rf_roundtrip, rfp, comp, 0)
+    sat_rt = partial(sat_mod.sat_roundtrip, sp, comp)
+    mac_rt = partial(mac.roundtrip, mplan, mrgb, g)
+    outs = {"rf": rf_rt(), "satellite": sat_rt(), "d2mac": mac_rt()}
+    hold("rf-vsb-hop", psnr(outs["rf"][:, 2:-2], comp[:, 2:-2]))
+    hold("satellite-fm-hop", psnr(outs["satellite"], comp))
+    hold("d2mac", psnr(outs["d2mac"], mrgb))
+
+    # the data burst, bit for bit, clean and through the satellite hop
+    payload = torch.randint(0, 2, (BATCH, 576, 99), device=dev, generator=gen,
+                            dtype=torch.int32)
+    sig_data = mac.encode(mplan, mrgb, g, payload)
+    for where, sig_rx in (("clean", sig_data), ("satellite", sat_mod.sat_roundtrip(msp, sig_data))):
+        ok, bits = mac.decode_data(mplan, sig_rx)
+        errors = int((bits != payload).sum())
+        print(f"4g d2mac data burst {where}: {errors} bit errors in {payload.numel()}, "
+              f"sync_ok on {int(ok.sum())} of {ok.numel()} lines")
+        _check(errors == 0 and bool(ok.all()), f"d2mac data {where}: {errors} errors")
+    sig = mac.encode(mplan, mrgb, g)
+    q_ms = psnr(sat_mod.sat_roundtrip(msp, sig), sig)
+    hold("mac-satellite", q_ms)
+    _check(q_ms >= MAC_SAT_MIN_DB, f"MAC over satellite {q_ms} dB < {MAC_SAT_MIN_DB}")
+
+    # an RF ghost, and the GCR equalizer designed from a record sent the same way
+    def chain(c):
+        rf = rf_mod.rf_modulate(rfp, c, 0)
+        return rf_mod.rf_demodulate(rfp, rf_mod.rf_ghost(rfp, rf, 3.0, 0.30), 0)
+
+    ghosted = chain(comp)
+    hold("rf-ghost", psnr(ghosted[:, 2:-2], comp[:, 2:-2]))
+    pv = rfp.video_zero
+    rx_gcr = chain(torch.tensor(gcr_record_guarded(plan)[None], device=dev))[0][:3]
+    eq = partial(lambda rx, x: apply_equalizer(
+        x, design_equalizer(plan, rx, ntaps=1281, reg=1e-4, pivot=pv), pivot=pv), rx_gcr, ghosted)
+    q_eq = psnr(eq()[:, 2:-2], comp[:, 2:-2])
+    print(f"4g rf-ghost equalized: {q_eq:.4f} dB (>= {GCR_RF_MIN_DB}; JAX 52.0473, "
+          f"float64 design 52.1526) on {card}")
+    _check(q_eq >= GCR_RF_MIN_DB, f"GCR vs RF ghost: {q_eq} dB")
+
+    # the TBC on a rastered composite: one encode, three decodes
+    enc_r, dec_r, _ = make_pipeline(plan, "comb3", "kernel", dev, raster=True)
+    reset_counts()
+    ras = enc_r(rgb, 0)
+    shifted, _ = impair_timebase(plan, ras, wobble_us=0.3)
+    g_r = frame_line_index(plan, 0, BATCH, 480, dev)
+    tbc = partial(tbc_correct, plan, make_raster(plan), shifted, g_r)
+    fixed = tbc()
+    for key, x in (("tbc-clean", ras), ("tbc-wrecked", shifted), ("tbc-fixed", fixed)):
+        hold(key, psnr(dec_r(x, 0), rgb))
+    read_counts("4g tbc", {"qam_encode": 1, "qam_decode": 3})
+
+    # sync-tip AGC above 2^24 elements: the quantile by sort, against float64
+    enc_a, _, _ = make_pipeline(plan, "notch", "kernel", dev, raster=True)
+    comp_a = enc_a(full_scene(480, dev, AGC_FRAMES), 0)
+    rfp_a = rf_mod.make_rf_plan(plan, row_samples=make_raster(plan).n_total)
+    weak = 0.7 * rf_mod.rf_modulate(rfp_a, comp_a, 0)
+    raw = rf_mod.rf_demodulate(rfp_a, weak, 0)
+    agc = rf_mod.rf_demodulate(rfp_a, weak, 0, agc=True)
+    env = (rf_mod.ENV_BLANK - raw.double() * (rf_mod.ENV_BLANK - rf_mod.ENV_WHITE)).cpu().numpy()
+    ref = np.quantile(env.reshape(AGC_FRAMES, -1), 0.975, axis=-1)
+    want = (rf_mod.ENV_BLANK - env / ref[:, None, None]) / (rf_mod.ENV_BLANK - rf_mod.ENV_WHITE)
+    e_agc = float(np.abs(agc.double().cpu().numpy() - want).max())
+    p_raw, p_agc = psnr(raw[:, 2:-2], comp_a[:, 2:-2]), psnr(agc[:, 2:-2], comp_a[:, 2:-2])
+    print(f"4g sync-tip AGC at {tuple(comp_a.shape)} ({comp_a.numel()} > 2^24 samples): 0.7x "
+          f"gain {p_raw:.4f} -> {p_agc:.4f} dB (>= {AGC_MIN_DB}), max|diff| to the float64 "
+          f"quantile {e_agc:.3e} (<= 1e-5)")
+    _check(p_agc >= AGC_MIN_DB and p_raw < 20.0 and e_agc <= 1e-5, "sync-tip AGC")
+    del comp_a, weak, raw, agc, env, want
+
+    # each hop against the CPU on a small input (2 frames x 32 lines)
+    small = {
+        "rf": (partial(rf_mod.rf_roundtrip, rfp), comp[:2, :32]),
+        "satellite": (partial(sat_mod.sat_roundtrip, sp), comp[:2, :32]),
+        "d2mac": (lambda x: mac.roundtrip(mplan, x, torch.arange(32, device=x.device)),
+                  mrgb[:2, :, :32]),
+    }
+    for key, (fn, x) in small.items():
+        e = _max_err(fn(x).cpu(), fn(x.cpu()))
+        print(f"4g {key} on the card vs the CPU, {tuple(x.shape)}: max|diff| {e:.3e} "
+              f"(<= {HOP_CPU_ATOL[key]})")
+        _check(e <= HOP_CPU_ATOL[key], f"{key}: card and CPU disagree: {e}")
+
+    # TF32 on for the whole process: the same outputs, bit for bit
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for key, fn in (("rf", rf_rt), ("satellite", sat_rt), ("d2mac", mac_rt)):
+            diff = _max_err(fn(), outs[key])
+            print(f"TF32 on: {key} hop max|diff| to TF32 off {diff:.3e} (== 0)")
+            _check(diff == 0.0, f"TF32 on changed the {key} hop: {diff}")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    # no host-blocking operation in any hop (every constant is on the card)
+    noisy = partial(sat_mod.sat_roundtrip, sp, comp, None, gen, 12.0)
+    data = partial(mac.decode_data, mplan, sig_data)
+    blocking = {"rf": rf_rt, "satellite": sat_rt, "satellite+awgn": noisy, "d2mac": mac_rt,
+                "d2mac data": data, "equalizer": eq, "tbc": tbc}
+    for fn in blocking.values():
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in blocking.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"4g no host-blocking operation in: {', '.join(blocking)}")
+
+    mpix, mpix_mac = BATCH * 480 * N / 1e6, BATCH * 576 * N / 1e6
+    rf_sig = rf_mod.rf_modulate(rfp, comp, 0)
+    fm_sig = sat_mod.fm_modulate(sp, comp)
+    mac_sig = mac.encode(mplan, mrgb, g)
+    return {
+        "rf-vsb-hop": (rf_rt, mpix),
+        "rf_modulate": (partial(rf_mod.rf_modulate, rfp, comp, 0), mpix),
+        "rf_demodulate": (partial(rf_mod.rf_demodulate, rfp, rf_sig, 0), mpix),
+        "satellite-fm-hop": (sat_rt, mpix),
+        "fm_modulate": (partial(sat_mod.fm_modulate, sp, comp), mpix),
+        "fm_demodulate": (partial(sat_mod.fm_demodulate, sp, fm_sig), mpix),
+        "d2mac": (mac_rt, mpix_mac),
+        "mac encode": (partial(mac.encode, mplan, mrgb, g), mpix_mac),
+        "mac decode": (partial(mac.decode, mplan, mac_sig, g), mpix_mac),
+    }
+
+
+def time_transmission(card: str, timed: dict) -> None:
+    """Phase 5g: CUDA-event times of the hops, median [min, max] of 10
+    windows of 20 calls."""
+    from color_modem_tpu_torch.kernels.measure import time_ms
+
+    for key, (fn, mpix) in timed.items():
+        t = _stats(time_ms(fn) + time_ms(fn))
+        print(f"time {key} {BATCH} frames on {card}: {_fmt(t, mpix)} "
+              "(median [min, max] of 10 windows of 20 calls)")
+
+
 def check_video(dev, card: str) -> dict:
     """Phase 6: the chunked, resumable runner on the card."""
     import glob
@@ -899,6 +1123,28 @@ def check_video(dev, card: str) -> dict:
             print(f"video {name} noise 0.02 + nr, {INDEP_FRAMES} frames: chunk 16 vs 12 "
                   f"max|diff| {e:.3e} (<= {CHUNK_ATOL})")
             _check(e <= CHUNK_ATOL, f"{name}: chunk-size dependent output: {e}")
+
+        # the transmission hops between encode and decode
+        for hop, (kw, expected) in VIDEO_HOP.items():
+            label = f"video ntsc comb3 {hop} hop {VIDEO_FRAMES}x3x480x{N} chunk {VIDEO_CHUNK}"
+            reset_counts()
+            s_hop = run(f"hop_{hop}", src, VIDEO_FRAMES, **kw)
+            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+            print(f"{label}: min_psnr_db {s_hop['min_psnr_db']} (expected {expected} +- "
+                  f"{PSNR_TOL}), launches {got}, {s_hop['mpix_per_s']} Mpix/s on {card}")
+            _check(abs(s_hop["min_psnr_db"] - expected) <= PSNR_TOL, f"{label}: {s_hop}")
+            summaries[hop] = s_hop
+        for hop, (kw, atol) in HOP_CHUNK.items():
+            outs = {}
+            for chunk in (16, 12):
+                d = f"hop {hop} {chunk}".replace(" ", "_")
+                run(d, src, INDEP_FRAMES, chunk=chunk, save_outputs=True, **kw)
+                outs[chunk] = np.concatenate([
+                    np.load(f) for f in sorted(glob.glob(os.path.join(tmp, d, "rgb_*.npy")))])
+            e = float(np.abs(outs[16] - outs[12]).max())
+            print(f"video {hop} hop, {INDEP_FRAMES} frames: chunk 16 vs 12 max|diff| {e:.3e} "
+                  f"(<= {atol})")
+            _check(e <= atol, f"{hop} hop: chunk-size dependent output: {e}")
 
         static = full_scene(480, dev)
         raw = run("raw", lambda start, count: static[:count], BATCH, channel=dict(noise))
@@ -1011,12 +1257,16 @@ def main() -> None:
     # --- 4f. TF32 switched on for the whole process ------------------------------
     check_tf32_on(dev, paths)
 
+    # --- 4g. the transmission layer ---------------------------------------------
+    hops = check_transmission(dev, card)
+
     # --- 5. timing: main path and SECAM; 5c. PAL/NIIR; 5e. frame layer ---------
     times = {}
     for name, decoder in (("ntsc", "comb3"), ("secam", "interp"), ("pal", "delayline"),
                           ("niir", "avg")):
         times[name] = time_path(dev, card, name, decoder, paths)
     time_frame_layer(card, timed)
+    time_transmission(card, hops)
 
     # --- 6. the video runner ----------------------------------------------------
     check_video(dev, card)

@@ -122,3 +122,37 @@ def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     filters keep the zero edge of :func:`fir_same`.
     """
     return matmul_f32(x, mat)
+
+
+@lru_cache(maxsize=128)
+def _spectrum_cached(taps_bytes: bytes, dtype: str, n: int, real: bool,
+                     device: torch.device) -> torch.Tensor:
+    taps = np.frombuffer(taps_bytes, dtype=dtype)
+    if real:
+        spec = np.fft.rfft(np.pad(taps.astype(np.float64), (0, n - len(taps))))
+    else:
+        spec = np.fft.fft(np.pad(taps.astype(np.complex128), (0, n - len(taps))))
+    return torch.tensor(spec.astype(np.complex64), device=device)
+
+
+def kernel_spectrum(taps, n: int, real: bool, device: torch.device) -> torch.Tensor:
+    """complex64 spectrum of ``taps`` zero-padded to ``n``: the float64
+    ``rfft`` (``real``) or the complex128 ``fft``, computed on the host and
+    uploaded once per (taps, n, kind, device)."""
+    taps = np.ascontiguousarray(taps)
+    return _spectrum_cached(taps.tobytes(), taps.dtype.str, int(n), bool(real),
+                            torch.device(device))
+
+
+def fir_same_fft(x: torch.Tensor, taps) -> torch.Tensor:
+    """FFT form of :func:`fir_same` for host ``taps``: one zero-padded
+    power-of-two ``rfft``/``irfft`` pair per line, with the same 'same'
+    centring and zero edges as ``np.convolve(mode='same')``."""
+    taps = np.asarray(taps)
+    (t,) = taps.shape
+    n = x.shape[-1]
+    nfft = int(2 ** np.ceil(np.log2(n + t - 1)))
+    spec = kernel_spectrum(taps, nfft, True, x.device)
+    y = torch.fft.irfft(torch.fft.rfft(x, n=nfft, dim=-1) * spec, n=nfft, dim=-1)
+    lo = (t - 1) // 2
+    return y[..., lo : lo + n].to(x.dtype)

@@ -11,13 +11,22 @@ The host syncs once per wave of chunks: PSNR and fingerprint of every
 chunk in the wave come back in one stacked fetch (plus the saved frames,
 when asked for).
 
-Channel noise is keyed on the absolute leading-axis index (frames, or
-fields when interlaced): each index draws from its own
-``torch.Generator`` seeded with that index, so chunk size and resume
-points cannot change the realisation.  The realisation differs from the
-JAX package's PRNG, and between devices (a CUDA generator is Philox, a CPU
-one mt19937), and the manifest says so (``noise_keying`` names the device
-type), so no noisy run resumes on another package or device type.
+Between encode and decode a run can take a transmission hop (``rf``: the
+VSB picture hop of ``frame/rf.py``; ``satellite``: the FM hop of
+``frame/satellite.py``, with channel noise at ``sat_cnr``), then the
+composite channel (``frame/channel.py``) and the GCR equalizer
+(``frame/equalize.py``), in the JAX runner's order.
+
+Noise is keyed on the absolute leading-axis index (frames, or fields when
+interlaced): each index draws from its own ``torch.Generator``, so chunk
+size and resume points cannot change the realisation.  Three seed
+families never meet: the channel noise seeds with the index itself, the
+satellite noise with :data:`SAT_NOISE_SEED` plus the index, and the noisy
+GCR record with the fixed :data:`GCR_NOISE_SEED`.  The realisation differs
+from the JAX package's PRNG, and between devices (a CUDA generator is
+Philox, a CPU one mt19937), and the manifest says so (``noise_keying``
+names the device type), so no noisy run resumes on another package or
+device type.
 """
 
 from __future__ import annotations
@@ -31,7 +40,15 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.standards.decoders import temporal_comb_spacing
+from color_modem_tpu_torch.frame import rf as rf_mod
+from color_modem_tpu_torch.frame import satellite as sat_mod
 from color_modem_tpu_torch.frame.channel import impair, vhs_playback
+from color_modem_tpu_torch.frame.equalize import (
+    apply_equalizer,
+    design_equalizer,
+    gcr_record,
+    ntaps_for_delay,
+)
 from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
 from color_modem_tpu_torch.frame.nr import temporal_nr
 from color_modem_tpu_torch.frame.pipeline import Plan, make_pipeline, resolve_device
@@ -40,6 +57,33 @@ from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
 
 #: (start, count) -> (count, 3, L, N) frames, a NumPy array or a tensor
 FrameSource = Callable[[int, int], object]
+
+#: Seed families of the runner's noise, disjoint in the low 32 bits (all a
+#: CPU generator keeps): the channel noise seeds with the absolute index
+#: itself, the satellite noise with SAT_NOISE_SEED plus it, the noisy GCR
+#: record with GCR_NOISE_SEED; indices stay below 2^30.
+SAT_NOISE_SEED = 1 << 30
+GCR_NOISE_SEED = 1 << 31
+_INDEX_LIMIT = 1 << 30
+
+
+def _index(first: int, count: int) -> int:
+    """``first``, after checking that ``first .. first + count`` stays in
+    its seed family."""
+    if first + count > _INDEX_LIMIT:
+        raise ValueError(f"noise index {first + count} beyond 2^30: the seed families "
+                         "would meet")
+    return first
+
+
+def _unit_noise(shape, seeds, device: torch.device) -> torch.Tensor:
+    """(len(seeds), *shape) float32 unit normal noise, one generator per
+    seed."""
+    return torch.stack([
+        torch.randn(shape, dtype=torch.float32, device=device,
+                    generator=torch.Generator(device=device).manual_seed(s))
+        for s in seeds
+    ])
 
 
 def noise_keying(device: torch.device) -> str:
@@ -88,21 +132,15 @@ def synthetic_device_source(lines: int, samples: int, seed: int = 0,
     return src
 
 
-def _refuse_unported(mesh, channel, rf, rf_audio, rf_audio_bw, satellite, sat_cnr,
-                     caption_bits, scramble) -> None:
+def _refuse_unported(mesh, rf_audio, rf_audio_bw, caption_bits, scramble) -> None:
     """The JAX runner's options whose modules the port lacks yet, each with
     the ROADMAP queue 1 item that ports it."""
     asked = {
         "mesh": (mesh is not None, "10 (parallel layer)"),
-        "rf": (rf, "7 (transmission hops; its sound is item 8)"),
         "rf_audio": (rf_audio is not None, "8 (sound)"),
         "rf_audio_bw": (rf_audio_bw != 15e3, "8 (sound)"),
-        "satellite": (satellite, "7 (transmission hops)"),
-        "sat_cnr": (sat_cnr is not None, "7 (transmission hops)"),
         "caption_bits": (caption_bits is not None, "9 (data services)"),
         "scramble": (scramble is not None, "9 (data services)"),
-        'channel={"equalize": True}': (bool(channel and channel.get("equalize")),
-                                       "7 (GCR equalizer)"),
     }
     for name, (on, item) in asked.items():
         if on:
@@ -150,23 +188,34 @@ def process_video(
     temporal noise reduction on the decoded frames, gated by ``nr_sigma``,
     else the channel's ``noise_sigma``, else the lower-quartile estimator.
     ``save_outputs`` writes each chunk's frames to ``rgb_<start>.npy``.
+    ``rf``: the composite rides the VSB picture hop (video only), keyed on
+    the absolute leading-axis index.  ``satellite``: the FM hop instead,
+    with channel noise at ``sat_cnr`` dB when given (both together raise
+    ``ValueError``).  ``channel={"equalize": True, ...}``: a GCR record
+    goes through the same channel (noisy with its own fixed realisation)
+    and the equalizer designed from it is applied after the composite
+    impairments.
 
     The temporal comb and NR fetch true neighbour frames across chunk
     boundaries (``pt`` frames per side for the comb, one more for NR), and
     a short tail chunk is padded with repeats of its last frame; PSNR and fingerprint cover only
-    the chunk's own frames.  ``mesh``, ``rf``, ``rf_audio``,
-    ``rf_audio_bw``, ``satellite``, ``sat_cnr``, ``caption_bits``,
-    ``scramble`` and ``channel={"equalize": True}`` raise
-    ``NotImplementedError``: their modules are not ported yet.
+    the chunk's own frames.  ``mesh``, ``rf_audio``, ``rf_audio_bw``,
+    ``caption_bits`` and ``scramble`` raise ``NotImplementedError``: their
+    modules are not ported yet.
     """
-    _refuse_unported(mesh, channel, rf, rf_audio, rf_audio_bw, satellite, sat_cnr,
-                     caption_bits, scramble)
+    _refuse_unported(mesh, rf_audio, rf_audio_bw, caption_bits, scramble)
+    if satellite and rf:
+        raise ValueError(
+            "satellite (FM) and rf (VSB-AM) are different transmission "
+            "layers; pick one"
+        )
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     manifest = ChunkManifest(out_dir) if resume else None
     if lines is None:
         lines = int(source(0, 1).shape[2])
-    noisy = bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0
+    noisy = ((bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0)
+             or (satellite and sat_cnr is not None))
     config = {
         "standard": plan.cfg.name,
         "decoder": decoder,
@@ -181,6 +230,8 @@ def process_video(
         # another gate threshold would mix denoise levels
         **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
         **({"noise_keying": noise_keying(device)} if noisy else {}),
+        **({"rf": True} if rf else {}),
+        **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
         "mesh": None,
     }
     if manifest:
@@ -189,28 +240,70 @@ def process_video(
     make = make_interlaced_pipeline if interlaced else make_pipeline
     enc_f, dec_f, roundtrip = make(plan, decoder, backend, device)
 
+    # interlaced encode puts fields (2 per frame) on the leading axis
+    units = 2 if interlaced else 1
+    hop = None
+    if rf:
+        rfp = rf_mod.make_rf_plan(plan)
+
+        def hop(comp, frame0):
+            # the carrier's row law keys on the absolute leading-axis index
+            g0 = frame0 * units
+            return rf_mod.rf_demodulate(rfp, rf_mod.rf_modulate(rfp, comp, g0), g0)
+
+    elif satellite:
+        sp = sat_mod.make_sat_plan(plan.fs, plan.n_samples)
+        sat_sigma = sat_mod.noise_sigma(sp, sat_cnr) if sat_cnr is not None else 0.0
+
+        def hop(comp, frame0):
+            # frame-local by design (per-frame circular FM); the noise keys
+            # on each item's absolute leading-axis index
+            rf_sig = sat_mod.fm_modulate(sp, comp)
+            if sat_sigma:
+                g0 = SAT_NOISE_SEED + _index(frame0 * units, comp.shape[0])
+                seeds = range(g0, g0 + comp.shape[0])
+                rf_sig = rf_sig + sat_sigma * _unit_noise(rf_sig.shape[1:], seeds, device)
+            return sat_mod.fm_demodulate(sp, rf_sig)
+
     chan_noise_sigma = 0.0
+    _channel = None
     if channel:
         channel = dict(channel)
+        equalize = bool(channel.pop("equalize", False))
         vhs = bool(channel.pop("vhs", False))
         chan_noise_sigma = float(channel.pop("noise_sigma", 0.0) or 0.0)
-        # interlaced encode puts fields (2 per frame) on the leading axis
-        units = 2 if interlaced else 1
+        if equalize:
+            gcr = torch.tensor(gcr_record(plan)[None], device=device)
+            eq_ntaps = ntaps_for_delay(plan, float(channel.get("ghost_delay_us", 0.0)))
 
-        def _noise(comp: torch.Tensor, first: int) -> torch.Tensor:
-            """Unit noise, one generator per absolute leading-axis index."""
-            return torch.stack([
-                torch.randn(comp.shape[1:], dtype=torch.float32, device=device,
-                            generator=torch.Generator(device=device).manual_seed(first + i))
-                for i in range(comp.shape[0])
-            ])
-
-        def roundtrip(rgb, frame0):  # noqa: F811 — the channel between
-            comp = impair(plan, enc_f(rgb, frame0), **channel)
+        def _channel(comp: torch.Tensor, frame0: int) -> torch.Tensor:  # noqa: F811
+            comp = impair(plan, comp, **channel)
             if chan_noise_sigma > 0.0:
-                comp = comp + chan_noise_sigma * _noise(comp, frame0 * units)
+                first = _index(frame0 * units, comp.shape[0])
+                comp = comp + chan_noise_sigma * _unit_noise(
+                    comp.shape[1:], range(first, first + comp.shape[0]), device)
             if vhs:
                 comp = vhs_playback(plan, comp)
+            if equalize:
+                rx = impair(plan, gcr, **channel)[0]
+                if chan_noise_sigma > 0.0:
+                    # the record's own fixed realisation: the designed taps
+                    # do not depend on the chunk
+                    rx = rx + chan_noise_sigma * _unit_noise(rx.shape, [GCR_NOISE_SEED],
+                                                             device)[0]
+                comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
+            return comp
+
+    if hop is not None or _channel is not None:
+
+        def roundtrip(rgb, frame0):  # noqa: F811 — the hop and channel between
+            comp = enc_f(rgb, frame0)
+            if hop is not None:
+                # the transmission hop first; the composite impairments model
+                # the receiver side
+                comp = hop(comp, frame0)
+            if _channel is not None:
+                comp = _channel(comp, frame0)
             return dec_f(comp, frame0)
 
     if nr and nr_sigma is None and chan_noise_sigma > 0.0:

@@ -12,7 +12,15 @@ samples at the standard's active lines:
 * ``ntsc-svideo``: ``make_svideo_pipeline``;
 * ``ntsc-pal-transcode``: ``make_transcoder`` on an NTSC composite;
 * ``ntsc-comb3-video``: one ``process_video`` run of 48 frames in chunks of
-  16 from ``synthetic_device_source``, into a fresh directory each call.
+  16 from ``synthetic_device_source``, into a fresh directory each call;
+* ``rf`` and ``satellite``: the RF/VSB and satellite FM hops
+  (``rf_roundtrip``, ``sat_roundtrip``) on the NTSC notch composite of the
+  16 frames; ``d2mac``: the MAC round trip at 16x3x576x720.  These have no
+  kernel of their own, so they run once, whatever ``--backend`` says.
+
+Besides the kernels, each path's device time is split by kind: cuFFT,
+elementwise, reductions, scans, sorts, matrix products (GEMM) and the
+port's own kernels; the host idle share is the rest of the window.
 
     python3 scripts/torch_profile_roundtrip.py [--iters 20] [--backend kernel plain]
         [--path ntsc-comb3 secam-interp ...]
@@ -39,7 +47,29 @@ PATHS = {
     "ntsc-svideo": ("svideo", "NTSC", None),
     "ntsc-pal-transcode": ("transcode", "NTSC", "PAL"),
     "ntsc-comb3-video": ("video", "NTSC", "comb3"),
+    "rf": ("hop", "NTSC", "rf"),
+    "satellite": ("hop", "NTSC", "satellite"),
+    "d2mac": ("hop", "NTSC", "d2mac"),
 }
+
+#: device-time kinds, matched in order on the lower-cased kernel name
+KINDS = (
+    ("sort", ("radixsort", "sort")),
+    ("cufft", ("fft", "radix")),
+    ("gemm", ("gemm", "cutlass", "xmma")),
+    ("port kernel", ("qam_", "secam_", "fir_")),
+    ("scan", ("scan",)),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "cat", "copy", "fill", "index", "where")),
+)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, keys in KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
 
 
 def make_call(path: str, backend: str, dev, tmp: str):
@@ -75,6 +105,25 @@ def make_call(path: str, backend: str, dev, tmp: str):
         conv = make_transcoder(plan, make_plan(getattr(cmt, arg)(), 720), backend=backend,
                                device=dev)
         return (lambda: conv(comp, 0)), label
+    elif layer == "hop":
+        from color_modem_tpu_torch.frame import rf as rf_mod
+        from color_modem_tpu_torch.frame import satellite as sat_mod
+        from color_modem_tpu_torch.modem import mac
+
+        if arg == "d2mac":
+            mplan = mac.make_mac_plan(720)
+            mrgb = torch.tensor(np.broadcast_to(smooth_scene(576, 720, seed=0),
+                                                (16, 3, 576, 720)), dtype=torch.float32,
+                                device=dev)
+            g = (torch.arange(16, dtype=torch.int32, device=dev)[:, None] * 625
+                 + torch.arange(576, dtype=torch.int32, device=dev))
+            return (lambda: mac.roundtrip(mplan, mrgb, g)), "d2mac 16x3x576x720"
+        comp = make_pipeline(plan.to(dev), "notch", "kernel", device=dev)[0](rgb, 0)
+        if arg == "rf":
+            rfp = rf_mod.make_rf_plan(plan)
+            return (lambda: rf_mod.rf_roundtrip(rfp, comp, 0)), f"rf-vsb-hop 16x{lines}x720"
+        sp = sat_mod.make_sat_plan(plan.fs, 720)
+        return (lambda: sat_mod.sat_roundtrip(sp, comp)), f"satellite-fm-hop 16x{lines}x720"
     else:
         src = synthetic_device_source(lines, 720, seed=0, device=dev)
         runs = itertools.count()
@@ -109,6 +158,14 @@ def profile(path: str, backend: str, iters: int, card: str) -> None:
           f"(host clock, profiler on), host operators {host_us / iters / 1e3:.4f} ms, "
           f"device busy {busy_us / iters / 1e3:.4f} ms = {100 * busy_us / wall_us:.1f}% "
           "of the window")
+    by_kind = {}
+    for e in kernels:
+        kind = kind_of(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total
+    split = ", ".join(f"{kind} {t / iters / 1e3:.4f} ms ({100 * t / busy_us:.1f}%)"
+                      for kind, t in sorted(by_kind.items(), key=lambda kv: -kv[1]))
+    print(f"  device time by kind: {split}; host idle share "
+          f"{100 * (1 - busy_us / wall_us):.1f}% of the window")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total):
         share = 100 * e.self_device_time_total / busy_us
         print(f"  {e.self_device_time_total / iters:9.2f} us/call {share:5.1f}%  "
@@ -132,7 +189,8 @@ def main() -> None:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     for path in args.path:
-        for backend in args.backend:
+        # the hops have no kernel of their own: one run, whatever the backend
+        for backend in args.backend[:1] if PATHS[path][0] == "hop" else args.backend:
             profile(path, backend, args.iters, card)
 
 

@@ -436,3 +436,130 @@ def test_pipelines_on_two_devices_share_one_plan(dev, first):
     assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
     assert float((out.cpu() - rt_cpu(rgb, 0)).abs().max()) <= DEC_ATOL
     assert plan.mix_cos.device == home
+
+
+def _hops(dev):
+    """The transmission layer's calls at 16 x 480 x 720 (MAC 16 x 576 x 720),
+    each with its input on the card."""
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.frame.equalize import (
+        apply_equalizer,
+        design_equalizer,
+        gcr_record,
+    )
+    from color_modem_tpu_torch.frame.raster import make_raster
+    from color_modem_tpu_torch.frame.timebase import impair_timebase, tbc_correct
+    from color_modem_tpu_torch.modem import mac
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    comp = make_pipeline(plan, "notch", "kernel", dev)[0](_scene(480, dev), 0)
+    rfp = rf_mod.make_rf_plan(plan)
+    sp = sat_mod.make_sat_plan(plan.fs, 720)
+    mplan = mac.make_mac_plan(720)
+    g = frame_line_index(plan, 0, 16, 576, dev)
+    mrgb = _scene(576, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    rx = torch.tensor(gcr_record(plan), device=dev)
+    ras = make_pipeline(plan, "comb3", "kernel", dev, raster=True)[0](_scene(480, dev), 0)
+    shifted, _ = impair_timebase(plan, ras, wobble_us=0.3)
+    g_r = frame_line_index(plan, 0, 16, 480, dev)
+    return {
+        "rf": lambda: rf_mod.rf_roundtrip(rfp, comp, 3),
+        "satellite": lambda: sat_mod.sat_roundtrip(sp, comp),
+        "satellite-awgn": lambda: sat_mod.sat_roundtrip(sp, comp, None, gen, 12.0),
+        "d2mac": lambda: mac.decode_data(mplan, mac.encode(mplan, mrgb, g))[1],
+        "equalizer": lambda: apply_equalizer(comp, design_equalizer(plan, rx, ntaps=411)),
+        "tbc": lambda: tbc_correct(plan, make_raster(plan), shifted, g_r),
+    }
+
+
+@pytest.mark.parametrize("hop", ["rf", "satellite", "satellite-awgn", "d2mac", "equalizer",
+                                 "tbc"])
+def test_hop_never_blocks_the_host(dev, hop):
+    """The transmission layer enqueues without waiting for the card: its
+    composed taps, kernel spectra and carrier tables are built and uploaded
+    once (the first call), not per call."""
+    call = _hops(dev)[hop]
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.parametrize("hop,atol", [("rf", 1e-5), ("satellite", 5e-4), ("d2mac", 1e-5)])
+def test_hop_matches_the_cpu(dev, hop, atol):
+    """Each hop on the card against the same call on the CPU (float32 FFT
+    rounding; the FM phase carries it to ~1e-4)."""
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.modem import mac
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
+    rgb = torch.tensor(np.stack([smooth_scene(48, 720, seed=s) for s in range(3)]),
+                       dtype=torch.float32)
+    if hop == "d2mac":
+        mplan = mac.make_mac_plan(720)
+        g = torch.arange(48)
+        fn = lambda x: mac.roundtrip(mplan, x, g.to(x.device))  # noqa: E731
+        x = rgb
+    else:
+        x = make_pipeline(plan, "notch", "kernel", "cpu")[0](rgb, 0)
+        if hop == "rf":
+            rfp = rf_mod.make_rf_plan(plan)
+            fn = lambda c: rf_mod.rf_roundtrip(rfp, c, 5)  # noqa: E731
+        else:
+            sp = sat_mod.make_sat_plan(plan.fs, 720)
+            fn = lambda c: sat_mod.sat_roundtrip(sp, c)  # noqa: E731
+    assert float((fn(x.to(dev)).cpu() - fn(x)).abs().max()) <= atol
+
+
+def test_agc_quantile_above_2_pow_24(dev):
+    """Sync-tip AGC on 48 rastered frames (19.8e6 samples, where
+    torch.quantile refuses): the sort-based quantile against NumPy's, and
+    the 0.7x gain error recovered."""
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame.raster import make_raster
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    rgb = torch.tensor(np.broadcast_to(smooth_scene(480, 720, seed=0), (48, 3, 480, 720)),
+                       dtype=torch.float32, device=dev)
+    comp = make_pipeline(plan, "notch", "kernel", dev, raster=True)[0](rgb, 0)
+    assert comp.numel() > 2**24
+    rfp = rf_mod.make_rf_plan(plan, row_samples=make_raster(plan).n_total)
+    weak = 0.7 * rf_mod.rf_modulate(rfp, comp, 0)
+    env = torch.rand(3, 2**23 + 17, generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+    np.testing.assert_allclose(rf_mod._row_quantile(env, 0.975).cpu().numpy(),
+                               np.quantile(env.double().cpu().numpy(), 0.975, axis=-1),
+                               rtol=0, atol=1e-6)
+    out = rf_mod.rf_demodulate(rfp, weak, 0, agc=True)
+    assert psnr(out[:, 2:-2], comp[:, 2:-2]) >= 40.0
+
+
+def test_video_hops_on_the_card(dev, tmp_path):
+    """process_video through the RF hop and the satellite hop (clean and
+    at 12 dB CNR, where the discriminator carries the FFTs' batch-dependent
+    last bits further) on the card: chunk sizes 2 and 3 agree, and the
+    noisy manifest names the card's keying."""
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    src = synthetic_device_source(64, 720, seed=2, device=dev)
+    for i, (kw, atol) in enumerate((({"rf": True}, 1e-5), ({"satellite": True}, 1e-5),
+                                    ({"satellite": True, "sat_cnr": 12.0}, 2e-3))):
+        outs = []
+        for chunk in (2, 3):
+            d = str(tmp_path / f"{i}_{chunk}")
+            s = process_video(plan, src, 6, d, decoder="comb3", chunk=chunk,
+                              save_outputs=True, device=dev, **kw)
+            assert s["frames_processed_this_run"] == 6
+            outs.append(np.concatenate([np.load(f"{d}/rgb_{i:06d}.npy")
+                                        for i in range(0, 6, chunk)]))
+        assert float(np.abs(outs[0] - outs[1]).max()) <= atol
+    assert s["noise_keying"] == "abs-frame-torch-cuda"

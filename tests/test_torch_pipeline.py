@@ -207,6 +207,22 @@ def test_port_never_imports_jax():
             s = video.process_video(make_plan(PAL(), 720), video.synthetic_source(16, 720),
                                     3, d, decoder="delayline", chunk=2, device="cpu")
         assert s["frames_processed_this_run"] == 3 and s["min_psnr_db"] > 25.0
+        from color_modem_tpu_torch.dsp import stream
+        from color_modem_tpu_torch.frame import equalize, rf, satellite, timebase
+        from color_modem_tpu_torch.modem import mac, mac_plan
+        comp = make_pipeline(make_plan(NTSC(), 720), "notch", device="cpu")[0](rgb, 0)
+        assert psnr(rf.rf_roundtrip(rf.make_rf_plan(make_plan(NTSC(), 720)), comp)[:, 2:-2],
+                    comp[:, 2:-2]) > 55.0
+        sp = satellite.make_sat_plan(13.5e6, 720)
+        assert psnr(satellite.sat_roundtrip(sp, comp), comp) > 40.0
+        mp = mac_plan.make_mac_plan(720)
+        assert psnr(mac.roundtrip(mp, rgb, torch.arange(16)), rgb) > 35.0
+        with tempfile.TemporaryDirectory() as d:
+            s = video.process_video(make_plan(NTSC(), 720), video.synthetic_source(16, 720),
+                                    2, d, decoder="comb3", chunk=2, device="cpu", rf=True,
+                                    channel={"ghost_delay_us": 2.0, "ghost_gain": 0.2,
+                                             "equalize": True})
+        assert s["min_psnr_db"] > 30.0
         import importlib, pkgutil
         import color_modem_tpu_torch as port
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):

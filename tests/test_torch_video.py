@@ -2,12 +2,13 @@
 (``color_modem_tpu_torch/frame/video.py``), its manifest and its
 fingerprint, against the JAX package on the CPU.
 
-Kept to two JAX ``process_video`` runs (each compiles its chunk step).
 Bounds: the clean run's ``min_psnr_db`` equals the JAX ``xla`` run's to
 0.01 dB and its saved frames agree to 5e-4 (the RGB bound of
 tests/test_torch_pipeline.py); chunk independence 1e-6, as in
 tests/test_video.py; the fingerprint 1e-4 relative to ``fingerprint_jnp``;
-the device source 1e-6.  Noisy runs are compared by chunk independence
+the device source 1e-6; the transmission hops and the equalizer against
+the JAX runner's noise-free runs to 0.02 dB and 1e-4 (5e-4 through the
+satellite hop's float32 FM phase).  Noisy runs are compared by chunk independence
 and dB gains only: the port's per-index ``torch.Generator`` noise is not
 the JAX package's PRNG.
 """
@@ -201,19 +202,105 @@ def test_chunk_independent(case, tmp_path):
 
 @pytest.mark.parametrize("option,value,item", [
     ("mesh", object(), "item 10"),
-    ("rf", True, "item 7"),
     ("rf_audio", np.zeros(4, np.float32), "item 8"),
     ("rf_audio_bw", 50e3, "item 8"),
-    ("satellite", True, "item 7"),
-    ("sat_cnr", 12.0, "item 7"),
     ("caption_bits", np.zeros((2, 16), np.int32), "item 9"),
     ("scramble", ("linecut", 7), "item 9"),
-    ("channel", {"equalize": True}, "item 7"),
 ])
 def test_unported_options_raise(option, value, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"),
                       **{option: value})
+    assert not os.path.exists(tmp_path / "x")
+
+
+#: case -> (process_video options, max |diff| of the saved frames against
+#: the JAX runner's).  Satellite: the reference's float32 FM phase integral
+#: (its cumsum) is off the float64 one by up to ~2e-4 rad per sample, which
+#: moves the decoded RGB by ~1.5e-4 (tests/test_torch_satellite.py), hence
+#: 5e-4 there.
+HOP_CASES = {
+    "rf": (dict(rf=True), 1e-4),
+    "rf-interlaced": (dict(rf=True, interlaced=True), 1e-4),
+    "satellite": (dict(satellite=True), 5e-4),
+    "equalize": (dict(channel={"ghost_delay_us": 3.0, "ghost_gain": 0.3, "equalize": True}),
+                 1e-4),
+}
+
+
+@pytest.mark.parametrize("case", list(HOP_CASES))
+def test_hop_runs_match_jax(case, tmp_path):
+    """The transmission hops and the GCR equalizer between encode and decode,
+    noise-free, against the JAX runner: PSNR to 0.02 dB, frames to the
+    case's bound."""
+    kw, atol = HOP_CASES[case]
+    s_j = jvideo.process_video(get_plan("ntsc"), synthetic_source(L, N), 4,
+                               str(tmp_path / "j"), decoder="comb3", chunk=2,
+                               save_outputs=True, **kw)
+    s = process_video(tplan(), synthetic_source(L, N), 4, str(tmp_path / "t"),
+                      decoder="comb3", chunk=2, save_outputs=True, device="cpu", **kw)
+    assert s["frames_processed_this_run"] == 4
+    assert abs(s["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.02, (s, s_j)
+    np.testing.assert_allclose(saved(str(tmp_path / "t"), 4, 2),
+                               saved(str(tmp_path / "j"), 4, 2), rtol=0, atol=atol)
+    with open(os.path.join(str(tmp_path / "t"), "manifest.json")) as f:
+        config = json.load(f)["config"]
+    with open(os.path.join(str(tmp_path / "j"), "manifest.json")) as f:
+        config_j = json.load(f)["config"]
+    for key in ("rf", "satellite", "sat_cnr", "channel"):
+        assert config.get(key) == config_j.get(key), key
+
+
+#: case -> (process_video options, frames, the two chunk sizes, bound).  The
+#: FFTs' rounding depends on the batch; near the FM threshold (12 dB CNR)
+#: the discriminator carries a last-bit change of a noisy sample further.
+CHUNK_HOP_CASES = {
+    "satellite": (dict(satellite=True), 5, (2, 3), 1e-5),
+    "satellite-cnr": (dict(satellite=True, sat_cnr=12.0), 5, (2, 3), 5e-4),
+    "rf-noise": (dict(rf=True, channel={"noise_sigma": 0.02}), 5, (2, 3), 1e-5),
+    "equalize-noise": (dict(channel={"ghost_delay_us": 3.0, "ghost_gain": 0.3,
+                                     "noise_sigma": 0.02, "equalize": True}), 5, (2, 3), 1e-5),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNK_HOP_CASES))
+def test_hop_runs_are_chunk_independent(case, tmp_path):
+    """The hops are frame-local, and satellite noise, channel noise and the
+    noisy GCR record draw from generators keyed on absolute indices (or a
+    fixed seed), so the chunk size cannot change the output."""
+    kw, n, chunks, atol = CHUNK_HOP_CASES[case]
+    outs = {}
+    for chunk in chunks:
+        d = str(tmp_path / f"c{chunk}")
+        s = process_video(tplan(), synthetic_source(L, N), n, d, decoder="comb3",
+                          chunk=chunk, save_outputs=True, device="cpu", **kw)
+        assert ("noise_keying" in s) == (case != "satellite")
+        outs[chunk] = saved(d, n, chunk)
+    np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], rtol=0, atol=atol)
+
+
+def test_noise_families_do_not_collide(tmp_path):
+    """The satellite noise differs from the channel noise of the same frame:
+    its seeds start at SAT_NOISE_SEED, the GCR record's at GCR_NOISE_SEED."""
+    from color_modem_tpu_torch.frame import video as tvideo
+
+    assert tvideo.SAT_NOISE_SEED == 2**30 and tvideo.GCR_NOISE_SEED == 2**31
+    a = tvideo._unit_noise((8,), [0, 1], torch.device("cpu"))
+    b = tvideo._unit_noise((8,), [tvideo.SAT_NOISE_SEED, tvideo.SAT_NOISE_SEED + 1],
+                           torch.device("cpu"))
+    assert not torch.equal(a, b)
+    assert torch.equal(a[1], torch.randn(8, generator=torch.Generator().manual_seed(1)))
+    s = process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "s"),
+                      decoder="notch", chunk=2, satellite=True, sat_cnr=14.0, device="cpu")
+    assert s["sat_cnr"] == 14.0 and s["satellite"] is True and s["min_psnr_db"] > 25.0
+    with pytest.raises(ValueError, match="2\\^30"):
+        tvideo._index(2**30 - 1, 2)
+
+
+def test_satellite_and_rf_together_raise(tmp_path):
+    with pytest.raises(ValueError, match="pick one"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"),
+                      rf=True, satellite=True, device="cpu")
     assert not os.path.exists(tmp_path / "x")
 
 
