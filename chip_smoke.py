@@ -57,6 +57,17 @@ Phases; any failure raises and exits nonzero:
    quantile; each hop against the CPU on a small input; the hops
    bit-identical with TF32 on; no host-blocking operation in any hop
    (``set_sync_debug_mode("error")``);
+4h. the sound layer at full width, no kernel of its own either: rf-sound
+   (the NTSC composite from ``qam_encode`` through ``rf_modulate`` ->
+   ``sound_on_rf`` -> ``nicam_on_rf`` -> ``rf_demodulate``,
+   ``sound_from_rf``, ``nicam_from_rf``: transparency, FM audio SNR, NICAM
+   bits equal to those sent with no parity error, L/R SNR), sat-sound (two
+   subcarriers), A2 on the PAL composite from the ``_shared`` encode
+   (stereo, dual and mono detected, L/R SNR), MTS on the 50 kHz sound
+   channel and D2-MAC packet sound over the satellite hop, each PSNR +- 0.02
+   dB and SNR +- 0.1 dB of the JAX CPU value; each chain on the card
+   against the CPU, TF32 on bit-identical, no host-blocking operation (A2's
+   decision: exactly its one stacked fetch);
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
@@ -64,7 +75,8 @@ Phases; any failure raises and exits nonzero:
    and the share of it reached, and one grouped conv2d of each kernel's
    FIRs alone (TF32 off) as the library yardstick; 5e the frame layer's
    round trips, the resample matmul and NR; 5g the three hops (and each
-   half), in Mpix/s of composite or picture pixels;
+   half), in Mpix/s of composite or picture pixels; 5h each sound chain
+   whole and each half (transmit, receive);
 6. the video runner: ``process_video`` NTSC comb3 at 480x720, 48 frames in
    chunks of 16 from the device source (PSNR +- 0.02 dB of the JAX CPU run,
    3 launches of each kernel), a resume that processes nothing, one
@@ -74,7 +86,11 @@ Phases; any failure raises and exits nonzero:
    2.5 dB on a noisy static source, and Mpix/s on both backends; then the
    same run through the RF hop and through the satellite hop at 12 dB CNR
    (PSNR +- 0.02 dB of the JAX CPU run), and chunk sizes 16 and 12 through
-   the RF hop, the satellite hop, and the satellite hop at 12 dB CNR.
+   the RF hop, the satellite hop, and the satellite hop at 12 dB CNR; the
+   RF hop with a soundtrack (``rf_audio``), progressive and interlaced,
+   against the JAX runner's PSNR and audio SNR, one synchronising operation
+   per wave with the audio in the fetch, and chunk sizes 16 and 12 equal to
+   1e-4 on the audio and 1e-5 on the frames.
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
@@ -189,6 +205,33 @@ VIDEO_HOP = {"rf": ({"rf": True}, 47.28),
 #: them further on the noisiest samples
 HOP_CHUNK = {"rf": ({"rf": True}, 1e-5), "satellite": ({"satellite": True}, 1e-5),
              "satellite cnr 12": ({"satellite": True, "sat_cnr": 12.0}, 2e-3)}
+#: phase 4h: the sound layer's values as the JAX xla path computes them on
+#: the CPU at the card's shapes (scripts/jax_transmission_reference.py
+#: rf-sound, sat-sound, a2, mts, mac-sound); a PSNR is held to PSNR_TOL, an
+#: SNR (each signal's own mean removed, :func:`snr_db`) to SNR_TOL
+SNR_TOL = 0.1
+SOUND_PSNR = {"rf-sound transparency": 56.9436, "sat-sound transparency": 49.1133}
+SOUND_SNR = {
+    "rf-sound fm audio": 58.7689,
+    "rf-sound nicam left": 57.2877, "rf-sound nicam right": 59.7092,
+    "sat-sound subcarrier 0": 66.6137, "sat-sound subcarrier 1": 59.8260,
+    "a2 stereo left": 64.0769, "a2 stereo right": 61.8164,
+    "a2 dual left": 64.1247, "a2 dual right": 61.8171,
+    "mts left": 68.9686, "mts right": 59.5621,
+    "mac-sound left": 58.8734, "mac-sound right": 59.7900,
+}
+NICAM_FRAMES, NICAM_OFFSET_BITS = 25, 72   # nicam_capacity; the head guard
+#: the sound chains on the card against the CPU on a small input (2 frames
+#: of 64 lines): float32 FFT and scan rounding; the NICAM and packet-sound
+#: audio are bit-exact paths
+SOUND_CPU_ATOL = {"rf-sound": 1e-4, "sat-sound": 1e-3, "a2 stereo": 1e-3, "a2 dual": 1e-3,
+                  "mts": 1e-4, "mac-sound": 0.0}
+#: phase 6 with a soundtrack (0.5 sin 700 Hz + 0.3 sin 4 kHz): the JAX xla
+#: runner's min_psnr_db and audio SNR (scripts/jax_transmission_reference.py
+#: video-rf-audio, video-rf-audio-interlaced)
+VIDEO_AUDIO = {"progressive": (47.24, 62.4085),
+               "interlaced": (42.87, 62.3770)}
+AUDIO_CHUNK_ATOL = 1e-4    # tests/test_video.py::test_video_rf_audio_phase_continuous
 QAM_1_1 = {"qam_encode": 1, "qam_decode": 1}
 SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1}
 
@@ -1045,6 +1088,296 @@ def time_transmission(card: str, timed: dict) -> None:
               "(median [min, max] of 10 windows of 20 calls)")
 
 
+def snr_db(ref, out) -> float:
+    """Signal-to-error ratio in dB of ``out`` against ``ref``, each with its
+    own mean removed (as scripts/jax_transmission_reference.py computes it)."""
+    import numpy as np
+
+    ref = np.asarray(ref, np.float64)
+    ref = ref - ref.mean()
+    out = np.asarray(out, np.float64)
+    err = (out - out.mean()) - ref
+    return float(10.0 * np.log10(np.mean(ref ** 2) / max(np.mean(err ** 2), 1e-30)))
+
+
+def _tone(freqs_amps, n: int, fs: float):
+    """A sum of sines as float32 NumPy, made as the reference script makes it."""
+    import numpy as np
+
+    t = np.arange(n) / fs
+    return sum(a * np.sin(2 * np.pi * f * t) for f, a in freqs_amps).astype(np.float32)
+
+
+def sound_chains(dev, frames: int = BATCH, lines: int = 480,
+                 pal_lines: int = 576) -> tuple[dict, dict]:
+    """Phase 4h's chains on ``dev`` at ``frames`` x ``lines`` (A2 and the MAC
+    at ``pal_lines``): ``(chains, inputs)``, each chain ``name ->
+    (transmit, receive)``, where ``transmit()`` returns the signal on the
+    channel and ``receive(sig)`` a tuple of outputs.  The inputs are the
+    reference script's, made on the host and copied once."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import NTSC, PAL
+    from color_modem_tpu_torch.frame import a2, mts, nicam
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.modem import mac
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    def up(x):
+        return torch.tensor(np.ascontiguousarray(x), device=dev)
+
+    plan = make_plan(NTSC(), N).to(dev)
+    pal = make_plan(PAL(), N).to(dev)
+    rgb, prgb = full_scene(lines, dev, frames), full_scene(pal_lines, dev, frames)
+    reset_counts()
+    comp = make_pipeline(plan, "notch", "kernel", dev)[0](rgb, 0)
+    pcomp = make_pipeline(pal, "delayline", "kernel", dev)[0](prgb, 0)
+    if dev.type == "cuda":
+        read_counts("4h composites (NTSC notch, PAL delayline)", {"qam_encode": 2})
+    rfp, prfp = rf_mod.make_rf_plan(plan), rf_mod.make_rf_plan(pal)
+    rfp50 = rf_mod.make_rf_plan(plan, audio_bw=50e3)
+    a2p = a2.make_a2_plan(prfp)
+    item = lines * N
+
+    # rf-sound: FM sound over the frames' joined stream, NICAM beside it
+    audio = up(_tone(((1000.0, 0.6), (7000.0, 0.3)), frames * item, plan.fs).reshape(frames, item))
+    cap = nicam.nicam_capacity(rfp, (frames, lines, N * rfp.r))
+    nl, nr = (up(_tone(((f, 0.5),), 32 * cap, 32000.0)) for f in (800.0, 2300.0))
+    nplan = nicam.make_nicam_rf_plan(rfp)
+
+    def rf_tx():
+        rf = rf_mod.sound_on_rf(rfp, rf_mod.rf_modulate(rfp, comp, 0), 0, audio, 0.0)
+        return nicam.nicam_on_rf(rfp, rf, nl, nr)
+
+    def rf_rx(rf):
+        l_rx, r_rx, rep, lock = nicam.nicam_from_rf(rfp, rf, cap)
+        bits = nicam.nicam_demodulate(nplan, rf[0].reshape(-1), cap)[0]
+        return (rf_mod.rf_demodulate(rfp, rf, 0), rf_mod.sound_from_rf(rfp, rf, 0), l_rx, r_rx,
+                rep["parity_errors"], lock["offset_bits"], bits)
+
+    # sat-sound: two subcarriers, whole-cycle tones
+    sp = sat_mod.make_sat_plan(plan.fs, N, audio_subs=2)
+    k = [max(1, round(f * item / plan.fs)) for f in (1000.0, 3000.0)]
+    sub = np.stack([a * np.sin(2 * np.pi * kk * np.arange(item) / item)
+                    for kk, a in zip(k, (0.6, 0.5))])
+    sub = up(np.broadcast_to(sub, (frames, 2, item)).astype(np.float32))
+
+    # A2 on the PAL composite: stereo, dual and mono carriers
+    pitem = pal_lines * N
+    left = up(np.broadcast_to(_tone(((800.0, 0.6), (5000.0, 0.2)), pitem, pal.fs),
+                              (frames, pitem)))
+    right = up(np.broadcast_to(_tone(((2300.0, 0.5),), pitem, pal.fs), (frames, pitem)))
+
+    def a2_tx(mode):
+        if mode == "stereo":
+            rf = rf_mod.rf_modulate(prfp, pcomp, 0, 0.5 * (left + right))
+        else:
+            rf = rf_mod.rf_modulate(prfp, pcomp, 0, left)
+        return rf if mode == "mono" else a2.a2_on_rf(a2p, rf, 0, right, mode)
+
+    # MTS on the 50 kHz sound channel
+    ml = up(np.broadcast_to(_tone(((1000.0, 0.7),), item, plan.fs), (frames, item)))
+    mr = up(np.broadcast_to(_tone(((3000.0, 0.5),), item, plan.fs), (frames, item)))
+
+    # D2-MAC packet sound over the satellite hop
+    mplan = mac.make_mac_plan(N)
+    msp = sat_mod.make_sat_plan(mplan.cfg.fs, mplan.cfg.samples_per_line)
+    g = (torch.arange(frames, dtype=torch.int32, device=dev)[:, None] * mplan.cfg.total_lines
+         + torch.arange(pal_lines, dtype=torch.int32, device=dev))
+    n_f = mac.sound_capacity(mplan, frames * pal_lines)
+    pl, pr = (up(_tone(((f, a),), 32 * n_f, 32000.0)) for f, a in ((440.0, 0.7), (997.0, 0.5)))
+
+    def mac_tx():
+        payload, _ = mac.pack_sound(mplan, pl, pr, frames * pal_lines)
+        return sat_mod.fm_modulate(msp, mac.encode(mplan, prgb, g,
+                                                   payload.reshape(frames, pal_lines, -1)))
+
+    def mac_rx(sig):
+        _, bits = mac.decode_data(mplan, sat_mod.fm_demodulate(msp, sig))
+        l_rx, r_rx, rep = mac.unpack_sound(mplan, bits, n_f)
+        return l_rx, r_rx, rep["parity_errors"], bits
+
+    return {
+        "rf-sound": (rf_tx, rf_rx),
+        "sat-sound": (partial(sat_mod.fm_modulate, sp, comp, audio=sub),
+                      lambda sig: (sat_mod.fm_demodulate(sp, sig),
+                                   sat_mod.fm_demodulate_audio(sp, sig))),
+        "a2 stereo": (partial(a2_tx, "stereo"), lambda rf: a2._decode_arrays(a2p, rf, 0)),
+        "a2 dual": (partial(a2_tx, "dual"), lambda rf: a2._decode_arrays(a2p, rf, 0)),
+        "mts": (lambda: rf_mod.rf_modulate(rfp50, comp, 0, mts.mts_encode(plan, ml, mr)),
+                lambda rf: mts.mts_decode(plan, rf_mod.rf_demodulate_sound(rfp50, rf, 0))),
+        "mac-sound": (mac_tx, mac_rx),
+    }, dict(comp=comp, a2p=a2p, audio=audio, nl=nl, nr=nr, cap=cap, sub=sub, left=left,
+            right=right, ml=ml, mr=mr, pl=pl, pr=pr, a2_tx=a2_tx)
+
+
+def _flat_outputs(outs) -> list:
+    """The tensors of a chain's outputs (A2's statistics dicts unrolled)."""
+    flat = []
+    for o in outs:
+        if isinstance(o, dict):
+            flat += [o[k] for k in sorted(o)]
+        else:
+            flat.append(o)
+    return flat
+
+
+def sound_values(chains: dict, inp: dict) -> tuple[dict, dict]:
+    """Phase 4h's numbers from :func:`sound_chains` at full width: the
+    values held against the JAX package, and each chain's outputs."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.frame import a2, nicam
+    from color_modem_tpu_torch.utils.metrics import psnr
+
+    outs = {name: rx(tx()) for name, (tx, rx) in chains.items()}
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    v = {}
+    out, aud, l_rx, r_rx, parity, offset, bits = outs["rf-sound"]
+    comp = inp["comp"]
+    v["rf-sound transparency"] = psnr(out[:, 2:-2], comp[:, 2:-2])
+    v["rf-sound fm audio"] = snr_db(host(inp["audio"]).reshape(-1)[8000:-8000],
+                                    host(aud).reshape(-1)[8000:-8000])
+    v["rf-sound nicam left"] = snr_db(host(inp["nl"]), host(l_rx))
+    v["rf-sound nicam right"] = snr_db(host(inp["nr"]), host(r_rx))
+    sent = nicam.nicam_frames(inp["nl"], inp["nr"])
+    v["nicam parity errors"] = int(parity.sum())
+    v["nicam offset bits"] = int(offset)
+    v["nicam bit errors"] = int((bits != sent).sum())
+    out, aud = outs["sat-sound"]
+    v["sat-sound transparency"] = psnr(out, comp)
+    sub = host(inp["sub"])
+    for j in range(2):
+        v[f"sat-sound subcarrier {j}"] = snr_db(sub[0, j], host(aud[0, j]))
+    left, right = host(inp["left"]), host(inp["right"])
+    for mode in ("stereo", "dual"):
+        gl, gr, info = a2.a2_decode(inp["a2p"], chains[f"a2 {mode}"][0](), 0)
+        v[f"a2 {mode} modes"] = sorted(set(info["mode"]))
+        v[f"a2 {mode} left"] = snr_db(left[0, 8192:-8192], host(gl[0, 8192:-8192]))
+        v[f"a2 {mode} right"] = snr_db(right[0, 8192:-8192], host(gr[0, 8192:-8192]))
+        if mode == "stereo":
+            v["a2 stereo pilot"] = float(np.mean(info["pilot_level"]))
+    _, _, info = a2.a2_decode(inp["a2p"], inp["a2_tx"]("mono"), 0)
+    v["a2 mono modes"] = sorted(set(info["mode"]))
+    l2, r2, pilot = outs["mts"]
+    v["mts left"] = snr_db(host(inp["ml"])[0, 16384:-16384], host(l2)[0, 16384:-16384])
+    v["mts right"] = snr_db(host(inp["mr"])[0, 16384:-16384], host(r2)[0, 16384:-16384])
+    v["mts pilot"] = float(torch.mean(pilot))
+    l_rx, r_rx, parity, bits = outs["mac-sound"]
+    v["mac-sound left"] = snr_db(host(inp["pl"]), host(l_rx))
+    v["mac-sound right"] = snr_db(host(inp["pr"]), host(r_rx))
+    v["mac-sound parity errors"] = int(parity.sum())
+    return v, outs
+
+
+def check_sound(dev, card: str) -> dict:
+    """Phase 4h: the sound layer at full width against the JAX package's
+    values, each chain on the card against the CPU on a small input, TF32
+    on bit-identical, and no host-blocking operation (A2's decision: its
+    one stacked fetch).  Returns the callables phase 5h times."""
+    import warnings
+
+    import torch
+
+    from color_modem_tpu_torch.frame import a2
+
+    chains, inp = sound_chains(dev)
+    v, outs = sound_values(chains, inp)
+    for key, want in SOUND_PSNR.items():
+        print(f"4h {key}: {v[key]:.4f} dB (expected {want} +- {PSNR_TOL}) on {card}")
+        _check(abs(v[key] - want) <= PSNR_TOL, f"4h {key}: {v[key]} dB")
+    for key, want in SOUND_SNR.items():
+        print(f"4h {key} SNR: {v[key]:.4f} dB (expected {want} +- {SNR_TOL}) on {card}")
+        _check(abs(v[key] - want) <= SNR_TOL, f"4h {key}: {v[key]} dB")
+    print(f"4h rf-sound NICAM: {NICAM_FRAMES} frames, {v['nicam parity errors']} parity errors, "
+          f"{v['nicam bit errors']} bit errors against the frames sent, FAW at bit "
+          f"{v['nicam offset bits']} (expected {NICAM_OFFSET_BITS})")
+    _check(inp["cap"] == NICAM_FRAMES and v["nicam parity errors"] == 0
+           and v["nicam bit errors"] == 0 and v["nicam offset bits"] == NICAM_OFFSET_BITS,
+           "4h NICAM on the RF hop")
+    print(f"4h a2 modes: stereo {v['a2 stereo modes']}, dual {v['a2 dual modes']}, mono "
+          f"{v['a2 mono modes']}; pilot {v['a2 stereo pilot']:.5f} (sent 0.05); mts pilot "
+          f"{v['mts pilot']:.5f} (sent 0.1); mac-sound parity errors "
+          f"{v['mac-sound parity errors']}")
+    _check(v["a2 stereo modes"] == ["stereo"] and v["a2 dual modes"] == ["dual"]
+           and v["a2 mono modes"] == ["mono"] and v["mac-sound parity errors"] == 0,
+           "4h A2 modes or packet sound")
+    _check(abs(v["a2 stereo pilot"] - 0.05) < 0.015 and abs(v["mts pilot"] - 0.1) < 0.02,
+           "4h pilot levels")
+
+    # each chain on the card against the CPU, 2 frames of 64 lines
+    small = {d: sound_chains(torch.device(d), 2, 64, 64)[0] for d in ("cpu", dev.type)}
+    for name, atol in SOUND_CPU_ATOL.items():
+        got = _flat_outputs(small[dev.type][name][1](small[dev.type][name][0]()))
+        want = _flat_outputs(small["cpu"][name][1](small["cpu"][name][0]()))
+        e = max(_max_err(a.cpu().double(), b.double()) for a, b in zip(got, want))
+        print(f"4h {name} on the card vs the CPU, 2x64 lines: max|diff| {e:.3e} (<= {atol})")
+        _check(e <= atol, f"4h {name}: card and CPU disagree: {e}")
+
+    # TF32 on for the whole process: the same outputs, bit for bit
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        for name, (tx, rx) in chains.items():
+            diff = max(_max_err(a.double(), b.double())
+                       for a, b in zip(_flat_outputs(rx(tx())), _flat_outputs(outs[name])))
+            print(f"TF32 on: {name} max|diff| to TF32 off {diff:.3e} (== 0)")
+            _check(diff == 0.0, f"TF32 on changed {name}: {diff}")
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+    # no host-blocking operation in any chain; a2_decode fetches once
+    calls = {name: (lambda tx=tx, rx=rx: rx(tx())) for name, (tx, rx) in chains.items()}
+    a2_rf = inp["a2_tx"]("dual")
+    for fn in calls.values():
+        fn()
+    a2.a2_decode(inp["a2p"], a2_rf, 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            a2.a2_decode(inp["a2p"], a2_rf, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
+    print(f"4h no host-blocking operation in: {', '.join(calls)}; a2_decode: {len(syncs)} "
+          "synchronising operation (1 expected: its stacked fetch)")
+    _check(len(syncs) == 1, f"a2_decode syncs: {syncs}")
+    return {name: (tx, rx, BATCH * (576 if name.startswith(("a2", "mac")) else 480) * N / 1e6)
+            for name, (tx, rx) in chains.items()}
+
+
+def time_sound(card: str, chains: dict) -> dict:
+    """Phase 5h: CUDA-event times of each sound chain per 16 frames, whole
+    and each half (transmit, receive), median [min, max] of 10 windows of
+    20 calls, with Mpix/s of composite (or MAC) pixels."""
+    from color_modem_tpu_torch.kernels.measure import time_ms
+
+    times = {}
+    for name, (tx, rx, mpix) in chains.items():
+        sig = tx()
+        for part, fn in (("hop", lambda: rx(tx())), ("transmit", tx), ("receive", partial(rx, sig))):
+            t = _stats(time_ms(fn) + time_ms(fn))
+            times[name, part] = t
+            print(f"time {name} {part} {BATCH} frames on {card}: {_fmt(t, mpix)} "
+                  "(median [min, max] of 10 windows of 20 calls)")
+    return times
+
+
 def check_video(dev, card: str) -> dict:
     """Phase 6: the chunked, resumable runner on the card."""
     import glob
@@ -1145,6 +1478,52 @@ def check_video(dev, card: str) -> dict:
             print(f"video {hop} hop, {INDEP_FRAMES} frames: chunk 16 vs 12 max|diff| {e:.3e} "
                   f"(<= {atol})")
             _check(e <= atol, f"{hop} hop: chunk-size dependent output: {e}")
+
+        # a soundtrack on the RF hop's FM sound carrier, progressive and
+        # interlaced, against the JAX runner
+        track = _tone(((700.0, 0.5), (4000.0, 0.3)), VIDEO_FRAMES * 480 * N, plan.fs)
+        for form, (want_q, want_snr) in VIDEO_AUDIO.items():
+            label = f"video ntsc comb3 {form} rf hop + rf_audio {VIDEO_FRAMES}x3x480x{N}"
+            reset_counts()
+            s_aud = run(f"audio_{form}", src, VIDEO_FRAMES, rf=True, rf_audio=track,
+                        interlaced=form == "interlaced")
+            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+            rx = np.concatenate([np.load(f) for f in sorted(
+                glob.glob(os.path.join(tmp, f"audio_{form}", "aud_*.npy")))])
+            _check(rx.shape == track.shape, f"{label}: audio {rx.shape}")
+            q_snr = snr_db(track[8192:-8192], rx[8192:-8192])
+            print(f"{label}: min_psnr_db {s_aud['min_psnr_db']} (expected {want_q} +- "
+                  f"{PSNR_TOL}), audio SNR {q_snr:.4f} dB (expected {want_snr} +- {SNR_TOL}), "
+                  f"launches {got}, {s_aud['mpix_per_s']} Mpix/s on {card}")
+            _check(abs(s_aud["min_psnr_db"] - want_q) <= PSNR_TOL
+                   and abs(q_snr - want_snr) <= SNR_TOL, f"{label}: {s_aud}, {q_snr}")
+            summaries[f"rf_audio {form}"] = s_aud
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                run("audio_sync", src, VIDEO_FRAMES, rf=True, rf_audio=track)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
+        print(f"video rf hop + rf_audio, {VIDEO_FRAMES} frames in one wave: {len(syncs)} "
+              "synchronising CUDA operation(s) (1 expected: the wave's fetch, audio included)")
+        _check(len(syncs) == 1, f"video runner with rf_audio syncs: {syncs}")
+        outs, auds = {}, {}
+        for chunk in (16, 12):
+            d = os.path.join(tmp, f"audio_chunk_{chunk}")
+            run(d, src, INDEP_FRAMES, chunk=chunk, rf=True, save_outputs=True,
+                rf_audio=track[: INDEP_FRAMES * 480 * N])
+            outs[chunk] = np.concatenate([np.load(f) for f in sorted(glob.glob(f"{d}/rgb_*.npy"))])
+            auds[chunk] = np.concatenate([np.load(f) for f in sorted(glob.glob(f"{d}/aud_*.npy"))])
+        e_aud = float(np.abs(auds[16] - auds[12]).max())
+        e_rgb = float(np.abs(outs[16] - outs[12]).max())
+        print(f"video rf hop + rf_audio, {INDEP_FRAMES} frames: chunk 16 vs 12 max|diff| audio "
+              f"{e_aud:.3e} (<= {AUDIO_CHUNK_ATOL}), frames {e_rgb:.3e} "
+              f"(<= {HOP_CHUNK['rf'][1]})")
+        _check(e_aud <= AUDIO_CHUNK_ATOL and e_rgb <= HOP_CHUNK["rf"][1],
+               f"rf_audio: chunk-size dependent output: {e_aud}, {e_rgb}")
 
         static = full_scene(480, dev)
         raw = run("raw", lambda start, count: static[:count], BATCH, channel=dict(noise))
@@ -1260,6 +1639,9 @@ def main() -> None:
     # --- 4g. the transmission layer ---------------------------------------------
     hops = check_transmission(dev, card)
 
+    # --- 4h. the sound layer ----------------------------------------------------
+    sound = check_sound(dev, card)
+
     # --- 5. timing: main path and SECAM; 5c. PAL/NIIR; 5e. frame layer ---------
     times = {}
     for name, decoder in (("ntsc", "comb3"), ("secam", "interp"), ("pal", "delayline"),
@@ -1267,6 +1649,7 @@ def main() -> None:
         times[name] = time_path(dev, card, name, decoder, paths)
     time_frame_layer(card, timed)
     time_transmission(card, hops)
+    time_sound(card, sound)
 
     # --- 6. the video runner ----------------------------------------------------
     check_video(dev, card)

@@ -64,3 +64,29 @@ def global_line_index(
     b = frame_indices(frame0, n_frames, device)
     l = torch.arange(n_lines, dtype=torch.int32, device=device)
     return b[:, None] * int(total_lines) + l[None, :]
+
+
+def _cumsum_fixed_order(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum`` along the last axis, by PyTorch's per-row scan.  A
+    tensor that is a single row (numel equal to the scanned axis) goes to
+    CUB's single-pass scan on a GPU, whose order of additions depends on
+    which blocks finish first, so a float sum differs in its last bits from
+    run to run; such a row is scanned beside a copy of itself instead."""
+    if x.numel() == x.shape[-1]:
+        return torch.cumsum(torch.stack([x, x]), dim=-1)[0]
+    return torch.cumsum(x, dim=-1)
+
+
+def running_phase(steps: torch.Tensor, row: int) -> torch.Tensor:
+    """Running sum of phase steps (S, T) along the last axis in float64, in
+    an order fixed by the shape: each run of ``row`` samples (``row``
+    divides T) is summed on its own, then the runs' totals, and each run
+    adds the total of the runs before it.  The FM modulators integrate
+    their deviation with it: a float32 ``cumsum`` over a stream of millions
+    of samples loses ~1e-4 rad, and its rounding would depend on the chunk
+    and, on a GPU, on the run."""
+    s, t = steps.shape
+    runs = _cumsum_fixed_order(steps.to(torch.float64).reshape(s, t // row, row))
+    before = _cumsum_fixed_order(runs[..., -1])
+    before = torch.cat([before.new_zeros(s, 1), before[:, :-1]], dim=-1)
+    return (runs + before[..., None]).reshape(s, t)

@@ -1,10 +1,13 @@
 """RF/IF vestigial-sideband picture transmission.
 
-Port of ``color_modem_tpu/frame/rf.py`` (its video half; the intercarrier
-FM sound waits for ROADMAP queue 1 item 8):
+Port of ``color_modem_tpu/frame/rf.py``:
 
     composite -> negative-AM VSB picture signal at a low IF
               -> Nyquist-flank receiver + synchronous detection -> composite
+
+with an intercarrier FM sound carrier above the video sideband
+(:func:`rf_modulate`'s ``audio``, :func:`sound_on_rf` /
+:func:`sound_from_rf` for the chunked runner's joined streams).
 
 * Row-major composite samples are ONE contiguous stream per frame, as in
   ``frame/channel.py``'s ghost; rastered lines (``frame/raster.py``) work
@@ -18,6 +21,12 @@ FM sound waits for ROADMAP queue 1 item 8):
   happens in the frequency domain (``dsp/stream.py``: ``upconv_stream``
   up, ``conv_decim_stream`` down); only the carrier rotation is left as
   elementwise work.
+* The sound carrier is a half-integer number of cycles per row too.  Its
+  FM phase is the running sum of the float32 deviation steps at the RF
+  rate, kept in float64 in a fixed order (``dsp/nco.py::running_phase``)
+  and reduced mod 2 pi before float32 holds it; the JAX package sums in
+  float32 (ROADMAP queue 3).  The receiver's discriminator is the exact
+  phase difference ``angle(z[t] conj(z[t-1]))`` at the composite rate.
 
 The composed taps are built once per (plan, frequency offset) and their
 spectra uploaded once per device, as are the carrier tables; dropouts draw
@@ -33,10 +42,17 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp import design
-from color_modem_tpu_torch.dsp.nco import f32, frame_indices, line_phase0, sample_phase_ramp
+from color_modem_tpu_torch.dsp.nco import (
+    f32,
+    frame_indices,
+    line_phase0,
+    running_phase,
+    sample_phase_ramp,
+)
 from color_modem_tpu_torch.dsp.stream import (
     _carrier_taps,
     conv_decim_stream,
+    fir_stream,
     pad_taps_center,
     plan_memo,
     upconv_stream,
@@ -58,10 +74,6 @@ _GUARD = 0.2e6
 #: DOC carrier-loss threshold: a legitimate envelope never falls below
 #: peak white (0.125), so anything under half of it is carrier loss.
 DOC_THRESHOLD = 0.06
-
-_SOUND_TODO = ("the RF intercarrier sound is not ported yet: ROADMAP queue 1 "
-               "item 8 (sound)")
-
 
 def _nyquist_flank(f, fc: float, f_vestige: float, f_video: float,
                    transition: float = _TRANSITION):
@@ -101,7 +113,7 @@ class RFPlan:
     rx_taps: np.ndarray     # Nyquist-flank receiver bandpass (fs_rf)
     det_taps: np.ndarray    # post-detection video lowpass (fs_rf)
     ramp: np.ndarray        # (N*r,) within-row carrier phase ramp, f64
-    # --- intercarrier FM sound (designed; its modulation is item 8) -----
+    # --- intercarrier FM sound ---------------------------------------------
     f_snd: float            # sound carrier, Hz (exact: snd_num/2 cycles/row)
     snd_num: int
     snd_dev: float          # peak FM deviation, Hz (audio in [-1, 1])
@@ -323,6 +335,21 @@ def _df_phase(rfp: RFPlan, df: float, frame0, b: int, l: int, device,
     return (TWO_PI * cycles)[:, :, None] + in_row[None, None, :]
 
 
+def _hold(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Zero-order hold by ``r`` along the last axis (each sample repeated
+    ``r`` times), as a broadcast: no host sync for the output size."""
+    return x.unsqueeze(-1).expand(*x.shape, r).reshape(*x.shape[:-1], x.shape[-1] * r)
+
+
+def _deviation_phase(dphi: torch.Tensor, row: int, phi0=0.0) -> torch.Tensor:
+    """The FM deviation phase of float32 steps (S, T), plus ``phi0`` (a
+    float or a 0-d tensor): summed in float64 in a fixed order
+    (``dsp/nco.py::running_phase``), reduced mod 2 pi, then float32."""
+    if isinstance(phi0, torch.Tensor):
+        phi0 = phi0.to(device=dphi.device, dtype=torch.float64)
+    return torch.remainder(running_phase(dphi, row) + phi0, TWO_PI).to(torch.float32)
+
+
 def _check_rows(name: str, rfp: RFPlan, n: int) -> None:
     if n != rfp.row_samples:
         raise ValueError(
@@ -339,11 +366,11 @@ def rf_modulate(rfp: RFPlan, comp: torch.Tensor, frame0=0, audio=None,
     Negative AM (sync tip = peak carrier), zero-stuffed to the RF rate,
     mixed onto the closed-form carrier and VSB-shaped, in one
     ``upconv_stream`` pass and a carrier rotation.  ``df``: transmitter
-    mistuning, Hz.  ``audio`` (the intercarrier sound) raises
-    ``NotImplementedError``: ROADMAP queue 1 item 8.
+    mistuning, Hz (both carriers shift together).  ``audio``: optional
+    (B, L*N) mono audio in [-1, 1] at the composite rate, added as the
+    intercarrier FM sound carrier; each batch item is integrated on its
+    own (:func:`sound_on_rf` joins them).
     """
-    if audio is not None:
-        raise NotImplementedError(_SOUND_TODO)
     b, l, n = comp.shape
     _check_rows("rf_modulate", rfp, n)
     dev = comp.device
@@ -354,7 +381,19 @@ def rf_modulate(rfp: RFPlan, comp: torch.Tensor, frame0=0, audio=None,
         cos_t, sin_t = torch.cos(ph), torch.sin(ph)
     else:
         cos_t, sin_t = _trig(rfp.ramp, dev)
-    return (v.real * cos_t - v.imag * sin_t) * _row_sign(frame0, b, l, dev)[:, :, None]
+    rf = (v.real * cos_t - v.imag * sin_t) * _row_sign(frame0, b, l, dev)[:, :, None]
+    if audio is not None:
+        # FM: the closed-form carrier ramp plus the deviation integral, one
+        # cumsum over each item's stream of the zero-order-held audio;
+        # cos(pi*row + x) = row_sign * cos(x)
+        a_rf = _hold(torch.as_tensor(audio, dtype=torch.float32, device=dev), rfp.r)
+        dphi = f32(2.0 * np.pi * rfp.snd_dev / rfp.fs_rf) * a_rf
+        phi = _upload(rfp.snd_ramp, dev)[None, None, :] + _deviation_phase(
+            dphi, rfp.n_rf).reshape(b, l, rfp.n_rf)
+        if df != 0.0:  # the same LO chain: the sound carrier shifts too
+            phi = phi + _df_phase(rfp, df, frame0, b, l, dev)
+        rf = rf + rfp.snd_amp * torch.cos(phi) * _row_sign(frame0, b, l, dev)[:, :, None]
+    return rf
 
 
 def _row_quantile(x: torch.Tensor, q: float) -> torch.Tensor:
@@ -561,22 +600,132 @@ def rf_retune(rfp: RFPlan, rf: torch.Tensor, df: float, frame0=0) -> torch.Tenso
     return shifted.real.reshape(b, l, n_rf)
 
 
-def rf_demodulate_sound(rfp: RFPlan, rf, frame0=0, freq_error: float = 0.0):
-    """Intercarrier FM sound takeoff: ROADMAP queue 1 item 8."""
-    raise NotImplementedError(_SOUND_TODO)
+def _snd_rotate(rfp: RFPlan, zc: torch.Tensor, frame0, freq_error: float):
+    """(i, q) from the composed sound-takeoff output: ``zc`` rotated by
+    ``e^{-j(snd ramp + (-1)^row law + df phase)}`` at the composite rate
+    (the factor 2 of the mix is in ``RFPlan.snd_dem_taps``)."""
+    b, l, _ = zc.shape
+    dev = zc.device
+    sign = _row_sign(frame0, b, l, dev)[:, :, None]
+    if freq_error != 0.0:
+        ph = (_upload(rfp.snd_ramp_comp, dev)[None, None, :]
+              + _df_phase(rfp, freq_error, frame0, b, l, dev, comp_rate=True))
+        c, s = torch.cos(ph) * sign, torch.sin(ph) * sign
+    else:
+        c, s = _trig(rfp.snd_ramp_comp, dev)
+        c, s = c * sign, s * sign
+    zr, zi = zc.real, zc.imag
+    return zr * c + zi * s, zi * c - zr * s
 
 
-def sound_on_rf(rfp: RFPlan, rf, frame0, audio, phi0=0.0):
-    """The chunked transmitter's FM sound carrier: ROADMAP queue 1 item 8."""
-    raise NotImplementedError(_SOUND_TODO)
+def _discriminate(rfp: RFPlan, i: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Exact phase-difference FM discriminator along the last axis, in
+    audio units: ``atan2`` of ``z[t] conj(z[t-1])``, the first sample held
+    (its step is exactly 0)."""
+    ip = torch.cat([i[..., :1], i[..., :-1]], dim=-1)
+    qp = torch.cat([q[..., :1], q[..., :-1]], dim=-1)
+    dphi = torch.atan2(ip * q - i * qp, i * ip + q * qp)
+    return dphi * f32(rfp.plan.fs / (2.0 * np.pi * rfp.snd_dev))
 
 
-def sound_from_rf(rfp: RFPlan, rf, frame0=0):
-    """The chunked receiver's sound takeoff: ROADMAP queue 1 item 8."""
-    raise NotImplementedError(_SOUND_TODO)
+def rf_demodulate_sound(rfp: RFPlan, rf: torch.Tensor, frame0=0,
+                        freq_error: float = 0.0) -> torch.Tensor:
+    """Intercarrier FM sound takeoff: RF (B, L, N*r) -> audio (B, L*N).
+
+    The sound band-pass, quadrature mix and I/Q low-pass as one composed
+    complex filter decimated to the composite rate, the carrier rotation
+    there, the exact phase-difference discriminator, then the audio
+    low-pass by overlap-save (``fir_stream``).  ``freq_error`` (Hz, from
+    :func:`recover_carrier_frequency`) tracks a mistuned transmitter;
+    untracked, an offset ``df`` reads as an audio DC of ``df / snd_dev``.
+    """
+    b, l, n_rf = rf.shape
+    n = rfp.row_samples
+    zc = conv_decim_stream(rf.reshape(b, l * n_rf), rfp.snd_dem_taps(freq_error),
+                           rfp.r).reshape(b, l, n)
+    i, q = _snd_rotate(rfp, zc, frame0, freq_error)
+    audio = _discriminate(rfp, i.reshape(b, l * n), q.reshape(b, l * n))
+    return fir_stream(audio, rfp.aud_lpf)
 
 
-def rf_roundtrip(rfp: RFPlan, comp: torch.Tensor, frame0=0, audio=None) -> torch.Tensor:
-    """modulate -> demodulate: the recovered composite (video only; an
-    ``audio`` stream raises ``NotImplementedError``, ROADMAP item 8)."""
-    return rf_demodulate(rfp, rf_modulate(rfp, comp, frame0, audio), frame0)
+def sound_on_rf(rfp: RFPlan, rf: torch.Tensor, frame0, audio, phi0=0.0) -> torch.Tensor:
+    """Add the FM sound carrier treating the batch as one contiguous
+    broadcast (the chunked video transmitter).
+
+    The zero-order hold, the deviation phase and the carrier run over the
+    joined (B*L*N*r) stream, so consecutive frames keep one phase law.
+    ``phi0`` (radians; a float or a 0-d tensor) is the deviation phase
+    accumulated before this chunk: the runner takes it from the whole
+    track's float64 prefix sum, reduced mod 2 pi, so any chunking rebuilds
+    the same law.  ``audio``: (B, L*N) in [-1, 1] at the composite rate.
+    """
+    b, l, n_rf = rf.shape
+    dev = rf.device
+    a_rf = _hold(torch.as_tensor(audio, dtype=torch.float32, device=dev).reshape(
+        1, b * l * rfp.row_samples), rfp.r)
+    dphi = f32(TWO_PI * rfp.snd_dev / rfp.fs_rf) * a_rf
+    phi_dev = _deviation_phase(dphi, n_rf, phi0)
+    phi = _upload(rfp.snd_ramp, dev).expand(b, l, n_rf).reshape(1, b * l * n_rf) + phi_dev
+    snd = torch.cos(phi).reshape(b, l, n_rf) * _row_sign(frame0, b, l, dev)[:, :, None]
+    return rf + rfp.snd_amp * snd
+
+
+def _sound_disc(rfp: RFPlan, rf: torch.Tensor, frame0) -> torch.Tensor:
+    """Joined-chunk discriminator: RF (B, L, N*r) -> the instantaneous audio
+    (1, B*L*N) before the audio low-pass."""
+    b, l, n_rf = rf.shape
+    n = rfp.row_samples
+    zc = conv_decim_stream(rf.reshape(1, b * l * n_rf), rfp.snd_dem_taps(),
+                           rfp.r).reshape(b, l, n)
+    i, q = _snd_rotate(rfp, zc, frame0, 0.0)
+    return _discriminate(rfp, i.reshape(1, b * l * n), q.reshape(1, b * l * n))
+
+
+def sound_from_rf(rfp: RFPlan, rf: torch.Tensor, frame0=0) -> torch.Tensor:
+    """Contiguous-batch sound takeoff, the mirror of :func:`sound_on_rf`:
+    RF (B, L, N*r) -> audio (B, L*N).  Every stream filter runs over the
+    joined chunk, so only the chunk's edges carry filter warm-up (the
+    runner hides them under its one-frame overlap)."""
+    b, l, _ = rf.shape
+    audio = _sound_disc(rfp, rf, frame0)
+    return fir_stream(audio, rfp.aud_lpf).reshape(b, l * rfp.row_samples)
+
+
+def sound_from_rf_halo(rfp: RFPlan, rf: torch.Tensor, frame0=0, halo: int = 1,
+                       head_dead=None, tail_dead=None) -> torch.Tensor:
+    """Sound takeoff on a frame-halo-extended chunk (B+2*halo, L, N*r) ->
+    audio (B, L*N) of the own frames only: the receive side of a sharded
+    hop.  The stream filters see the ``halo`` neighbour frames on each
+    side, and the result crops them.
+
+    ``head_dead`` / ``tail_dead`` (Python bools or 0-d bool tensors): the
+    halo before the global first / after the global last frame carries no
+    signal.  The discriminator output there (and at the first own sample,
+    whose predecessor is dead) is zeroed before the audio low-pass, which
+    reproduces what the unsharded chunk's zero padding past its stream
+    ends gives.
+    """
+    b_ext, l, _ = rf.shape
+    n = rfp.row_samples
+    b = b_ext - 2 * halo
+    audio = _sound_disc(rfp, rf, frame0)                  # (1, b_ext*l*n)
+    if head_dead is not None or tail_dead is not None:
+        pos = torch.arange(b_ext * l * n, dtype=torch.int32, device=rf.device)[None, :]
+        keep = torch.ones_like(audio, dtype=torch.bool)
+        if head_dead is not None:
+            keep &= ~(head_dead & (pos < halo * l * n + 1))
+        if tail_dead is not None:
+            keep &= ~(tail_dead & (pos >= (halo + b) * l * n))
+        audio = torch.where(keep, audio, 0.0)
+    out = fir_stream(audio, rfp.aud_lpf).reshape(b_ext, l * n)
+    return out[halo : halo + b]
+
+
+def rf_roundtrip(rfp: RFPlan, comp: torch.Tensor, frame0=0, audio=None):
+    """modulate -> demodulate: the recovered composite, or ``(composite,
+    audio)`` when an ``audio`` stream is sent."""
+    rf = rf_modulate(rfp, comp, frame0, audio)
+    out = rf_demodulate(rfp, rf, frame0)
+    if audio is None:
+        return out
+    return out, rf_demodulate_sound(rfp, rf, frame0)

@@ -1,7 +1,7 @@
 """Satellite FM transmission: wideband video FM at IF.
 
-Port of ``color_modem_tpu/frame/satellite.py`` (its video half; the
-analog audio subcarriers wait for ROADMAP queue 1 item 8).  The chain:
+Port of ``color_modem_tpu/frame/satellite.py``, with its analog audio
+subcarrier ladder above the video.  The chain:
 
     baseband -> CCIR-405-shaped pre-emphasis -> energy dispersal ->
     wideband FM onto an IF carrier at exactly fs_rf/4 -> AWGN at a CNR ->
@@ -27,6 +27,13 @@ analog audio subcarriers wait for ROADMAP queue 1 item 8).  The chain:
   :func:`~color_modem_tpu_torch.dsp.stream.fir_decim_stream`.
 * The discriminator is the phase of the product of adjacent half-rate
   samples, ``angle(a[m+1] conj(a[m]))``: no unwrap, no Hilbert filter.
+* Each audio subcarrier completes a whole number of cycles per frame
+  stream, its cos/sin a host float64 table uploaded once per device; the
+  audio is 50 us pre-emphasised and frequency-modulated per frame with
+  its phase closed mod 2 pi (summed in float64 in a fixed order,
+  ``dsp/nco.py::running_phase``, where the JAX package sums in float32),
+  and the receiver mixes each one down, discriminates it circularly and
+  AC-couples the result.
 
 The composed taps are built once per plan and their spectra uploaded once
 per device; noise comes from an explicit ``torch.Generator``.
@@ -41,7 +48,7 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp import design
-from color_modem_tpu_torch.dsp.nco import f32
+from color_modem_tpu_torch.dsp.nco import f32, running_phase
 from color_modem_tpu_torch.dsp.stream import (
     _carrier_taps,
     conv_decim_stream,
@@ -53,10 +60,6 @@ from color_modem_tpu_torch.dsp.stream import (
 )
 
 TWO_PI = 2.0 * np.pi
-
-_SOUND_TODO = ("the satellite audio subcarriers are not ported yet: ROADMAP "
-               "queue 1 item 8 (sound)")
-
 
 def preemph_response(f, f1: float, f2: float, g0: float):
     """CCIR Rec. 405-shaped video pre-emphasis for FM: ``|P(f)|^2 = g0^2
@@ -185,7 +188,7 @@ def make_sat_plan(
     per video unit; ``dispersal`` > 0 adds the frame-synchronous
     triangular energy dispersal (removed by the next layer's clamp);
     ``audio_subs`` > 0 designs that many FM audio subcarriers above a
-    low-passed video (their modulation waits for ROADMAP item 8).
+    low-passed video.
     """
     if r < 1 or r & (r - 1):
         raise ValueError(
@@ -323,6 +326,47 @@ def _wrap_filter(s: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
     return fir_stream(_wrap_pad(s, p), taps)[..., p : p + n]
 
 
+@lru_cache(maxsize=16)
+def _sub_trig(k_cycles: int, n_total: int, device: torch.device):
+    """cos/sin (float32, on ``device``, uploaded once) of a subcarrier
+    completing exactly ``k_cycles`` over the ``n_total``-sample frame
+    stream: host float64, the product reduced mod ``n_total`` before the
+    divide (``k*i`` reaches ~1e13, exact in float64)."""
+    ph = (TWO_PI / n_total) * ((k_cycles * np.arange(n_total, dtype=np.float64)) % n_total)
+    return (torch.tensor(np.cos(ph), dtype=torch.float32, device=device),
+            torch.tensor(np.sin(ph), dtype=torch.float32, device=device))
+
+
+def _sub_cycles(sp: SatPlan, f: float, n_tot: int) -> int:
+    return int(round(f * n_tot / sp.base_fs))
+
+
+def _audio_mux(sp: SatPlan, audio, l: int) -> torch.Tensor:
+    """(B, K, L*n_base) audio in [-1, 1] -> the subcarrier multiplex
+    (B, L*n_base) in video units: 50 us pre-emphasis, then per-frame
+    circular FM on each subcarrier (the deviation phase closed mod 2 pi
+    over the frame, like the main carrier's)."""
+    a = torch.as_tensor(audio, dtype=torch.float32)
+    if a.ndim == 2:
+        a = a[:, None, :]
+    n_tot = l * sp.n_base
+    if a.shape[1] != len(sp.sub_freqs) or a.shape[-1] != n_tot:
+        raise ValueError(
+            f"audio shape {tuple(a.shape)} != (B, {len(sp.sub_freqs)}, {n_tot})")
+    a = _wrap_filter(a, sp.aud_pre)
+    out = a.new_zeros(a.shape[0], n_tot)
+    for j, f in enumerate(sp.sub_freqs):
+        dphi = (f32(TWO_PI * sp.sub_dev / sp.base_fs) * a[:, j]).to(torch.float64)
+        tot = torch.remainder(torch.sum(dphi, dim=-1, keepdim=True), TWO_PI)
+        tot = torch.where(tot > np.pi, tot - TWO_PI, tot)
+        dphi = dphi - tot / n_tot
+        phi = torch.remainder(running_phase(dphi, sp.n_base) - 0.5 * dphi,
+                              TWO_PI).to(torch.float32)
+        c, s = _sub_trig(_sub_cycles(sp, f, n_tot), n_tot, a.device)
+        out = out + f32(sp.sub_amp) * (c * torch.cos(phi) - s * torch.sin(phi))
+    return out
+
+
 def fm_modulate(sp: SatPlan, base: torch.Tensor, gline=None,
                 audio: torch.Tensor | None = None) -> torch.Tensor:
     """Baseband (B, L, N) video units -> FM signal (B, L, N*r) at IF.
@@ -330,15 +374,20 @@ def fm_modulate(sp: SatPlan, base: torch.Tensor, gline=None,
     Pre-emphasis at the baseband rate, zero-stuff interpolation to the RF
     rate, the midpoint-rule deviation integral per frame (line carry
     wrapped mod 2 pi), the exact fs/4 carrier.  ``gline`` (B, L) adds the
-    energy dispersal.  ``audio`` (the subcarrier sound) raises
-    ``NotImplementedError``: ROADMAP queue 1 item 8.
+    energy dispersal.  ``audio``: (B, K, L*n_base) (or (B, L*n_base) when
+    K = 1) audio in [-1, 1] at the baseband rate, one stream per designed
+    subcarrier, added to the multiplex above the low-passed video (the
+    plan needs ``audio_subs`` > 0).
     """
-    if audio is not None:
-        raise NotImplementedError(_SOUND_TODO)
     b, l, n = base.shape
     if n != sp.n_base:
         raise ValueError(f"rows have {n} samples, plan expects {sp.n_base}")
+    if audio is not None and not sp.sub_freqs:
+        raise ValueError(
+            "this SatPlan has no audio subcarriers — pass audio_subs= to make_sat_plan")
     v = _wrap_filter(base.to(torch.float32).reshape(b, l * n), sp.tx_video_taps())
+    if sp.sub_freqs and audio is not None:
+        v = v + _audio_mux(sp, torch.as_tensor(audio, device=base.device), l)
     v = v.reshape(b, l, n)
     if gline is not None:
         # dispersal enters after pre-emphasis; de-emphasis passes a per-line
@@ -422,8 +471,32 @@ def fm_demodulate(sp: SatPlan, rf: torch.Tensor) -> torch.Tensor:
 
 
 def fm_demodulate_audio(sp: SatPlan, rf: torch.Tensor) -> torch.Tensor:
-    """The subcarrier sound of the multiplex: ROADMAP queue 1 item 8."""
-    raise NotImplementedError(_SOUND_TODO)
+    """FM signal (B, L, N*r) -> subcarrier audio (B, K, L*n_base).
+
+    The front end, then per subcarrier: the quadrature mix with its exact
+    whole-cycles-per-frame carrier, the I/Q low-pass (the band selection),
+    the circular symmetric discriminator (``torch.roll`` is exact: the
+    mixed-down stream is frame-periodic) and the audio low-pass with the
+    50 us de-emphasis in one FIR.  The output is AC-coupled, which removes
+    the ~100 Hz carrier bias of the per-frame phase closure.
+    """
+    if not sp.sub_freqs:
+        raise ValueError("this SatPlan has no audio subcarriers")
+    _, l, _ = rf.shape
+    mux = _demod_multiplex(sp, rf)
+    n_tot = l * sp.n_base
+    outs = []
+    for f in sp.sub_freqs:
+        c, s = _sub_trig(_sub_cycles(sp, f, n_tot), n_tot, rf.device)
+        i = _wrap_filter(mux * (2.0 * c), sp.sub_lpf)
+        q = _wrap_filter(mux * (-2.0 * s), sp.sub_lpf)
+        ip, im = torch.roll(i, -1, -1), torch.roll(i, 1, -1)
+        qp, qm = torch.roll(q, -1, -1), torch.roll(q, 1, -1)
+        f_dev = torch.atan2(qp * im - ip * qm, ip * im + qp * qm) * f32(
+            sp.base_fs / (2.0 * TWO_PI))
+        a = _wrap_filter(f_dev / f32(sp.sub_dev), sp.aud_rx)
+        outs.append(a - torch.mean(a, dim=-1, keepdim=True))
+    return torch.stack(outs, dim=1)
 
 
 def noise_sigma(sp: SatPlan, cnr_db: float) -> float:

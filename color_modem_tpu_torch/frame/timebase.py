@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp.nco import f32
+from color_modem_tpu_torch.frame.pipeline import resolve_device
 from color_modem_tpu_torch.frame.raster import RasterPlan, add_raster
 
 
@@ -44,10 +45,12 @@ def fractional_shift(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 def timebase_profile(plan, n_lines: int, *, wobble_us: float = 0.3,
                      wobble_cycles: float = 2.5, flagging_us: float = 0.0,
                      jitter_us: float = 0.0, generator: torch.Generator | None = None,
-                     device: torch.device | str = "cpu") -> torch.Tensor:
-    """(L,) per-line shift in samples: a wobble sine, the top-of-field
-    flag (exponential decay over the first ~8% of lines) and white jitter
-    (``jitter_us`` > 0 needs ``generator``, on ``device``)."""
+                     device: torch.device | str = "cuda") -> torch.Tensor:
+    """(L,) per-line shift in samples on ``device`` (by default the card;
+    without CUDA that raises, as the factories do): a wobble sine, the
+    top-of-field flag (exponential decay over the first ~8% of lines) and
+    white jitter (``jitter_us`` > 0 needs ``generator``, on ``device``)."""
+    device = resolve_device(device)
     l = torch.arange(n_lines, dtype=torch.float32, device=device)
     per_us = np.float32(plan.fs * 1e-6)
     delta = float(np.float32(wobble_us) * per_us) * torch.sin(

@@ -12,10 +12,13 @@ chunk in the wave come back in one stacked fetch (plus the saved frames,
 when asked for).
 
 Between encode and decode a run can take a transmission hop (``rf``: the
-VSB picture hop of ``frame/rf.py``; ``satellite``: the FM hop of
+VSB picture hop of ``frame/rf.py``, with a soundtrack on its intercarrier
+FM sound carrier when ``rf_audio`` is given; ``satellite``: the FM hop of
 ``frame/satellite.py``, with channel noise at ``sat_cnr``), then the
 composite channel (``frame/channel.py``) and the GCR equalizer
-(``frame/equalize.py``), in the JAX runner's order.
+(``frame/equalize.py``), in the JAX runner's order.  The received audio
+comes back in the wave's one stacked fetch and goes to ``aud_<start>.npy``
+per chunk.
 
 Noise is keyed on the absolute leading-axis index (frames, or fields when
 interlaced): each index draws from its own ``torch.Generator``, so chunk
@@ -132,13 +135,11 @@ def synthetic_device_source(lines: int, samples: int, seed: int = 0,
     return src
 
 
-def _refuse_unported(mesh, rf_audio, rf_audio_bw, caption_bits, scramble) -> None:
+def _refuse_unported(mesh, caption_bits, scramble) -> None:
     """The JAX runner's options whose modules the port lacks yet, each with
     the ROADMAP queue 1 item that ports it."""
     asked = {
         "mesh": (mesh is not None, "10 (parallel layer)"),
-        "rf_audio": (rf_audio is not None, "8 (sound)"),
-        "rf_audio_bw": (rf_audio_bw != 15e3, "8 (sound)"),
         "caption_bits": (caption_bits is not None, "9 (data services)"),
         "scramble": (scramble is not None, "9 (data services)"),
     }
@@ -147,6 +148,19 @@ def _refuse_unported(mesh, rf_audio, rf_audio_bw, caption_bits, scramble) -> Non
             raise NotImplementedError(
                 f"process_video {name} is not ported yet: ROADMAP queue 1 item {item}"
             )
+
+
+def _sound_track(rf_audio, n_frames: int, snd_dev: float, fs: float):
+    """The soundtrack as ``(n_frames, item)`` float32 blocks and each
+    frame's starting deviation phase: the float64 prefix sum of the whole
+    track, reduced mod 2 pi, so any chunking continues one phase law."""
+    aud = np.asarray(rf_audio, np.float64).reshape(-1)
+    if aud.size % n_frames:
+        raise ValueError(f"rf_audio length {aud.size} is not a whole number of "
+                         f"per-frame blocks for {n_frames} frames")
+    blocks = aud.reshape(n_frames, aud.size // n_frames)
+    pref = np.concatenate([[0.0], np.cumsum((2.0 * np.pi * snd_dev / fs) * blocks.sum(axis=1))])
+    return blocks.astype(np.float32), np.mod(pref, 2.0 * np.pi)
 
 
 def process_video(
@@ -188,8 +202,14 @@ def process_video(
     temporal noise reduction on the decoded frames, gated by ``nr_sigma``,
     else the channel's ``noise_sigma``, else the lower-quartile estimator.
     ``save_outputs`` writes each chunk's frames to ``rgb_<start>.npy``.
-    ``rf``: the composite rides the VSB picture hop (video only), keyed on
-    the absolute leading-axis index.  ``satellite``: the FM hop instead,
+    ``rf``: the composite rides the VSB picture hop, keyed on the absolute
+    leading-axis index.  ``rf_audio``: a soundtrack (n_frames * item
+    samples at the composite rate, in [-1, 1]) on the RF hop's FM sound
+    carrier, needs ``rf``; each chunk's frames are one joined broadcast
+    stream, the deviation phase continued across chunks from the track's
+    float64 prefix, and the received audio of the chunk's own frames goes
+    to ``aud_<start>.npy``.  ``rf_audio_bw`` widens the sound channel (50e3
+    for an MTS multiplex).  ``satellite``: the FM hop instead,
     with channel noise at ``sat_cnr`` dB when given (both together raise
     ``ValueError``).  ``channel={"equalize": True, ...}``: a GCR record
     goes through the same channel (noisy with its own fixed realisation)
@@ -198,12 +218,17 @@ def process_video(
 
     The temporal comb and NR fetch true neighbour frames across chunk
     boundaries (``pt`` frames per side for the comb, one more for NR), and
-    a short tail chunk is padded with repeats of its last frame; PSNR and fingerprint cover only
-    the chunk's own frames.  ``mesh``, ``rf_audio``, ``rf_audio_bw``,
+    a short tail chunk is padded with repeats of its last frame (with
+    silence on the sound carrier); PSNR and fingerprint cover only the
+    chunk's own frames, and a soundtrack takes one frame of overlap per
+    side, which hides the sound filters' warm-up at chunk edges.  ``mesh``,
     ``caption_bits`` and ``scramble`` raise ``NotImplementedError``: their
     modules are not ported yet.
     """
-    _refuse_unported(mesh, rf_audio, rf_audio_bw, caption_bits, scramble)
+    _refuse_unported(mesh, caption_bits, scramble)
+    want_sound = rf_audio is not None
+    if want_sound and not rf:
+        raise ValueError("rf_audio rides the RF sound carrier — pass rf=True")
     if satellite and rf:
         raise ValueError(
             "satellite (FM) and rf (VSB-AM) are different transmission "
@@ -231,6 +256,8 @@ def process_video(
         **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
         **({"noise_keying": noise_keying(device)} if noisy else {}),
         **({"rf": True} if rf else {}),
+        **({"rf_audio": True} if want_sound else {}),
+        **({"rf_audio_bw": rf_audio_bw} if rf_audio_bw != 15e3 else {}),
         **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
         "mesh": None,
     }
@@ -244,18 +271,26 @@ def process_video(
     units = 2 if interlaced else 1
     hop = None
     if rf:
-        rfp = rf_mod.make_rf_plan(plan)
+        rfp = rf_mod.make_rf_plan(plan, audio_bw=rf_audio_bw)
 
-        def hop(comp, frame0):
+        def hop(comp, frame0, aud=None, phi0=0.0):
             # the carrier's row law keys on the absolute leading-axis index
             g0 = frame0 * units
-            return rf_mod.rf_demodulate(rfp, rf_mod.rf_modulate(rfp, comp, g0), g0)
+            rf_sig = rf_mod.rf_modulate(rfp, comp, g0)
+            aud_rx = None
+            if aud is not None:
+                # the chunk's frames (fields when interlaced: consecutive
+                # halves of each frame's block) are one broadcast stream
+                aud = aud.reshape(rf_sig.shape[0], -1)
+                rf_sig = rf_mod.sound_on_rf(rfp, rf_sig, g0, aud, phi0)
+                aud_rx = rf_mod.sound_from_rf(rfp, rf_sig, g0)
+            return rf_mod.rf_demodulate(rfp, rf_sig, g0), aud_rx
 
     elif satellite:
         sp = sat_mod.make_sat_plan(plan.fs, plan.n_samples)
         sat_sigma = sat_mod.noise_sigma(sp, sat_cnr) if sat_cnr is not None else 0.0
 
-        def hop(comp, frame0):
+        def hop(comp, frame0, aud=None, phi0=0.0):
             # frame-local by design (per-frame circular FM); the noise keys
             # on each item's absolute leading-axis index
             rf_sig = sat_mod.fm_modulate(sp, comp)
@@ -263,7 +298,7 @@ def process_video(
                 g0 = SAT_NOISE_SEED + _index(frame0 * units, comp.shape[0])
                 seeds = range(g0, g0 + comp.shape[0])
                 rf_sig = rf_sig + sat_sigma * _unit_noise(rf_sig.shape[1:], seeds, device)
-            return sat_mod.fm_demodulate(sp, rf_sig)
+            return sat_mod.fm_demodulate(sp, rf_sig), None
 
     chan_noise_sigma = 0.0
     _channel = None
@@ -294,17 +329,20 @@ def process_video(
                 comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
             return comp
 
-    if hop is not None or _channel is not None:
+    lib_roundtrip = roundtrip
 
-        def roundtrip(rgb, frame0):  # noqa: F811 — the hop and channel between
-            comp = enc_f(rgb, frame0)
-            if hop is not None:
-                # the transmission hop first; the composite impairments model
-                # the receiver side
-                comp = hop(comp, frame0)
-            if _channel is not None:
-                comp = _channel(comp, frame0)
-            return dec_f(comp, frame0)
+    def roundtrip(rgb, frame0, aud=None, phi0=0.0):  # noqa: F811 — the hop and channel
+        if hop is None and _channel is None:
+            return lib_roundtrip(rgb, frame0), None
+        comp = enc_f(rgb, frame0)
+        aud_rx = None
+        if hop is not None:
+            # the transmission hop first; the composite impairments model the
+            # receiver side
+            comp, aud_rx = hop(comp, frame0, aud, phi0)
+        if _channel is not None:
+            comp = _channel(comp, frame0)
+        return dec_f(comp, frame0), aud_rx
 
     if nr and nr_sigma is None and chan_noise_sigma > 0.0:
         nr_sigma = chan_noise_sigma
@@ -320,6 +358,24 @@ def process_video(
         # the temporal comb's (the JAX runner takes max(pt, 1) here, which
         # leaves comb3d + NR output chunk-size dependent)
         min_frames, overlap = max(min_frames, 2), overlap + 1
+    if want_sound:
+        # the sound filters (the 8193-tap audio low-pass) warm up over ~6
+        # lines: one frame of overlap hides the chunk-edge transients
+        overlap = max(overlap, 1)
+        aud_frames, phi0_all = _sound_track(rf_audio, n_frames, rfp.snd_dev, plan.fs)
+        aud_item = aud_frames.shape[1]
+
+        def _chunk_sound(lo: int, b: int) -> tuple:
+            """The soundtrack of frames lo .. lo + b on the device (silence
+            past the end), staged through pinned memory so the copy does not
+            block the host, and the deviation phase before frame lo."""
+            idx = np.arange(lo, lo + b)
+            blk = aud_frames[np.clip(idx, 0, n_frames - 1)]
+            blk[idx >= n_frames] = 0.0
+            host = torch.from_numpy(blk)
+            if device.type == "cuda":
+                host = host.pin_memory()
+            return host.to(device, non_blocking=True), float(phi0_all[lo])
 
     def _input(x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -333,10 +389,11 @@ def process_video(
         return torch.cat([rgb, rgb[-1:].expand(min_frames - b, *rgb.shape[1:])])
 
     @torch.inference_mode()
-    def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int):
+    def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int, aud=None, phi0=0.0):
         """Round trip (+ NR), then PSNR and fingerprint over the chunk's own
-        frames, on the device: no host sync."""
-        out = roundtrip(rgb, frame0)
+        frames, on the device: no host sync.  Returns the frames, the
+        metrics and the received audio (an empty tensor without sound)."""
+        out, aud_rx = roundtrip(rgb, frame0, aud, phi0)
         if nr:
             out = temporal_nr(out, nr_sigma)
         e = torch.arange(out.shape[0], device=device)
@@ -344,7 +401,10 @@ def process_video(
         err = ((out - rgb) ** 2).mean(dim=(1, 2, 3))
         mse = (err * mask).sum() / float(max(n_real, 1))
         q = 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-20))
-        return out, torch.cat([q.reshape(1), fingerprint(out * mask[:, None, None, None])])
+        metrics = torch.cat([q.reshape(1), fingerprint(out * mask[:, None, None, None])])
+        if aud_rx is None:
+            aud_rx = metrics.new_zeros(0)
+        return out, metrics, aud_rx.reshape(-1)
 
     t_start = time.perf_counter()
     pixels = 0
@@ -352,17 +412,25 @@ def process_video(
     psnrs = []
 
     def _resolve(pending) -> None:
-        """One stacked device->host fetch of the wave's metrics, then the
-        saved frames and the manifest."""
+        """One stacked device->host fetch of the wave's metrics and received
+        audio, then the saved frames, the audio files and the manifest."""
         nonlocal frames_done
-        vals = torch.stack([p[4] for p in pending]).cpu().numpy()
-        for (start, end, off, out, _), v in zip(pending, vals):
+        metrics = torch.stack([p[4] for p in pending])
+        flat = torch.cat([metrics.reshape(-1)] + [p[5] for p in pending]).cpu().numpy()
+        vals = flat[: metrics.numel()].reshape(metrics.shape)
+        aud_at = metrics.numel()
+        for (start, end, off, out, _, aud_rx), v in zip(pending, vals):
             q = float(v[0])
             psnrs.append(q)
             frames_done += end - start
             if out is not None:
                 np.save(os.path.join(out_dir, f"rgb_{start:06d}.npy"),
                         out[off : off + (end - start)].cpu().numpy())
+            if want_sound:
+                a0 = aud_at + off * aud_item
+                np.save(os.path.join(out_dir, f"aud_{start:06d}.npy"),
+                        flat[a0 : a0 + (end - start) * aud_item])
+                aud_at += aud_rx.numel()
             if manifest:
                 manifest.mark_done(start, end, fp=fingerprint_hex(v[1:]), psnr=round(q, 2))
 
@@ -376,8 +444,10 @@ def process_video(
         lo, hi = max(0, start - overlap), min(n_frames, end + overlap)
         rgb = _pad_frames(_input(source(lo, hi - lo)))
         pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
-        out, metrics = step(rgb, lo, start - lo, end - start)
-        pending.append((start, end, start - lo, out if save_outputs else None, metrics))
+        sound = _chunk_sound(lo, rgb.shape[0]) if want_sound else ()
+        out, metrics, aud_rx = step(rgb, lo, start - lo, end - start, *sound)
+        pending.append((start, end, start - lo, out if save_outputs else None, metrics,
+                        aud_rx))
         if len(pending) >= wave:
             _resolve(pending)
             pending = []

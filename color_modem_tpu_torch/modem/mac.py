@@ -1,7 +1,6 @@
 """D2-MAC: the time-multiplexed analog components modem.
 
-Port of ``color_modem_tpu/modem/mac.py`` (its video and data half; the
-packet sound waits for ``frame/nicam.py``).  Each 64 us line of 1296
+Port of ``color_modem_tpu/modem/mac.py``.  Each 64 us line of 1296
 samples at 20.25 MHz carries a duobinary data burst, then one
 3:1 time-compressed colour-difference component (U on even absolute
 lines, V on odd) and the 3:2 time-compressed luminance.  There is no
@@ -17,6 +16,8 @@ subcarrier, so no cross-colour.
   decodes with no bit error.
 * The missing line-sequential component is the mean of the two vertical
   neighbours, with the reflect rule at the block's top and bottom.
+* The packet sound is NICAM-728 bit frames (``frame/nicam.py``) laid
+  head-first across the bursts' payload (:func:`pack_sound`).
 
 Checked against the JAX package and the frozen oracle ``golden/mac.py``
 (``tests/test_torch_mac.py``).
@@ -32,6 +33,8 @@ from color_modem_tpu_torch.dsp.apply import fir_same, toeplitz_same
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.dsp.resample import resample_width
+from color_modem_tpu_torch.frame.nicam import FRAME_BITS, nicam_frames, parse_frames
+from color_modem_tpu_torch.frame.pipeline import resolve_device
 from color_modem_tpu_torch.modem.mac_plan import (  # noqa: F401  (re-exports)
     MacConfig,
     MacPlan,
@@ -95,12 +98,17 @@ def _burst_signal(plan: MacPlan, bits: torch.Tensor) -> torch.Tensor:
 
 
 def line_bits(plan: MacPlan, payload: torch.Tensor | None, n_lines_shape,
-              device: torch.device | str = "cpu") -> torch.Tensor:
+              device: torch.device | str | None = None) -> torch.Tensor:
     """Per-line burst bits: the sync word, then the payload zero-padded to
     capacity.  ``payload``: (..., L, <= capacity) bits or None; returns
-    (..., L, data_symbols) int32."""
+    (..., L, data_symbols) int32 on ``device``, which defaults to the
+    payload's device, else to ``"cuda"`` (raising without CUDA, as the
+    factories do)."""
     cfg = plan.cfg
     cap = cfg.data_symbols - len(cfg.line_sync_word)
+    if device is None:
+        device = (payload.device if isinstance(payload, torch.Tensor)
+                  else resolve_device("cuda"))
     if payload is None:
         payload = torch.zeros(*n_lines_shape, cap, dtype=torch.int32, device=device)
     payload = torch.as_tensor(payload, dtype=torch.int32, device=device)
@@ -216,9 +224,38 @@ def roundtrip(plan: MacPlan, rgb: torch.Tensor, gline: torch.Tensor,
     return decode(plan, encode(plan, rgb, gline, payload_bits), gline)
 
 
+# ---------------------------------------------------------------------------
+# MAC packet sound: NICAM-coded audio in the duobinary burst
+# ---------------------------------------------------------------------------
+
 def sound_capacity(plan: MacPlan, n_lines: int) -> int:
     """NICAM 728-bit sound frames that fit ``n_lines`` lines of burst
-    payload (the packet sound itself, ``pack_sound``/``unpack_sound``,
-    waits for ROADMAP queue 1 item 8)."""
+    payload (625 lines x 99 bits at 25 fps is ~1.55 Mb/s, two NICAM
+    stereo services' worth)."""
     cap = plan.cfg.data_symbols - len(plan.cfg.line_sync_word)
-    return (n_lines * cap) // 728
+    return (n_lines * cap) // FRAME_BITS
+
+
+def pack_sound(plan: MacPlan, left, right, n_lines: int):
+    """Stereo audio -> ``(payload (n_lines, cap), n_audio_frames)``.
+
+    ``left``/``right``: float in [-1, 1], length a multiple of 32 with
+    ``length // 32 <= sound_capacity``.  The NICAM frames' bits are laid
+    head-first across the payload rows; the unused tail is zero."""
+    frames = nicam_frames(left, right)               # (F, 728)
+    n_f = frames.shape[0]
+    cap = plan.cfg.data_symbols - len(plan.cfg.line_sync_word)
+    if n_f > sound_capacity(plan, n_lines):
+        raise ValueError(
+            f"{n_f} NICAM frames need {n_f * FRAME_BITS} bits; {n_lines} lines "
+            f"carry {n_lines * cap}")
+    flat = frames.reshape(-1)
+    payload = torch.nn.functional.pad(flat, (0, n_lines * cap - flat.shape[0]))
+    return payload.reshape(n_lines, cap), n_f
+
+
+def unpack_sound(plan: MacPlan, payload: torch.Tensor, n_audio_frames: int):
+    """Inverse of :func:`pack_sound`: payload rows -> ``(left, right,
+    report)`` (``frame/nicam.py::parse_frames``)."""
+    flat = payload.reshape(-1)[: n_audio_frames * FRAME_BITS]
+    return parse_frames(flat.reshape(n_audio_frames, FRAME_BITS))

@@ -15,8 +15,14 @@ samples at the standard's active lines:
   16 from ``synthetic_device_source``, into a fresh directory each call;
 * ``rf`` and ``satellite``: the RF/VSB and satellite FM hops
   (``rf_roundtrip``, ``sat_roundtrip``) on the NTSC notch composite of the
-  16 frames; ``d2mac``: the MAC round trip at 16x3x576x720.  These have no
-  kernel of their own, so they run once, whatever ``--backend`` says.
+  16 frames; ``d2mac``: the MAC round trip at 16x3x576x720; ``rf-sound``:
+  the RF hop with the FM sound carrier over the joined 16 frames and a
+  NICAM carrier beside it (``rf_modulate`` -> ``sound_on_rf`` ->
+  ``nicam_on_rf`` -> ``rf_demodulate``, ``sound_from_rf``,
+  ``nicam_from_rf``); ``sat-sound``: the satellite hop with two audio
+  subcarriers (``fm_modulate(audio=)`` -> ``fm_demodulate``,
+  ``fm_demodulate_audio``).  These have no kernel of their own, so they
+  run once, whatever ``--backend`` says.
 
 Besides the kernels, each path's device time is split by kind: cuFFT,
 elementwise, reductions, scans, sorts, matrix products (GEMM) and the
@@ -50,6 +56,8 @@ PATHS = {
     "rf": ("hop", "NTSC", "rf"),
     "satellite": ("hop", "NTSC", "satellite"),
     "d2mac": ("hop", "NTSC", "d2mac"),
+    "rf-sound": ("hop", "NTSC", "rf-sound"),
+    "sat-sound": ("hop", "NTSC", "sat-sound"),
 }
 
 #: device-time kinds, matched in order on the lower-cased kernel name
@@ -119,6 +127,35 @@ def make_call(path: str, backend: str, dev, tmp: str):
                  + torch.arange(576, dtype=torch.int32, device=dev))
             return (lambda: mac.roundtrip(mplan, mrgb, g)), "d2mac 16x3x576x720"
         comp = make_pipeline(plan.to(dev), "notch", "kernel", device=dev)[0](rgb, 0)
+        if arg == "rf-sound":
+            from color_modem_tpu_torch.frame import nicam
+
+            rfp = rf_mod.make_rf_plan(plan)
+            t = torch.arange(16 * lines * 720, dtype=torch.float64, device=dev) / plan.fs
+            audio = (0.6 * torch.sin(2 * np.pi * 1000 * t) + 0.3 * torch.sin(
+                2 * np.pi * 7000 * t)).float().reshape(16, lines * 720)
+            cap = nicam.nicam_capacity(rfp, (16, lines, 720 * rfp.r))
+            tn = torch.arange(32 * cap, dtype=torch.float64, device=dev) / 32000.0
+            nl, nr = ((0.5 * torch.sin(2 * np.pi * f * tn)).float() for f in (800.0, 2300.0))
+
+            def rf_sound():
+                rf = rf_mod.sound_on_rf(rfp, rf_mod.rf_modulate(rfp, comp, 0), 0, audio, 0.0)
+                rf = nicam.nicam_on_rf(rfp, rf, nl, nr)
+                return (rf_mod.rf_demodulate(rfp, rf, 0), rf_mod.sound_from_rf(rfp, rf, 0),
+                        nicam.nicam_from_rf(rfp, rf, cap))
+            return rf_sound, f"rf-sound 16x{lines}x720"
+        if arg == "sat-sound":
+            sp = sat_mod.make_sat_plan(plan.fs, 720, audio_subs=2)
+            n_tot = lines * 720
+            k = torch.arange(n_tot, dtype=torch.float64, device=dev)
+            sub = torch.stack([a * torch.sin(2 * np.pi * round(f * n_tot / plan.fs) * k / n_tot)
+                               for f, a in ((1000.0, 0.6), (3000.0, 0.5))]).float()
+            sub = sub.expand(16, 2, n_tot)
+
+            def sat_sound():
+                sig = sat_mod.fm_modulate(sp, comp, audio=sub)
+                return sat_mod.fm_demodulate(sp, sig), sat_mod.fm_demodulate_audio(sp, sig)
+            return sat_sound, f"sat-sound 16x{lines}x720"
         if arg == "rf":
             rfp = rf_mod.make_rf_plan(plan)
             return (lambda: rf_mod.rf_roundtrip(rfp, comp, 0)), f"rf-vsb-hop 16x{lines}x720"

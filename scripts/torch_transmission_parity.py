@@ -15,7 +15,17 @@ of tests/test_golden_transmission.py:
 * ``rf``: the same parities for ``rf_modulate`` / ``rf_demodulate``;
 * ``equalizer``: max |diff| of the port's designed taps against the JAX
   package's (RF ghost 3 us / 0.3 through the RF hop, guarded record, 1281
-  taps, reg 1e-4, pivot ``video_zero``).
+  taps, reg 1e-4, pivot ``video_zero``);
+* ``sound``: the FM phase integrals, where the port sums the float32
+  deviation steps in float64 and the JAX package in float32: parity of
+  ``sound_on_rf`` (the fixture of tests/test_golden_sound.py, 2 x 16 lines,
+  phi0 1.234), of ``a2_on_rf`` and of the satellite ladder's
+  ``fm_modulate(audio=)`` against ``golden/sound.py``, port and JAX; the
+  largest phase error of a float32 ``cumsum`` against the float64 sum over
+  the 16 x 480-line joined stream of ``chip_smoke.py`` phase 4h's
+  soundtrack (22 M RF samples); and NICAM's DQPSK symbol phase over 25
+  frames (9100 symbols), the JAX package's float32 sum of the increments
+  against the exact count of quarter turns.
 """
 
 from __future__ import annotations
@@ -99,6 +109,74 @@ def main() -> None:
                                              reg=1e-4, pivot=pv))
     print(json.dumps({"row": "equalizer",
                       "taps_port_vs_jax_max_abs": float(np.abs(t_taps - j_taps).max())}))
+    sound_rows(plan, tplan, comp)
+
+
+def sound_rows(plan, tplan, comp) -> None:
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    from color_modem_tpu.frame import a2 as ja2
+    from color_modem_tpu.frame import nicam as jn
+    from color_modem_tpu.frame import rf as jrf
+    from color_modem_tpu.frame import satellite as jsat
+    from color_modem_tpu.golden import sound as gs
+    from color_modem_tpu_torch.dsp.nco import running_phase
+    from color_modem_tpu_torch.frame import a2 as ta2
+    from color_modem_tpu_torch.frame import rf as trf
+    from color_modem_tpu_torch.frame import satellite as tsat
+
+    def tones(b, t, freqs):
+        tt = np.arange(t, dtype=np.float64) / plan.fs
+        return np.stack([0.6 * np.sin(2 * np.pi * f * tt) + 0.2 * np.sin(2 * np.pi * 2.7 * f * tt)
+                         for f in freqs[:b]]).astype(np.float32)
+
+    rfp, jrfp = trf.make_rf_plan(tplan), jrf.make_rf_plan(plan)
+    row = {"row": "sound"}
+    audio = tones(2, 16 * 720, (700.0, 1700.0))
+    rf0 = np.zeros((2, 16, rfp.n_rf), np.float32)
+    g = gs.sound_on_rf(jrfp, rf0, 3, audio, 1.234)
+    t = trf.sound_on_rf(rfp, torch.tensor(rf0), 3, torch.tensor(audio), 1.234).numpy()
+    j = np.asarray(jrf.sound_on_rf(jrfp, jnp.asarray(rf0), 3, jnp.asarray(audio), 1.234))
+    row.update(sound_on_rf_port_vs_golden_db=_parity_db(t, g),
+               sound_on_rf_jax_vs_golden_db=_parity_db(j, g))
+    a2p, ja2p = ta2.make_a2_plan(rfp), ja2.make_a2_plan(jrfp)
+    audio2 = tones(1, 16 * 720, (1300.0,))
+    g = gs.a2_on_rf(ja2p, rf0[:1], 3, audio2, "stereo")
+    row.update(
+        a2_on_rf_port_vs_golden_db=_parity_db(
+            ta2.a2_on_rf(a2p, torch.tensor(rf0[:1]), 3, torch.tensor(audio2)).numpy(), g),
+        a2_on_rf_jax_vs_golden_db=_parity_db(
+            np.asarray(ja2.a2_on_rf(ja2p, jnp.asarray(rf0[:1]), 3, jnp.asarray(audio2))), g))
+    sp, jsp = (m.make_sat_plan(plan.fs, 720, audio_subs=1) for m in (tsat, jsat))
+    n_tot = 16 * 720
+    sub = np.broadcast_to(0.7 * np.sin(2 * np.pi * 9 * np.arange(n_tot) / n_tot),
+                          (2, 1, n_tot)).astype(np.float32)
+    g = gs.sat_fm_modulate_audio(jsp, comp, sub)
+    row.update(
+        ladder_port_vs_golden_db=_parity_db(
+            tsat.fm_modulate(sp, torch.tensor(comp), audio=torch.tensor(sub)).numpy(), g),
+        ladder_jax_vs_golden_db=_parity_db(
+            np.asarray(jsat.fm_modulate(jsp, jnp.asarray(comp), audio=jnp.asarray(sub))), g))
+    # the joined 16 x 480-line stream of phase 4h's soundtrack, at the RF rate
+    tt = np.arange(16 * 480 * 720) / plan.fs
+    track = (0.6 * np.sin(2 * np.pi * 1000 * tt) + 0.3 * np.sin(2 * np.pi * 7000 * tt))
+    steps = np.float32(2 * np.pi * rfp.snd_dev / rfp.fs_rf) * np.repeat(
+        track.astype(np.float32), rfp.r)
+    exact = running_phase(torch.tensor(steps)[None], rfp.n_rf)[0].numpy()
+    row["stream_float32_cumsum_max_rad"] = float(np.abs(
+        np.cumsum(steps, dtype=np.float32) - exact).max())
+    row["stream_jax_cumsum_max_rad"] = float(np.abs(
+        np.asarray(jnp.cumsum(jnp.asarray(steps))) - exact).max())
+    rng = np.random.default_rng(0)
+    dibit = rng.integers(0, 4, 25 * jn.SYMBOLS_PER_FRAME)
+    step = np.asarray([jn._DQPSK_PHASE[k] for k in range(4)], np.float32)[dibit]
+    quarters = np.cumsum(np.asarray([0, 3, 1, 2])[dibit]) % 4
+    drift = np.angle(np.exp(1j * (np.asarray(jnp.cumsum(jnp.asarray(step)), np.float64)
+                                  - quarters * np.pi / 2)))
+    row["nicam_symbol_phase_jax_max_rad"] = float(np.abs(drift).max())
+    print(json.dumps(row))
 
 
 if __name__ == "__main__":

@@ -169,14 +169,23 @@ def test_fractional_shift_matches_jax():
 
 def test_profile_matches_jax(plan):
     jplan = get_plan("ntsc")
-    got = ttb.timebase_profile(plan, L, wobble_us=0.4, flagging_us=0.3)
+    got = ttb.timebase_profile(plan, L, wobble_us=0.4, flagging_us=0.3, device="cpu")
     want = np.asarray(jtb.timebase_profile(jplan, L, wobble_us=0.4, flagging_us=0.3))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="Generator"):
-        ttb.timebase_profile(plan, 16, jitter_us=0.1)
+        ttb.timebase_profile(plan, 16, jitter_us=0.1, device="cpu")
     jit = ttb.timebase_profile(plan, 4096, wobble_us=0.0, jitter_us=0.1,
-                               generator=torch.Generator().manual_seed(3))
+                               generator=torch.Generator().manual_seed(3), device="cpu")
     assert abs(float(jit.std()) / (0.1 * plan.fs * 1e-6) - 1.0) < 0.05
+
+
+def test_profile_defaults_to_the_card(plan):
+    """With no device the profile is made on the card, and without CUDA
+    that raises as the factories do; a device it is given holds."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            ttb.timebase_profile(plan, 16)
+    assert ttb.timebase_profile(plan, 16, device="meta").device.type == "meta"
 
 
 @pytest.fixture(scope="module")

@@ -563,3 +563,164 @@ def test_video_hops_on_the_card(dev, tmp_path):
                                         for i in range(0, 6, chunk)]))
         assert float(np.abs(outs[0] - outs[1]).max()) <= atol
     assert s["noise_keying"] == "abs-frame-torch-cuda"
+
+
+def _sound_chains(dev):
+    """The sound layer's calls at full width (NTSC 16 x 480 x 720, PAL
+    16 x 576 x 720 for A2, MAC 16 x 576 lines), on ``dev``; the inputs are
+    made on the host, so the card and the CPU get the same numbers."""
+    from color_modem_tpu_torch.frame import a2, mts, nicam
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.modem import mac
+
+    def tone(f, amp, n, fs):
+        return torch.tensor((amp * np.sin(2 * np.pi * f * np.arange(n) / fs)).astype(np.float32),
+                            device=dev)
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    comp = make_pipeline(plan, "notch", "kernel", dev)[0](_scene(480, dev), 0)
+    rfp = rf_mod.make_rf_plan(plan)
+    audio = (tone(1000, 0.6, 16 * 480 * 720, plan.fs)
+             + tone(7000, 0.3, 16 * 480 * 720, plan.fs)).reshape(16, 480 * 720)
+    rf = rf_mod.rf_modulate(rfp, comp, 0)
+    cap = nicam.nicam_capacity(rfp, rf.shape)
+    nl, nr = tone(800, 0.5, 32 * cap, 32000.0), tone(2300, 0.5, 32 * cap, 32000.0)
+    with_nicam = nicam.nicam_on_rf(rfp, rf_mod.sound_on_rf(rfp, rf, 0, audio, 0.0), nl, nr)
+    rfp50 = rf_mod.make_rf_plan(plan, audio_bw=50e3)
+    pal = make_plan(ALL_STANDARDS["pal"](), 720).to(dev)
+    pcomp = make_pipeline(pal, "delayline", "kernel", dev)[0](_scene(576, dev), 0)
+    prfp = rf_mod.make_rf_plan(pal)
+    a2p = a2.make_a2_plan(prfp)
+    pl = tone(800, 0.6, 576 * 720, pal.fs).expand(16, -1)
+    pr = tone(2300, 0.5, 576 * 720, pal.fs).expand(16, -1)
+    a2_rf = a2.a2_on_rf(a2p, rf_mod.rf_modulate(prfp, pcomp, 0, 0.5 * (pl + pr)), 0, pr, "stereo")
+    sp = sat_mod.make_sat_plan(plan.fs, 720, audio_subs=2)
+    sub = torch.stack([audio, 0.5 * audio], dim=1)
+    mplan = mac.make_mac_plan(720)
+    g = frame_line_index(plan, 0, 16, 576, dev)
+    mrgb = _scene(576, dev)
+    n_f = mac.sound_capacity(mplan, 16 * 576)
+    ml = tone(440, 0.7, 32 * n_f, 32000.0)
+
+    def mac_sound():
+        payload, _ = mac.pack_sound(mplan, ml, ml, 16 * 576)
+        bits = mac.decode_data(mplan, mac.encode(mplan, mrgb, g, payload.reshape(16, 576, -1)))[1]
+        return mac.unpack_sound(mplan, bits, n_f)[0]
+
+    return {
+        "rf-sound": lambda: rf_mod.sound_from_rf(rfp, rf_mod.sound_on_rf(rfp, rf, 0, audio, 1.5), 0),
+        "rf-sound-per-item": lambda: rf_mod.rf_roundtrip(rfp, comp, 3, audio)[1],
+        "nicam": lambda: nicam.nicam_from_rf(rfp, with_nicam, cap)[0],
+        "mts": lambda: mts.mts_decode(plan, rf_mod.rf_demodulate_sound(
+            rfp50, rf_mod.rf_modulate(rfp50, comp, 0, mts.mts_encode(plan, audio, audio)), 0))[0],
+        "a2": lambda: a2._decode_arrays(a2p, a2_rf, 0)[1],
+        "sat-sound": lambda: sat_mod.fm_demodulate_audio(sp, sat_mod.fm_modulate(sp, comp,
+                                                                                 audio=sub)),
+        "mac-sound": mac_sound,
+    }
+
+
+SOUND = ["rf-sound", "rf-sound-per-item", "nicam", "mts", "a2", "sat-sound", "mac-sound"]
+
+
+@pytest.mark.parametrize("chain", SOUND)
+def test_sound_never_blocks_the_host(dev, chain):
+    """The sound layer enqueues without waiting for the card once its taps,
+    spectra and tables are uploaded (the first call): NICAM's FAW search
+    and the A2 fit stay on the device."""
+    call = _sound_chains(dev)[chain]
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.parametrize("chain", SOUND)
+def test_sound_matches_the_cpu(dev, chain):
+    """Each chain on the card against the same call on the CPU: float32 FFT
+    and scan rounding (the NICAM and MAC audio come back bit for bit)."""
+    atol = {"nicam": 0.0, "mac-sound": 0.0, "a2": 1e-3, "sat-sound": 1e-3}.get(chain, 1e-4)
+    got = _sound_chains(dev)[chain]().cpu()
+    want = _sound_chains(torch.device("cpu"))[chain]()
+    assert float((got - want).abs().max()) <= atol
+
+
+def test_a2_decode_fetches_once(dev):
+    """a2_decode's one stacked fetch is its only host sync, and its modes
+    are the CPU's."""
+    import warnings
+
+    from color_modem_tpu_torch.frame import a2, rf as rf_mod
+
+    pal = make_plan(ALL_STANDARDS["pal"](), 720).to(dev)
+    comp = make_pipeline(pal, "delayline", "kernel", dev)[0](_scene(576, dev)[:2], 0)
+    prfp = rf_mod.make_rf_plan(pal)
+    a2p = a2.make_a2_plan(prfp)
+    t = torch.arange(576 * 720, device=dev) / pal.fs
+    left = (0.6 * torch.sin(2 * np.pi * 800 * t)).expand(2, -1).contiguous()
+    right = (0.5 * torch.sin(2 * np.pi * 2300 * t)).expand(2, -1).contiguous()
+    rf = a2.a2_on_rf(a2p, rf_mod.rf_modulate(prfp, comp, 0, left), 0, right, "dual")
+    a2.a2_decode(a2p, rf, 0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            gl, gr, info = a2.a2_decode(a2p, rf, 0)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [c for c in caught if "synchronizing CUDA" in str(c.message)]
+    assert len(syncs) == 1, [str(c.message) for c in syncs]
+    assert info["mode"] == ["dual", "dual"] == a2.a2_decode(a2p, rf.cpu(), 0)[2]["mode"]
+    assert gl.device.type == "cuda"
+
+
+def test_line_bits_on_the_card_payload(dev):
+    from color_modem_tpu_torch.modem import mac
+
+    mplan = mac.make_mac_plan(720)
+    bits = mac.line_bits(mplan, torch.ones(4, 99, dtype=torch.int32, device=dev), (4,))
+    assert bits.device.type == "cuda" and int(bits[:, -1].sum()) == 4
+    assert mac.line_bits(mplan, None, (4,)).device.type == "cuda"
+
+
+def test_video_rf_audio_on_the_card(dev, tmp_path):
+    """process_video with a soundtrack on the card: one synchronising
+    operation per wave (the stacked fetch, audio included), chunk sizes 2
+    and 3 agree to 1e-4 on the audio, progressive and interlaced."""
+    import glob
+    import warnings
+
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    src = synthetic_device_source(64, 720, seed=2, device=dev)
+    t = np.arange(6 * 64 * 720) / plan.fs
+    aud = (0.5 * np.sin(2 * np.pi * 700 * t) + 0.3 * np.sin(2 * np.pi * 4000 * t)).astype(
+        np.float32)
+    for interlaced in (False, True):
+        outs = []
+        for chunk in (2, 3):
+            d = str(tmp_path / f"{interlaced}_{chunk}")
+            process_video(plan, src, 6, d, decoder="comb3", chunk=chunk, device=dev, rf=True,
+                          rf_audio=aud, interlaced=interlaced)
+            outs.append(np.concatenate([np.load(f) for f in sorted(glob.glob(f"{d}/aud_*.npy"))]))
+        assert outs[0].shape == aud.shape
+        assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-4
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            process_video(plan, src, 6, str(tmp_path / "sync"), decoder="comb3", chunk=2,
+                          device=dev, rf=True, rf_audio=aud)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
+    assert len(syncs) == 1, syncs

@@ -148,3 +148,83 @@ def test_dmac_variant_doubles_the_payload_with_the_same_picture(img, gline):
     payload = np.asarray(jax.random.bernoulli(jax.random.PRNGKey(1), 0.5, (L, 204)), np.int32)
     ok, bits = tmac.decode_data(dm, tmac.encode(dm, x, g, torch.tensor(payload)))
     assert bool(ok.all()) and np.array_equal(bits.numpy(), payload)
+
+
+# --- packet sound, and the burst bits' device -----------------------------------
+
+
+def _stereo(n, seed=None):
+    if seed is None:
+        t = np.arange(n) / 32000.0
+        return ((0.7 * np.sin(2 * np.pi * 440 * t)).astype(np.float32),
+                (0.5 * np.sin(2 * np.pi * 997 * t)).astype(np.float32))
+    rng = np.random.default_rng(seed)
+    return tuple((0.5 * rng.standard_normal(n)).clip(-1, 1).astype(np.float32)
+                 for _ in range(2))
+
+
+def _snr_db(got, want):
+    return -10.0 * np.log10(float(np.mean((np.asarray(got) - want) ** 2)) + 1e-12)
+
+
+def test_packet_sound_matches_jax_bit_for_bit():
+    """pack_sound's payload and unpack_sound's audio and report equal the
+    JAX package's; the clean burst carries the audio at the NICAM
+    companding floor (>= 55 dB, tests/test_mac.py)."""
+    tp, jp = tmac.make_mac_plan(W), jmac.make_mac_plan(W)
+    n_lines = 576
+    cap = tmac.sound_capacity(tp, n_lines)
+    assert cap == jmac.sound_capacity(jp, n_lines) and cap >= 78
+    left, right = _stereo(cap * 32)
+    payload, n_f = tmac.pack_sound(tp, torch.tensor(left), torch.tensor(right), n_lines)
+    j_payload, j_nf = jmac.pack_sound(jp, jnp.asarray(left), jnp.asarray(right), n_lines)
+    assert n_f == j_nf == cap and payload.shape == (n_lines, _cap(tp))
+    assert torch.equal(payload, torch.tensor(np.asarray(j_payload)))
+    img = torch.tensor(smooth_scene(n_lines, W, seed=2).astype(np.float32))
+    ok, bits = tmac.decode_data(tp, tmac.encode(tp, img, torch.arange(n_lines), payload))
+    assert bool(ok.all()) and torch.equal(bits, payload)
+    gl, gr, rep = tmac.unpack_sound(tp, bits, n_f)
+    jl, jr, jrep = jmac.unpack_sound(jp, jnp.asarray(bits.numpy()), n_f)
+    assert torch.equal(gl, torch.tensor(np.asarray(jl)))
+    assert torch.equal(gr, torch.tensor(np.asarray(jr)))
+    assert int(rep["parity_errors"].sum()) == 0
+    assert _snr_db(gl, left) >= 55.0 and _snr_db(gr, right) >= 55.0
+    with pytest.raises(ValueError, match="NICAM frames need"):
+        tmac.pack_sound(tp, torch.tensor(left), torch.tensor(right), n_lines // 2)
+
+
+def test_packet_sound_survives_satellite():
+    """Picture and packet sound through the FM satellite hop at CNR 20 with
+    energy dispersal: zero parity errors, audio >= 50 dB."""
+    from color_modem_tpu_torch.frame import satellite as tsat
+
+    tp = tmac.make_mac_plan(W)
+    n_lines = 64
+    left, right = _stereo(tmac.sound_capacity(tp, n_lines) * 32, seed=3)
+    payload, n_f = tmac.pack_sound(tp, torch.tensor(left), torch.tensor(right), n_lines)
+    g = torch.arange(n_lines)
+    img = torch.tensor(smooth_scene(n_lines, W, seed=4).astype(np.float32))
+    sig = tmac.encode(tp, img, g, payload)
+    sp = tsat.make_sat_plan(tp.cfg.fs, tp.cfg.samples_per_line, dispersal=0.1)
+    rx = tsat.sat_roundtrip(sp, sig[None], gline=g[None],
+                            generator=torch.Generator().manual_seed(9), cnr_db=20.0)[0]
+    ok, bits = tmac.decode_data(tp, rx)
+    assert bool(ok.all())
+    gl, _, rep = tmac.unpack_sound(tp, bits, n_f)
+    assert int(rep["parity_errors"].sum()) == 0 and _snr_db(gl, left) >= 50.0
+
+
+def test_line_bits_follow_the_payload():
+    """line_bits puts the bits where the payload lies (a meta-device payload
+    stays there), and with neither a payload nor a device defaults to the
+    card, which raises without CUDA as the factories do."""
+    tp = tmac.make_mac_plan(W)
+    meta = torch.zeros(3, 4, 10, dtype=torch.int32, device="meta")
+    out = tmac.line_bits(tp, meta, (3, 4))
+    assert out.device.type == "meta" and out.shape == (3, 4, tp.cfg.data_symbols)
+    cpu = tmac.line_bits(tp, torch.ones(4, 10, dtype=torch.int32), (4,))
+    assert cpu.device.type == "cpu" and int(cpu[:, -1].sum()) == 0
+    assert tmac.line_bits(tp, None, (4,), "cpu").device.type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            tmac.line_bits(tp, None, (4,))

@@ -223,6 +223,33 @@ def test_port_never_imports_jax():
                                     channel={"ghost_delay_us": 2.0, "ghost_gain": 0.2,
                                              "equalize": True})
         assert s["min_psnr_db"] > 30.0
+        # the sound layer: every module runs
+        from color_modem_tpu_torch.frame import a2, mts, nicam
+        from color_modem_tpu_torch.utils import wav
+        p = make_plan(NTSC(), 720)
+        rfp = rf.make_rf_plan(p)
+        t = np.arange(16 * 720) / p.fs
+        tone = torch.tensor(0.5 * np.sin(2 * np.pi * 1000 * t), dtype=torch.float32)[None]
+        snd = rf.sound_from_rf(rfp, rf.sound_on_rf(rfp, rf.rf_modulate(rfp, comp, 0), 0, tone), 0)
+        assert psnr(snd[:, 4000:-4000], tone[:, 4000:-4000]) > 40.0
+        l2, r2, pilot = mts.mts_decode(p, mts.mts_encode(p, tone, tone))
+        assert abs(float(pilot[0]) - mts.PILOT_AMP) < 0.02
+        left = torch.tensor(0.5 * np.sin(np.arange(64) * 0.3), dtype=torch.float32)
+        assert int(nicam.parse_frames(nicam.nicam_frames(left, left))[2]["parity_errors"].sum()) == 0
+        a2p = a2.make_a2_plan(rfp)
+        assert a2.a2_decode(a2p, rf.rf_modulate(rfp, comp, 0, tone), 0)[2]["mode"] == ["mono"]
+        sps = satellite.make_sat_plan(13.5e6, 720, audio_subs=1)
+        aud = satellite.fm_demodulate_audio(sps, satellite.fm_modulate(
+            sps, comp, audio=torch.zeros(1, 1, 16 * 720)))
+        assert aud.shape == (1, 1, 16 * 720)
+        payload, n_f = mac.pack_sound(mp, left, left, 16)
+        assert mac.unpack_sound(mp, payload, n_f)[0].shape == left.shape
+        assert wav.resample_linear(np.zeros(10, np.float32), 1.0, 2.0).shape == (20,)
+        with tempfile.TemporaryDirectory() as d:
+            s = video.process_video(p, video.synthetic_source(16, 720), 2, d, chunk=2,
+                                    device="cpu", rf=True,
+                                    rf_audio=np.zeros(2 * 16 * 720, np.float32))
+        assert s["rf_audio"] is True
         import importlib, pkgutil
         import color_modem_tpu_torch as port
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):

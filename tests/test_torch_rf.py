@@ -273,15 +273,3 @@ def test_cochannel_precision_offset_cancels_temporally():
         return float(torch.mean((out.mean(dim=0) - clean_avg)[2:-2] ** 2))
 
     assert 10 * np.log10(residual((0, 1)) / residual((1, 2))) > 6.0
-
-
-def test_sound_waits_for_the_sound_item(ntsc):
-    _, _, _, comp, rfp, rf = ntsc
-    audio = torch.zeros(2, comp.shape[1] * comp.shape[2])
-    for call in (lambda: trf.rf_modulate(rfp, comp, 0, audio=audio),
-                 lambda: trf.rf_roundtrip(rfp, comp, 0, audio=audio),
-                 lambda: trf.rf_demodulate_sound(rfp, rf),
-                 lambda: trf.sound_on_rf(rfp, rf, 0, audio),
-                 lambda: trf.sound_from_rf(rfp, rf)):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            call()

@@ -8,7 +8,10 @@ golden and JAX (the port keeps the phase integral in float64, the JAX
 package in float32, so the modulated signal cannot match bit for bit),
 ``fm_demodulate`` > 95 dB;
 MAC transparency >= 54 dB with the picture within 1.2 dB of the direct
-path; the FM improvement >= 10 dB above the CNR.  The port's noise comes
+path; the FM improvement >= 10 dB above the CNR; the audio subcarrier
+ladder > 60 dB (modulate) and > 100 dB (demodulate) against golden
+``golden/sound.py`` and JAX, and its SNRs at tests/test_satellite.py's
+bounds.  The port's noise comes
 from ``torch.Generator``, so noisy runs are held by their statistics and
 effect, not bitwise.
 """
@@ -190,11 +193,106 @@ def test_noise_sigma_and_awgn_statistics():
     assert torch.equal(n, again)
 
 
-def test_audio_waits_for_the_sound_item(comp):
-    sp = tsat.make_sat_plan(27e6, 1440, audio_subs=1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsat.fm_modulate(sp, torch.zeros(1, 8, 1440), audio=torch.zeros(1, 1, 8 * 1440))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsat.fm_demodulate_audio(sp, torch.zeros(1, 8, 5760))
+def test_rows_must_match_the_plan():
     with pytest.raises(ValueError, match="plan expects"):
         tsat.fm_modulate(tsat.make_sat_plan(13.5e6, 720), torch.zeros(1, 8, 700))
+
+
+# --- the analog audio subcarriers -------------------------------------------------
+
+
+def _bin_tone(f, amp, n_tot, fs):
+    """A tone of a whole number of cycles over the frame stream (one period
+    of the satellite layer's circular model)."""
+    k = max(1, round(f * n_tot / fs))
+    t = np.arange(n_tot) / fs
+    return (amp * np.sin(2 * np.pi * (k * fs / n_tot) * t)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def sub_link():
+    fs = 13.5e6
+    sp = tsat.make_sat_plan(fs, W, audio_subs=2)
+    base = torch.tensor(smooth_scene(L, W, seed=4).astype(np.float32)[0])[None]
+    n_tot = L * W
+    a = np.stack([_bin_tone(1000, 0.6, n_tot, fs) + _bin_tone(7000, 0.3, n_tot, fs),
+                  _bin_tone(3000, 0.5, n_tot, fs)])
+    rf = tsat.fm_modulate(sp, base, audio=torch.tensor(a)[None])
+    return sp, base, a, rf
+
+
+def _audio_snr(ref, out):
+    ref = ref - ref.mean()  # the receiver is AC-coupled
+    err = np.asarray(out) - ref
+    return 10 * np.log10(np.mean(ref ** 2) / np.mean(err ** 2))
+
+
+def test_audio_ladder_matches_golden_and_jax(comp):
+    """fm_modulate(audio=) > 60 dB and fm_demodulate_audio > 100 dB against
+    golden/sound.py (tests/test_golden_sound.py), and the same against JAX;
+    the subcarrier tables equal the JAX package's."""
+    from color_modem_tpu.golden import sound as gs
+
+    sp, jp = tsat.make_sat_plan(13.5e6, 720, audio_subs=1), jsat.make_sat_plan(
+        13.5e6, 720, audio_subs=1)
+    n_tot = 16 * 720
+    tt = np.arange(n_tot, dtype=np.float64)
+    audio = (0.7 * np.sin(2.0 * np.pi * 9 * tt / n_tot))[None, None, :]
+    audio = np.broadcast_to(audio, (2, 1, n_tot)).astype(np.float32)
+    k = tsat._sub_cycles(sp, sp.sub_freqs[0], n_tot)
+    for got, want in zip(tsat._sub_trig(k, n_tot, torch.device("cpu")),
+                         jsat._sub_trig(k, n_tot)):
+        assert np.array_equal(got.numpy(), want)
+    t_fm = tsat.fm_modulate(sp, torch.tensor(comp), audio=torch.tensor(audio))
+    g_fm = gs.sat_fm_modulate_audio(jp, comp, audio)
+    assert _parity_db(t_fm, g_fm) > 60.0
+    assert _parity_db(t_fm, jsat.fm_modulate(jp, jnp.asarray(comp),
+                                             audio=jnp.asarray(audio))) > 60.0
+    g32 = g_fm.astype(np.float32)
+    t_a = tsat.fm_demodulate_audio(sp, torch.tensor(g32))
+    assert t_a.shape == (2, 1, n_tot)
+    assert _parity_db(t_a, gs.sat_fm_demodulate_audio(jp, g32)) > 100.0
+    assert _parity_db(t_a, jsat.fm_demodulate_audio(jp, jnp.asarray(g32))) > 100.0
+
+
+def test_audio_subcarriers_clean(sub_link):
+    """Noise-free: >= 58/55 dB audio, the video >= 57 dB through the
+    multiplex low-pass (tests/test_satellite.py)."""
+    sp, base, a, rf = sub_link
+    assert psnr(tsat.fm_demodulate(sp, rf), base) >= 57.0
+    aud = tsat.fm_demodulate_audio(sp, rf)
+    s0, s1 = _audio_snr(a[0], aud[0, 0]), _audio_snr(a[1], aud[0, 1])
+    assert s0 >= 58.0 and s1 >= 55.0, (s0, s1)
+
+
+def test_audio_subcarriers_under_noise(sub_link):
+    """CNR 14 dB: audio >= 46/43 dB, the higher subcarrier the noisier (the
+    discriminator's triangular noise spectrum), the video >= 28 dB."""
+    sp, base, a, rf = sub_link
+    rfn = tsat.awgn(sp, rf, torch.Generator().manual_seed(7), 14.0)
+    aud = tsat.fm_demodulate_audio(sp, rfn)
+    s0, s1 = _audio_snr(a[0], aud[0, 0]), _audio_snr(a[1], aud[0, 1])
+    assert s0 >= 46.0 and s1 >= 43.0 and s0 > s1, (s0, s1)
+    assert psnr(tsat.fm_demodulate(sp, rfn), base) >= 28.0
+
+
+def test_audio_emphasis_pair_flat(sub_link):
+    """50 us pre-emphasis times (de-emphasis * audio LPF) is flat to 2 %
+    through the audio band."""
+    from color_modem_tpu.dsp.design import freqz
+
+    sp = sub_link[0]
+    f = np.linspace(100.0, 12e3, 40)
+    prod = np.abs(freqz(sp.aud_pre, sp.base_fs, f)) * np.abs(freqz(sp.aud_rx, sp.base_fs, f))
+    assert np.max(np.abs(prod - 1.0)) < 0.02
+
+
+def test_audio_needs_designed_subcarriers():
+    sp0 = tsat.make_sat_plan(13.5e6, 720)
+    with pytest.raises(ValueError, match="no audio subcarriers"):
+        tsat.fm_modulate(sp0, torch.zeros(1, 8, 720), audio=torch.zeros(1, 1, 8 * 720))
+    with pytest.raises(ValueError, match="no audio subcarriers"):
+        tsat.fm_demodulate_audio(sp0, torch.zeros(1, 8, 2880))
+    sp = tsat.make_sat_plan(13.5e6, 720, audio_subs=2)
+    with pytest.raises(ValueError, match="audio shape"):
+        tsat.fm_modulate(sp, torch.zeros(1, 8, 720), audio=torch.zeros(1, 1, 8 * 720))

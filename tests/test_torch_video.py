@@ -202,8 +202,6 @@ def test_chunk_independent(case, tmp_path):
 
 @pytest.mark.parametrize("option,value,item", [
     ("mesh", object(), "item 10"),
-    ("rf_audio", np.zeros(4, np.float32), "item 8"),
-    ("rf_audio_bw", 50e3, "item 8"),
     ("caption_bits", np.zeros((2, 16), np.int32), "item 9"),
     ("scramble", ("linecut", 7), "item 9"),
 ])
@@ -334,3 +332,90 @@ def test_manifest_layout_and_hash_match_jax(tmp_path):
     assert j.data == m.data and j.summary() == m.summary()
     j.check_config({"standard": "ntsc"})  # a falsy "nr" counts as absent
     assert not [f for f in os.listdir(tmp_path) if f.endswith(".tmp")]
+
+
+# --- a soundtrack on the RF hop's FM sound carrier --------------------------------
+
+
+def _soundtrack(n, lines=L):
+    t = np.arange(n * lines * N) / get_plan("ntsc").fs
+    return (0.5 * np.sin(2 * np.pi * 700 * t) + 0.3 * np.sin(2 * np.pi * 4000 * t)).astype(
+        np.float32)
+
+
+def _audio_files(d):
+    import glob
+
+    return np.concatenate([np.load(p) for p in sorted(glob.glob(os.path.join(d, "aud_*.npy")))])
+
+
+def _audio_snr(got, want, crop=8192):
+    e = got[crop:-crop] - want[crop:-crop]
+    return 10 * np.log10(np.mean(want[crop:-crop] ** 2) / np.mean(e ** 2))
+
+
+@pytest.mark.parametrize("interlaced,n,chunks", [(False, 5, (2, 3)), (True, 4, (2, 4))],
+                         ids=["progressive", "interlaced"])
+def test_rf_audio_is_chunk_independent(interlaced, n, chunks, tmp_path):
+    """The sound carrier's deviation phase continues across frames (joined
+    streams) and chunks (the float64 prefix), so the audio keeps the
+    single-shot quality (>= 55 dB, tests/test_video.py) and does not
+    depend on the chunk size (1e-4)."""
+    aud = _soundtrack(n)
+    outs = {}
+    for chunk in chunks:
+        d = str(tmp_path / f"s{chunk}")
+        s = process_video(tplan(), synthetic_source(L, N), n, d, decoder="notch",
+                          chunk=chunk, rf=True, rf_audio=aud, interlaced=interlaced,
+                          device="cpu")
+        assert s["frames_processed_this_run"] == n and s["rf_audio"] is True
+        got = _audio_files(d)
+        assert got.shape == aud.shape and _audio_snr(got, aud) >= 55.0
+        outs[chunk] = got
+    np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], atol=1e-4, rtol=0)
+
+
+def test_rf_audio_matches_jax(tmp_path):
+    """The same soundtrack through the JAX runner: PSNR to 0.02 dB, frames
+    to 1e-4 (the RF hop's bound), audio files to 1e-4, the manifest
+    configs alike."""
+    aud = _soundtrack(4)
+    kw = dict(decoder="comb3", chunk=2, save_outputs=True, rf=True, rf_audio=aud)
+    s_j = jvideo.process_video(get_plan("ntsc"), synthetic_source(L, N), 4,
+                               str(tmp_path / "j"), **kw)
+    s = process_video(tplan(), synthetic_source(L, N), 4, str(tmp_path / "t"),
+                      device="cpu", **kw)
+    assert abs(s["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.02, (s, s_j)
+    np.testing.assert_allclose(saved(str(tmp_path / "t"), 4, 2),
+                               saved(str(tmp_path / "j"), 4, 2), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_audio_files(str(tmp_path / "t")),
+                               _audio_files(str(tmp_path / "j")), rtol=0, atol=1e-4)
+    configs = []
+    for d in ("t", "j"):
+        with open(os.path.join(str(tmp_path / d), "manifest.json")) as f:
+            configs.append(json.load(f)["config"])
+    for key in ("rf", "rf_audio", "rf_audio_bw"):
+        assert configs[0].get(key) == configs[1].get(key), key
+
+
+def test_rf_audio_options_refuse(tmp_path):
+    """rf_audio needs the RF hop; a resume without the soundtrack, or with
+    another sound bandwidth, refuses to mix chunks; a track that is not a
+    whole number of per-frame blocks raises."""
+    aud = _soundtrack(2)
+    with pytest.raises(ValueError, match="rf=True"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"), chunk=2,
+                      rf_audio=aud, device="cpu")
+    d = str(tmp_path / "s")
+    process_video(tplan(), synthetic_source(L, N), 2, d, chunk=2, rf=True, rf_audio=aud,
+                  device="cpu")
+    for kw in ({}, {"rf_audio": aud, "rf_audio_bw": 50e3}):
+        with pytest.raises(ValueError, match="refusing to resume"):
+            process_video(tplan(), synthetic_source(L, N), 2, d, chunk=2, rf=True,
+                          device="cpu", **kw)
+    with pytest.raises(ValueError, match="per-frame blocks"):
+        process_video(tplan(), synthetic_source(L, N), 3, str(tmp_path / "y"), chunk=2,
+                      rf=True, rf_audio=aud[:-1], device="cpu")
+    s = process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "w"), chunk=2,
+                      rf=True, rf_audio=aud, rf_audio_bw=50e3, device="cpu")
+    assert s["rf_audio_bw"] == 50e3
