@@ -113,6 +113,19 @@ def fir_same(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     return matmul_f32(x, mat)
 
 
+@lru_cache(maxsize=64)
+def _toeplitz_on(taps_bytes: bytes, n: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(toeplitz_same(np.frombuffer(taps_bytes, np.float64), n), device=device)
+
+
+def fir_same_taps(x: torch.Tensor, taps) -> torch.Tensor:
+    """:func:`fir_same` for host ``taps``: the taps' (N, N) Toeplitz matrix
+    is built and uploaded once per (taps, width, device), and shared by
+    every caller, who must not write to it."""
+    taps = np.asarray(taps, np.float64).tobytes()
+    return fir_same(x, _toeplitz_on(taps, x.shape[-1], x.device))
+
+
 def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     """Held-edge 'same' convolution, ``mat`` from :func:`toeplitz_same_held`.
 

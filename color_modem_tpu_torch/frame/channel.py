@@ -20,13 +20,11 @@ the plain Toeplitz FIR; each matrix is built and uploaded once per
 
 from __future__ import annotations
 
-from functools import lru_cache
-
 import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp import design
-from color_modem_tpu_torch.dsp.apply import fir_same, toeplitz_same
+from color_modem_tpu_torch.dsp.apply import fir_same_taps as _fir
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.modem.plan import SECAM_TAKEOFF_HALFWIDTH, FmPlan, QamPlan
 
@@ -34,18 +32,6 @@ from color_modem_tpu_torch.modem.plan import SECAM_TAKEOFF_HALFWIDTH, FmPlan, Qa
 BAND_NTAPS, VHS_CHROMA_NTAPS, LUMA_EST_NTAPS = 129, 193, 63
 #: the luma estimate of the differential errors is smoothed to this cutoff
 LUMA_EST_CUTOFF = 0.5e6
-
-
-@lru_cache(maxsize=32)
-def _toeplitz_on(taps_bytes: bytes, n: int, device: torch.device) -> torch.Tensor:
-    """The taps' (N, N) Toeplitz matrix, uploaded once per (taps, width, device)."""
-    return torch.tensor(toeplitz_same(np.frombuffer(taps_bytes, np.float64), n), device=device)
-
-
-def _fir(x: torch.Tensor, taps: np.ndarray) -> torch.Tensor:
-    """'same' FIR of the last axis (zero edges) through the Toeplitz matrix."""
-    taps = np.asarray(taps, np.float64).tobytes()
-    return fir_same(x, _toeplitz_on(taps, x.shape[-1], x.device))
 
 
 def _chroma_band_edges(plan: QamPlan | FmPlan) -> tuple[float, float]:

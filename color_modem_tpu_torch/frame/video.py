@@ -20,6 +20,17 @@ composite channel (``frame/channel.py``) and the GCR equalizer
 comes back in the wave's one stacked fetch and goes to ``aud_<start>.npy``
 per chunk.
 
+Two data services ride the transmission: ``caption_bits`` puts one
+EIA-608-style caption cell (``frame/vbi.py``) on row 0 of each frame, or of
+each frame's first field when interlaced, keyed by the absolute frame
+index; the receiver slices the cells off the received row 0, and they come
+back in the same fetch, to ``cc_<start>.npy`` (the frame PSNR then leaves
+row 0 out).  ``scramble=(mode, key)`` scrambles the finished composite
+(``frame/scramble.py``) after the data services and before the hop, keyed
+by the absolute line index of each transmitted row (field-sequential when
+interlaced); the receiver descrambles it before the decoder and the data
+slicer, so the hop and the channel act on the scrambled signal.
+
 Noise is keyed on the absolute leading-axis index (frames, or fields when
 interlaced): each index draws from its own ``torch.Generator``, so chunk
 size and resume points cannot change the realisation.  Three seed
@@ -52,11 +63,22 @@ from color_modem_tpu_torch.frame.equalize import (
     gcr_record,
     ntaps_for_delay,
 )
-from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
+from color_modem_tpu_torch.dsp.nco import frame_indices
+from color_modem_tpu_torch.frame.interlace import field_line_index, make_interlaced_pipeline
 from color_modem_tpu_torch.frame.nr import temporal_nr
-from color_modem_tpu_torch.frame.pipeline import Plan, make_pipeline, resolve_device
+from color_modem_tpu_torch.frame.pipeline import (
+    Plan,
+    frame_line_index,
+    make_pipeline,
+    resolve_device,
+)
+from color_modem_tpu_torch.frame.scramble import MODES as SCRAMBLE_MODES
+from color_modem_tpu_torch.frame.scramble import descramble as descramble_block
+from color_modem_tpu_torch.frame.scramble import scramble as scramble_block
+from color_modem_tpu_torch.frame.vbi import cc_spec, decode_data_line, encode_data_line
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
+from color_modem_tpu_torch.utils.upload import upload
 
 #: (start, count) -> (count, 3, L, N) frames, a NumPy array or a tensor
 FrameSource = Callable[[int, int], object]
@@ -135,19 +157,13 @@ def synthetic_device_source(lines: int, samples: int, seed: int = 0,
     return src
 
 
-def _refuse_unported(mesh, caption_bits, scramble) -> None:
-    """The JAX runner's options whose modules the port lacks yet, each with
-    the ROADMAP queue 1 item that ports it."""
-    asked = {
-        "mesh": (mesh is not None, "10 (parallel layer)"),
-        "caption_bits": (caption_bits is not None, "9 (data services)"),
-        "scramble": (scramble is not None, "9 (data services)"),
-    }
-    for name, (on, item) in asked.items():
-        if on:
-            raise NotImplementedError(
-                f"process_video {name} is not ported yet: ROADMAP queue 1 item {item}"
-            )
+def _refuse_unported(mesh) -> None:
+    """The JAX runner's option whose module the port lacks yet, with the
+    ROADMAP queue 1 item that ports it."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "process_video mesh is not ported yet: ROADMAP queue 1 item 10 (parallel layer)"
+        )
 
 
 def _sound_track(rf_audio, n_frames: int, snd_dev: float, fs: float):
@@ -221,11 +237,16 @@ def process_video(
     a short tail chunk is padded with repeats of its last frame (with
     silence on the sound carrier); PSNR and fingerprint cover only the
     chunk's own frames, and a soundtrack takes one frame of overlap per
-    side, which hides the sound filters' warm-up at chunk edges.  ``mesh``,
-    ``caption_bits`` and ``scramble`` raise ``NotImplementedError``: their
-    modules are not ported yet.
+    side, which hides the sound filters' warm-up at chunk edges.
+    ``caption_bits``: an (n_frames, 16) 0/1 array, frame i's caption cell
+    (``cc_pack``); ``scramble``: ``(mode, key)``, one of ``cutrotate``,
+    ``linedelay`` and ``shuffle`` (which needs the transmitted line count
+    divisible by 32), refused together with ``channel={"equalize": True}``
+    (the equalizer needs the stream continuity the scrambler destroys).
+    ``mesh`` raises ``NotImplementedError``: the parallel layer is not
+    ported yet.
     """
-    _refuse_unported(mesh, caption_bits, scramble)
+    _refuse_unported(mesh)
     want_sound = rf_audio is not None
     if want_sound and not rf:
         raise ValueError("rf_audio rides the RF sound carrier — pass rf=True")
@@ -234,6 +255,13 @@ def process_video(
             "satellite (FM) and rf (VSB-AM) are different transmission "
             "layers; pick one"
         )
+    if scramble is not None:
+        if scramble[0] not in SCRAMBLE_MODES:
+            raise ValueError(f"scramble mode must be one of {SCRAMBLE_MODES}, "
+                             f"got {scramble[0]!r}")
+        if channel and channel.get("equalize"):
+            raise ValueError("scramble breaks the stream continuity the GCR equalizer "
+                             "needs; descramble before equalizing instead")
     device = resolve_device(device)
     os.makedirs(out_dir, exist_ok=True)
     manifest = ChunkManifest(out_dir) if resume else None
@@ -255,10 +283,12 @@ def process_video(
         # another gate threshold would mix denoise levels
         **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
         **({"noise_keying": noise_keying(device)} if noisy else {}),
+        **({"scramble": scramble[0], "scramble_key": scramble[1]} if scramble else {}),
         **({"rf": True} if rf else {}),
         **({"rf_audio": True} if want_sound else {}),
         **({"rf_audio_bw": rf_audio_bw} if rf_audio_bw != 15e3 else {}),
         **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
+        **({"caption": True} if caption_bits is not None else {}),
         "mesh": None,
     }
     if manifest:
@@ -269,6 +299,33 @@ def process_video(
 
     # interlaced encode puts fields (2 per frame) on the leading axis
     units = 2 if interlaced else 1
+
+    def _lines(comp: torch.Tensor, frame0: int) -> torch.Tensor:
+        """The transmitted blocks' absolute line indices (field-sequential
+        when interlaced): the keying of the scrambler."""
+        if interlaced:
+            return field_line_index(plan, frame0, comp.shape[0] // 2, comp.shape[-2], device)
+        return frame_line_index(plan, frame0, comp.shape[0], comp.shape[-2], device)
+
+    cap_spec = None
+    if caption_bits is not None:
+        cap_spec = cc_spec(plan)
+        cap_bits = upload(caption_bits, device, np.int64)
+
+    def transmit(rgb: torch.Tensor, frame0: int) -> torch.Tensor:
+        """Encode, then the caption cell on row 0 of each frame (of each
+        frame's first field when interlaced: the field-sequential blocks put
+        it on every other block), keyed by the absolute frame index, then
+        the scrambler over the finished composite."""
+        comp = enc_f(rgb, frame0)
+        if cap_spec is not None:
+            idx = torch.clamp(frame_indices(frame0, comp.shape[0] // units, device), 0,
+                              cap_bits.shape[0] - 1).to(torch.int64)
+            comp[::units, 0, :] = encode_data_line(plan, cap_spec, cap_bits[idx])
+        if scramble is not None:
+            comp = scramble_block(plan, comp, _lines(comp, frame0), *scramble)
+        return comp
+
     hop = None
     if rf:
         rfp = rf_mod.make_rf_plan(plan, audio_bw=rf_audio_bw)
@@ -330,11 +387,14 @@ def process_video(
             return comp
 
     lib_roundtrip = roundtrip
+    direct = hop is None and _channel is None and cap_spec is None and scramble is None
 
-    def roundtrip(rgb, frame0, aud=None, phi0=0.0):  # noqa: F811 — the hop and channel
-        if hop is None and _channel is None:
-            return lib_roundtrip(rgb, frame0), None
-        comp = enc_f(rgb, frame0)
+    def roundtrip(rgb, frame0, aud=None, phi0=0.0):  # noqa: F811 — services, hop, channel
+        """(decoded frames, the received composite as the receiver's data
+        slicer sees it (descrambled), the received audio)."""
+        if direct:
+            return lib_roundtrip(rgb, frame0), None, None
+        comp = transmit(rgb, frame0)
         aud_rx = None
         if hop is not None:
             # the transmission hop first; the composite impairments model the
@@ -342,7 +402,11 @@ def process_video(
             comp, aud_rx = hop(comp, frame0, aud, phi0)
         if _channel is not None:
             comp = _channel(comp, frame0)
-        return dec_f(comp, frame0), aud_rx
+        if scramble is not None:
+            # the subscriber's keyed descrambler, before the decoder and the
+            # data slicer (the services descramble bit-exactly)
+            comp = descramble_block(plan, comp, _lines(comp, frame0), *scramble)
+        return dec_f(comp, frame0), comp, aud_rx
 
     if nr and nr_sigma is None and chan_noise_sigma > 0.0:
         nr_sigma = chan_noise_sigma
@@ -367,20 +431,18 @@ def process_video(
 
         def _chunk_sound(lo: int, b: int) -> tuple:
             """The soundtrack of frames lo .. lo + b on the device (silence
-            past the end), staged through pinned memory so the copy does not
-            block the host, and the deviation phase before frame lo."""
+            past the end), copied to the card without synchronising it, and the
+            deviation phase before frame lo."""
             idx = np.arange(lo, lo + b)
             blk = aud_frames[np.clip(idx, 0, n_frames - 1)]
             blk[idx >= n_frames] = 0.0
-            host = torch.from_numpy(blk)
-            if device.type == "cuda":
-                host = host.pin_memory()
-            return host.to(device, non_blocking=True), float(phi0_all[lo])
+            return upload(blk, device), float(phi0_all[lo])
 
     def _input(x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
             return x.to(device=device, dtype=torch.float32)
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(device)
+        # a copy of its own: the source may hand out read-only or shared memory
+        return upload(x, device, np.float32)
 
     def _pad_frames(rgb: torch.Tensor) -> torch.Tensor:
         b = rgb.shape[0]
@@ -392,19 +454,28 @@ def process_video(
     def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int, aud=None, phi0=0.0):
         """Round trip (+ NR), then PSNR and fingerprint over the chunk's own
         frames, on the device: no host sync.  Returns the frames, the
-        metrics and the received audio (an empty tensor without sound)."""
-        out, aud_rx = roundtrip(rgb, frame0, aud, phi0)
+        metrics, the received audio (an empty tensor without sound) and the
+        decoded caption bits (None without captions)."""
+        out, comp, aud_rx = roundtrip(rgb, frame0, aud, phi0)
         if nr:
             out = temporal_nr(out, nr_sigma)
         e = torch.arange(out.shape[0], device=device)
         mask = ((e >= off) & (e < off + n_real)).to(torch.float32)
-        err = ((out - rgb) ** 2).mean(dim=(1, 2, 3))
+        cc, pic, ref = None, out, rgb
+        if cap_spec is not None:
+            # row 0 carries data, not picture; its cells come off the received
+            # row 0 of every frame (of each frame's first field)
+            cc, _ = decode_data_line(plan, cap_spec, comp[::units, 0, :])
+            pic, ref = out[:, :, 1:, :], rgb[:, :, 1:, :]
+        err = ((pic - ref) ** 2).mean(dim=(1, 2, 3))
         mse = (err * mask).sum() / float(max(n_real, 1))
         q = 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-20))
-        metrics = torch.cat([q.reshape(1), fingerprint(out * mask[:, None, None, None])])
+        metrics = torch.cat([q.reshape(1), fingerprint(pic * mask[:, None, None, None])])
         if aud_rx is None:
             aud_rx = metrics.new_zeros(0)
-        return out, metrics, aud_rx.reshape(-1)
+        if cc is not None:
+            cc = cc.to(torch.float32).reshape(-1)
+        return out, metrics, aud_rx.reshape(-1), cc
 
     t_start = time.perf_counter()
     pixels = 0
@@ -412,14 +483,17 @@ def process_video(
     psnrs = []
 
     def _resolve(pending) -> None:
-        """One stacked device->host fetch of the wave's metrics and received
-        audio, then the saved frames, the audio files and the manifest."""
+        """One stacked device->host fetch of the wave's metrics, received
+        audio and caption bits, then the saved frames, the audio and caption
+        files and the manifest."""
         nonlocal frames_done
         metrics = torch.stack([p[4] for p in pending])
-        flat = torch.cat([metrics.reshape(-1)] + [p[5] for p in pending]).cpu().numpy()
+        flat = torch.cat([metrics.reshape(-1)] + [p[5] for p in pending]
+                         + [p[6] for p in pending if p[6] is not None]).cpu().numpy()
         vals = flat[: metrics.numel()].reshape(metrics.shape)
         aud_at = metrics.numel()
-        for (start, end, off, out, _, aud_rx), v in zip(pending, vals):
+        cc_at = aud_at + sum(p[5].numel() for p in pending)
+        for (start, end, off, out, _, aud_rx, cc), v in zip(pending, vals):
             q = float(v[0])
             psnrs.append(q)
             frames_done += end - start
@@ -431,6 +505,11 @@ def process_video(
                 np.save(os.path.join(out_dir, f"aud_{start:06d}.npy"),
                         flat[a0 : a0 + (end - start) * aud_item])
                 aud_at += aud_rx.numel()
+            if cap_spec is not None:
+                cells = flat[cc_at : cc_at + cc.numel()].reshape(-1, cap_spec.n_bits)
+                np.save(os.path.join(out_dir, f"cc_{start:06d}.npy"),
+                        cells[off : off + (end - start)].astype(np.int32))
+                cc_at += cc.numel()
             if manifest:
                 manifest.mark_done(start, end, fp=fingerprint_hex(v[1:]), psnr=round(q, 2))
 
@@ -445,9 +524,9 @@ def process_video(
         rgb = _pad_frames(_input(source(lo, hi - lo)))
         pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
         sound = _chunk_sound(lo, rgb.shape[0]) if want_sound else ()
-        out, metrics, aud_rx = step(rgb, lo, start - lo, end - start, *sound)
+        out, metrics, aud_rx, cc = step(rgb, lo, start - lo, end - start, *sound)
         pending.append((start, end, start - lo, out if save_outputs else None, metrics,
-                        aud_rx))
+                        aud_rx, cc))
         if len(pending) >= wave:
             _resolve(pending)
             pending = []

@@ -1,6 +1,6 @@
-"""The JAX package's values that ``chip_smoke.py`` phases 4g, 4h and 6 hold
-the PyTorch port's transmission and sound layers to, computed by the JAX
-``xla`` path on the CPU at the card's shapes.  Run from the repository root:
+"""The JAX package's values that ``chip_smoke.py`` phases 4g, 4h, 4i and 6
+hold the PyTorch port's transmission, sound and data-service layers to,
+computed by the JAX ``xla`` path on the CPU at the card's shapes.  Run from the repository root:
 
     JAX_PLATFORMS=cpu python3 scripts/jax_transmission_reference.py [--only NAME ...]
 
@@ -51,6 +51,35 @@ Prints one JSON object per row as it finishes.  Rows:
   sin 4 kHz: ``min_psnr_db`` and the audio SNR (8192 cropped at the
   track's ends).
 
+The data services and instruments (phase 4i; every composite from the
+``comb3`` pipeline of ``smooth_scene(L, N, seed=0)`` x 16 at frame 0):
+
+* ``caption``: NTSC 480x720, frame f's row 0 carrying cell f of
+  :data:`CAPTION_TEXT`: the picture PSNR over rows 1:, the cells decoded;
+* ``teletext-wss-vitc``: PAL 576x1440, rows 0-2 of every frame a page
+  (magazine 1, page 0x00, header ``P100 PAL`` and :data:`TELETEXT_ROWS`),
+  row 3 WSS ``16:9 full (anamorphic)``, row 4 VITC (frame f's timecode):
+  the picture PSNR over rows 5:, every service decoded;
+* ``scramble``: NTSC 480x720, ``cutrotate`` with :data:`SCRAMBLE_KEY`: the
+  subscriber's (descrambled) and the pirate's round-trip PSNR;
+* ``vir``: NTSC 480x720, rows 0-1 VIR lines, a 25-degree chroma phase error
+  and gain 0.7 (``impair``): the readout, the uncorrected and the
+  VIR-corrected PSNR over rows 2:;
+* ``measure``: NTSC 480x720 (``notch`` encode): the staircase through
+  ``impair(diff_gain=0.3, diff_phase_deg=20)`` (DG, DP), the multiburst
+  through ``vhs_playback`` and a ``comb3`` decode (per-packet gains of the
+  decoded luma), the pulse-and-bar through a 1 us, 0.25 ghost (K-rating,
+  P/B, chroma/luma gain and delay);
+* ``palplus``: PAL 576x720 of :func:`palplus_scene`, progressive and
+  interlaced, with and without the raster: the helper and zoom PSNRs;
+* ``fullstack-nicam`` / ``fullstack-a2``: ``cli.py roundtrip`` with
+  ``tests/test_fullstack.py``'s flags at 576 lines: the picture and pirate
+  PSNRs, the sound SNRs, every service exact;
+* ``video-caption``, ``video-scramble``, ``video-caption-scramble-rf`` and
+  ``video-caption-scramble-interlaced``: the ``video-rf`` runner with
+  :func:`video_caption_bits` and/or ``scramble=("cutrotate",
+  SCRAMBLE_KEY)``: ``min_psnr_db``, the caption cells exact.
+
 SNRs compare with each signal's own mean removed (the receivers are
 AC-coupled or DC-exact).
 
@@ -69,6 +98,32 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 B, N = 16, 720
+#: the data services' stimuli; chip_smoke.py phase 4i uses the same
+CAPTION_TEXT = "CLOSED CAPTIONS RIDE LINE 21 OK!"
+TELETEXT_ROWS = ("HELLO WORLD", "ROW TWO")
+WSS_ASPECT = "16:9 full (anamorphic)"
+SCRAMBLE_KEY = 0x5EC4E7
+VIDEO_CAPTION = ("THE RUNNER CARRIES ONE CAPTION CELL PER FRAME ON ROW 0. " * 2)[:96]
+
+
+def video_caption_bits():
+    """(48, 16) cells of :data:`VIDEO_CAPTION`, one per frame."""
+    import numpy as np
+
+    from color_modem_tpu.frame.vbi import cc_pack
+
+    return np.stack([np.asarray(cc_pack(VIDEO_CAPTION[2 * i : 2 * i + 2])) for i in range(48)])
+
+
+def palplus_scene(lines: int, n: int):
+    """``smooth_scene(lines, n, seed=0)`` plus helper-band vertical detail
+    (tests/test_golden_palplus.py's fixture), clipped to [0, 1]."""
+    import numpy as np
+
+    from color_modem_tpu.utils.testimages import smooth_scene
+
+    vert = 0.25 * np.cos(2 * np.pi * 0.42 * np.arange(lines)[:, None])
+    return np.clip(smooth_scene(lines, n, seed=0) + vert[None], 0.0, 1.0).astype(np.float32)
 
 
 def _composite():
@@ -408,6 +463,204 @@ def _video_audio(interlaced: bool):
             "audio_snr_db": snr_db(aud[8192:-8192], got[8192:-8192])}
 
 
+def _frames(std, lines: int, n: int, decoder: str = "comb3"):
+    """(plan, (B, 3, L, N) scene, encode, decode) of ``std`` at L x N."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from color_modem_tpu.frame.pipeline import make_pipeline
+    from color_modem_tpu.modem.plan import make_plan
+    from color_modem_tpu.utils.testimages import smooth_scene
+
+    plan = make_plan(std, n)
+    rgb = jnp.asarray(np.broadcast_to(smooth_scene(lines, n, seed=0), (B, 3, lines, n)),
+                      jnp.float32)
+    enc, dec, _ = make_pipeline(plan, decoder, "xla")
+    return plan, rgb, enc, dec
+
+
+def row_caption():
+    import jax.numpy as jnp
+    import numpy as np
+
+    from color_modem_tpu.frame.vbi import cc_pack, cc_spec, decode_data_line, encode_data_line
+    from color_modem_tpu.standards import NTSC
+    from color_modem_tpu.utils.metrics import psnr
+
+    plan, rgb, enc, dec = _frames(NTSC(), 480, N)
+    spec = cc_spec(plan)
+    bits = np.stack([np.asarray(cc_pack(CAPTION_TEXT[2 * i : 2 * i + 2])) for i in range(B)])
+    comp = enc(rgb, 0).at[:, 0, :].set(encode_data_line(plan, spec, jnp.asarray(bits)))
+    got, margin = decode_data_line(plan, spec, comp[:, 0, :])
+    out = np.asarray(dec(comp, 0))
+    return {"psnr_db": psnr(out[:, :, 1:], np.asarray(rgb)[:, :, 1:]),
+            "exact": bool(np.array_equal(np.asarray(got), bits)),
+            "worst_margin": float(np.asarray(margin).min())}
+
+
+def row_teletext_wss_vitc():
+    import jax.numpy as jnp
+    import numpy as np
+
+    from color_modem_tpu.frame import teletext, vitc, wss
+    from color_modem_tpu.standards import PAL
+    from color_modem_tpu.utils.metrics import psnr
+
+    plan, rgb, enc, dec = _frames(PAL(), 576, 2 * N)
+    page = teletext.encode_page(plan, 1, 0x00, list(TELETEXT_ROWS), header="P100 PAL")
+    tcs = np.stack([vitc.vitc_pack(*vitc.timecode_for_frame(f)) for f in range(B)])
+    comp = enc(rgb, 0)
+    comp = comp.at[:, :3, :].set(jnp.broadcast_to(page, (B,) + page.shape))
+    comp = comp.at[:, 3, :].set(wss.encode_wss(plan, jnp.broadcast_to(
+        wss.wss_word(WSS_ASPECT), (B, 14))))
+    comp = comp.at[:, 4, :].set(vitc.encode_vitc_line(plan, jnp.asarray(tcs)))
+    out = np.asarray(dec(comp, 0))
+    pkts = teletext.decode_packets(plan, comp[:, :3, :].reshape(3 * B, -1))
+    wss_bits, _ = wss.decode_wss(plan, comp[:, 3, :])
+    vitc_bits, score = vitc.decode_vitc_line(plan, comp[:, 4, :])
+    return {
+        "psnr_db": psnr(out[:, :, 5:], np.asarray(rgb)[:, :, 5:]),
+        "teletext_exact": all(p.address_ok and bool(p.parity_ok.all()) for p in pkts)
+        and [p.text.rstrip() for p in pkts] == ["P100 PAL", *TELETEXT_ROWS] * B,
+        "wss_exact": all(wss.parse_wss(b)["aspect"] == WSS_ASPECT
+                         for b in np.asarray(wss_bits)),
+        "vitc_exact": bool(np.array_equal(np.asarray(vitc_bits), tcs)),
+        "vitc_min_score": int(np.asarray(score).min()),
+    }
+
+
+def row_scramble():
+    import numpy as np
+
+    from color_modem_tpu.frame.pipeline import frame_line_index
+    from color_modem_tpu.frame.scramble import descramble, scramble
+    from color_modem_tpu.standards import NTSC
+    from color_modem_tpu.utils.metrics import psnr
+
+    plan, rgb, enc, dec = _frames(NTSC(), 480, N)
+    g = frame_line_index(plan, 0, B, 480)
+    scr = scramble(plan, enc(rgb, 0), g, "cutrotate", SCRAMBLE_KEY)
+    sub = dec(descramble(plan, scr, g, "cutrotate", SCRAMBLE_KEY), 0)
+    return {"subscriber_db": psnr(np.asarray(sub), np.asarray(rgb)),
+            "pirate_db": psnr(np.asarray(dec(scr, 0)), np.asarray(rgb))}
+
+
+def row_vir():
+    import numpy as np
+
+    from color_modem_tpu.frame.channel import impair
+    from color_modem_tpu.frame.pipeline import decode_block, frame_line_index
+    from color_modem_tpu.frame.vir import decode_vir_corrected, measure_vir, vir_lines
+    from color_modem_tpu.standards import NTSC
+    from color_modem_tpu.utils.metrics import psnr
+
+    plan, rgb, enc, _ = _frames(NTSC(), 480, N)
+    g = frame_line_index(plan, 0, B, 480)
+    comp = enc(rgb, 0).at[:, :2, :].set(vir_lines(plan, g[:, :2]))
+    bad = impair(plan, comp, chroma_phase_deg=25.0, chroma_gain=0.7)
+    rep = measure_vir(plan, bad[:, :2], g[:, :2])
+    ref = np.asarray(rgb)[:, :, 2:]
+    corr = np.asarray(decode_vir_corrected(plan, bad, g, 2, "comb3"))
+    plain = np.asarray(decode_block(plan, bad[:, 2:], g[:, 2:], "comb3"))
+    return {"phase_err_deg": float(np.degrees(np.asarray(rep["phase_err"])).mean()),
+            "chroma_gain_corr": float(np.asarray(rep["chroma_gain_corr"]).mean()),
+            "corrected_db": psnr(corr, ref), "uncorrected_db": psnr(plain, ref)}
+
+
+def row_measure():
+    import jax.numpy as jnp
+    import numpy as np
+
+    from color_modem_tpu.frame import measure
+    from color_modem_tpu.frame.channel import impair, vhs_playback
+    from color_modem_tpu.frame.pipeline import decode_block, encode_block, frame_line_index
+    from color_modem_tpu.modem.plan import make_plan
+    from color_modem_tpu.standards import NTSC
+
+    plan = make_plan(NTSC(), N)
+    g = frame_line_index(plan, 0, B, 480)
+
+    def enc(stim):
+        return encode_block(plan, jnp.asarray(np.broadcast_to(stim, (B,) + stim.shape)), g)
+
+    dif = measure.measure_differential(plan, impair(
+        plan, enc(measure.modulated_staircase(plan, 480, N)), diff_gain=0.3,
+        diff_phase_deg=20.0), g)
+    rgb = np.asarray(decode_block(plan, vhs_playback(plan, enc(measure.multiburst(plan, 480))),
+                                  g, "comb3"))
+    y = np.tensordot(plan.rgb_to_ycc[0], rgb, axes=(0, 1)).astype(np.float32)
+    fr = measure.measure_frequency_response(plan, jnp.asarray(y))
+    pb = measure.measure_pulse_bar(plan, impair(
+        plan, enc(measure.pulse_and_bar(plan, 480)), ghost_delay_us=1.0, ghost_gain=0.25), g)
+    return {"dg": dif["dg"], "dp_deg": dif["dp_deg"],
+            "frequency_response": {str(f): v for f, v in fr.items()}, **pb}
+
+
+def row_palplus():
+    import jax.numpy as jnp
+    import numpy as np
+
+    from color_modem_tpu.frame.palplus import (make_interlaced_palplus_pipeline,
+                                               make_palplus_pipeline)
+    from color_modem_tpu.modem.plan import make_plan
+    from color_modem_tpu.standards import PAL
+    from color_modem_tpu.utils.metrics import psnr
+
+    plan = make_plan(PAL(), N)
+    rgb = np.broadcast_to(palplus_scene(576, N), (B, 3, 576, N))
+    out = {}
+    for interlaced in (False, True):
+        for raster in (False, True):
+            mk = make_interlaced_palplus_pipeline if interlaced else make_palplus_pipeline
+            enc, dec, _ = mk(plan, "comb3", "xla", 1.0, raster)
+            comp = enc(jnp.asarray(rgb), 0)
+            key = f"{'interlaced' if interlaced else 'progressive'}{'-raster' if raster else ''}"
+            out[key] = {"helper_db": psnr(np.asarray(dec(comp, 0)), rgb),
+                        "zoom_db": psnr(np.asarray(dec(comp, 0, use_helper=False)), rgb)}
+    return out
+
+
+def _fullstack(extra):
+    import contextlib
+    import io
+
+    from color_modem_tpu.cli import main as cli
+
+    flags = ["roundtrip", "--standard", "pal", "--decoder", "comb3", "--demo", "--pattern",
+             "scene", "--lines", "576", "--width", "1440", "--raster", "--interlaced",
+             "--teletext", "|".join(TELETEXT_ROWS), "--wss", WSS_ASPECT,
+             "--vitc", "01:02:03:04", "--caption", "FULL STACK", "--scramble", "cutrotate",
+             "--rf", "--rf-audio"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli(flags + extra)
+    rep = json.loads(buf.getvalue().strip().splitlines()[-1])
+    return {"psnr_db": rep["psnr_db"], "pirate_psnr_db": rep["scramble"]["pirate_psnr_db"],
+            "services_exact": all(rep[k]["exact"] for k in ("caption", "teletext", "wss",
+                                                              "vitc")),
+            "rf": rep["rf"]}
+
+
+def _video_services(caption=False, **kw):
+    import glob
+
+    import numpy as np
+
+    from color_modem_tpu.frame.video import process_video, synthetic_device_source
+    from color_modem_tpu.modem.plan import make_plan
+    from color_modem_tpu.standards import NTSC
+
+    bits = video_caption_bits() if caption else None
+    with tempfile.TemporaryDirectory() as d:
+        s = process_video(make_plan(NTSC(), N), synthetic_device_source(480, N, seed=0), 48, d,
+                          decoder="comb3", chunk=16, backend="xla", caption_bits=bits, **kw)
+        cells = [np.load(p) for p in sorted(glob.glob(d + "/cc_*.npy"))]
+    res = {"min_psnr_db": s["min_psnr_db"]}
+    if caption:
+        res["caption_exact"] = bool(np.array_equal(np.concatenate(cells), bits))
+    return res
+
+
 ROWS = {
     "rf-vsb-hop": row_rf,
     "satellite-fm-hop": row_satellite,
@@ -424,6 +677,20 @@ ROWS = {
     "mac-sound": row_mac_sound,
     "video-rf-audio": lambda: _video_audio(False),
     "video-rf-audio-interlaced": lambda: _video_audio(True),
+    "caption": row_caption,
+    "teletext-wss-vitc": row_teletext_wss_vitc,
+    "scramble": row_scramble,
+    "vir": row_vir,
+    "measure": row_measure,
+    "palplus": row_palplus,
+    "fullstack-nicam": lambda: _fullstack(["--rf-nicam"]),
+    "fullstack-a2": lambda: _fullstack(["--rf-a2", "stereo"]),
+    "video-caption": lambda: _video_services(caption=True),
+    "video-scramble": lambda: _video_services(scramble=("cutrotate", SCRAMBLE_KEY)),
+    "video-caption-scramble-rf": lambda: _video_services(
+        caption=True, scramble=("cutrotate", SCRAMBLE_KEY), rf=True),
+    "video-caption-scramble-interlaced": lambda: _video_services(
+        caption=True, scramble=("cutrotate", SCRAMBLE_KEY), interlaced=True),
 }
 
 

@@ -21,8 +21,12 @@ samples at the standard's active lines:
   ``nicam_on_rf`` -> ``rf_demodulate``, ``sound_from_rf``,
   ``nicam_from_rf``); ``sat-sound``: the satellite hop with two audio
   subcarriers (``fm_modulate(audio=)`` -> ``fm_demodulate``,
-  ``fm_demodulate_audio``).  These have no kernel of their own, so they
-  run once, whatever ``--backend`` says.
+  ``fm_demodulate_audio``); ``ntsc-scramble``: cut-and-rotate scrambling
+  and descrambling of the NTSC composite.  These have no kernel of their
+  own, so they run once, whatever ``--backend`` says;
+* ``pal-palplus``: the PALplus round trip (``make_palplus_pipeline``);
+* ``ntsc-comb3-video-services``: ``ntsc-comb3-video`` with a caption cell
+  per frame and cut-and-rotate scrambling.
 
 Besides the kernels, each path's device time is split by kind: cuFFT,
 elementwise, reductions, scans, sorts, matrix products (GEMM) and the
@@ -58,6 +62,9 @@ PATHS = {
     "d2mac": ("hop", "NTSC", "d2mac"),
     "rf-sound": ("hop", "NTSC", "rf-sound"),
     "sat-sound": ("hop", "NTSC", "sat-sound"),
+    "ntsc-scramble": ("hop", "NTSC", "scramble"),
+    "pal-palplus": ("palplus", "PAL", "comb3"),
+    "ntsc-comb3-video-services": ("video-services", "NTSC", "comb3"),
 }
 
 #: device-time kinds, matched in order on the lower-cased kernel name
@@ -108,6 +115,10 @@ def make_call(path: str, backend: str, dev, tmp: str):
         rt = make_interlaced_pipeline(plan, arg, backend, device=dev)[2]
     elif layer == "svideo":
         rt = make_svideo_pipeline(plan, backend, device=dev)[2]
+    elif layer == "palplus":
+        from color_modem_tpu_torch.frame.palplus import make_palplus_pipeline
+
+        rt = make_palplus_pipeline(plan, arg, backend, device=dev)[2]
     elif layer == "transcode":
         comp = make_pipeline(plan, "notch", backend, device=dev)[0](rgb, 0)
         conv = make_transcoder(plan, make_plan(getattr(cmt, arg)(), 720), backend=backend,
@@ -127,6 +138,13 @@ def make_call(path: str, backend: str, dev, tmp: str):
                  + torch.arange(576, dtype=torch.int32, device=dev))
             return (lambda: mac.roundtrip(mplan, mrgb, g)), "d2mac 16x3x576x720"
         comp = make_pipeline(plan.to(dev), "notch", "kernel", device=dev)[0](rgb, 0)
+        if arg == "scramble":
+            from color_modem_tpu_torch.frame.pipeline import frame_line_index
+            from color_modem_tpu_torch.frame.scramble import descramble, scramble
+
+            g = frame_line_index(plan, 0, 16, lines, dev)
+            return (lambda: descramble(plan, scramble(plan, comp, g, "cutrotate", 7), g,
+                                       "cutrotate", 7)), f"ntsc-scramble 16x{lines}x720"
         if arg == "rf-sound":
             from color_modem_tpu_torch.frame import nicam
 
@@ -164,8 +182,11 @@ def make_call(path: str, backend: str, dev, tmp: str):
     else:
         src = synthetic_device_source(lines, 720, seed=0, device=dev)
         runs = itertools.count()
+        services = ({"caption_bits": np.zeros((48, 16), np.int32), "scramble": ("cutrotate", 7)}
+                    if layer == "video-services" else {})
         return (lambda: process_video(plan, src, 48, os.path.join(tmp, str(next(runs))),
-                                      decoder=arg, chunk=16, backend=backend, device=dev),
+                                      decoder=arg, chunk=16, backend=backend, device=dev,
+                                      **services),
                 f"{path} 48x3x{lines}x720 chunk 16")
     return (lambda: rt(rgb, 0)), label
 

@@ -148,14 +148,16 @@ def test_niir_cancels_gain_and_phase_where_ntsc_does_not():
 
 def test_channel_filters_upload_once():
     """Each Toeplitz matrix of the channel's FIRs is built and uploaded once
-    per (taps, width, device) and equals toeplitz_same's."""
+    per (taps, width, device) (``dsp/apply.py::fir_same_taps``, which the
+    data services share) and equals toeplitz_same's."""
+    from color_modem_tpu_torch.dsp import apply
     from color_modem_tpu_torch.dsp.apply import toeplitz_same
 
     taps = np.random.default_rng(0).normal(size=63)
     x = torch.tensor(np.random.default_rng(1).normal(size=(2, 3, 97)), dtype=torch.float32)
     first = channel._fir(x, taps)
-    hits = channel._toeplitz_on.cache_info().hits
+    hits = apply._toeplitz_on.cache_info().hits
     torch.testing.assert_close(channel._fir(x, taps), first, rtol=0, atol=0)
-    assert channel._toeplitz_on.cache_info().hits == hits + 1
-    mat = channel._toeplitz_on(taps.tobytes(), 97, torch.device("cpu"))
+    assert apply._toeplitz_on.cache_info().hits == hits + 1
+    mat = apply._toeplitz_on(taps.tobytes(), 97, torch.device("cpu"))
     np.testing.assert_array_equal(mat.numpy(), toeplitz_same(taps, 97))

@@ -19,6 +19,7 @@
 
 import json
 import os
+from contextlib import contextmanager
 
 import numpy as np
 import pytest
@@ -49,12 +50,40 @@ def _fp32_flags():
             torch.backends.mkldnn.matmul.fp32_precision)
 
 
+@contextmanager
+def _precision_restored():
+    """Put every process-wide matmul precision setting back on the way out:
+    the legacy one (``torch.get_float32_matmul_precision``, which
+    ``set_float32_matmul_precision`` changes beside the per-backend flags)
+    and the flags themselves."""
+    legacy, flags = torch.get_float32_matmul_precision(), _fp32_flags()
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(legacy)
+        torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision = \
+            flags
+
+
 @pytest.fixture
 def restore_precision():
     """Put the process-wide matmul precision back after the test."""
-    saved = _fp32_flags()
-    yield
-    torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision = saved
+    with _precision_restored():
+        yield
+
+
+def test_precision_settings_leave_no_trace():
+    """A test that sets "medium" (bf16 products on this CPU) or allows TF32
+    leaves every setting as it found it, the legacy getter included: the
+    fixture once restored only the per-backend flags, and the legacy
+    precision read "medium" for every later test in the worker."""
+    before = (torch.get_float32_matmul_precision(), _fp32_flags(),
+              torch.backends.cuda.matmul.allow_tf32)
+    with _precision_restored():
+        torch.set_float32_matmul_precision("medium")
+        torch.backends.cuda.matmul.allow_tf32 = True
+    assert (torch.get_float32_matmul_precision(), _fp32_flags(),
+            torch.backends.cuda.matmul.allow_tf32) == before
 
 
 @pytest.mark.parametrize("setting", ["medium", "allow_tf32"])

@@ -724,3 +724,123 @@ def test_video_rf_audio_on_the_card(dev, tmp_path):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
     assert len(syncs) == 1, syncs
+
+
+#: phase 4i's service chains (chip_smoke.py::service_chains), at 2 frames of
+#: 64 lines here
+SERVICES = ["caption", "teletext-wss-vitc", "scramble cutrotate", "scramble linedelay active",
+            "scramble shuffle", "scramble roundtrip", "vir", "palplus progressive",
+            "palplus interlaced raster"]
+
+
+def _service_chains(device):
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+
+    return chip_smoke.service_chains(torch.device(device), 2, 64, 64)
+
+
+def test_upload_on_the_card(dev):
+    """``utils/upload.py`` on the card: a read-only float64 array and a
+    broadcast view arrive as float32 with the same values, the copy blocks
+    no host thread, and the caller's memory is left as it was."""
+    from color_modem_tpu_torch.utils.upload import upload
+
+    base = np.random.default_rng(0).standard_normal((4, 480, 720))
+    ro = base.copy()
+    ro.flags.writeable = False
+    view = np.broadcast_to(base[:1], base.shape)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [upload(a, dev, np.float32) for a in (ro, view)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, a in zip(got, (ro, view)):
+        assert g.device.type == "cuda" and g.dtype == torch.float32
+        assert torch.equal(g.cpu(), torch.from_numpy(a.astype(np.float32)))
+    assert np.array_equal(ro, base)
+
+
+@pytest.mark.parametrize("name", SERVICES)
+def test_data_services_never_block_the_host(dev, name):
+    """Captions, teletext, WSS, VITC, scrambling, VIR and PALplus on the
+    card: no host-blocking operation once their tables are uploaded, and
+    the chain's launches of the QAM kernels."""
+    call, want = _service_chains(dev)[0][name]
+    call()
+    torch.cuda.synchronize()
+    qk.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert qk.LAUNCHES == {"qam_encode": want.get("qam_encode", 0),
+                           "qam_decode": want.get("qam_decode", 0)}
+
+
+@pytest.mark.parametrize("name", SERVICES)
+def test_data_services_match_the_cpu(dev, name):
+    """The same chain on the card and on the CPU: every bit and score equal,
+    floats to the decode bound."""
+    got = _service_chains(dev)[0][name][0]()
+    want = _service_chains("cpu")[0][name][0]()
+    for key in got:
+        if got[key].dtype.is_floating_point:
+            assert float((got[key].cpu() - want[key]).abs().max()) <= DEC_ATOL, key
+        else:
+            assert torch.equal(got[key].cpu(), want[key]), key
+
+
+@pytest.mark.parametrize("form", ["palplus progressive", "palplus interlaced raster"])
+def test_palplus_kernels_match_plain(dev, form):
+    """The letterbox rows run the _shared QAM kernels, never a bar row: the
+    kernel backend agrees with the plain one on the card."""
+    chains, inp = _service_chains(dev)
+    enc_p, dec_p, _ = inp["palplus"][form]["plain"]
+    out = chains[form][0]()
+    with torch.inference_mode():
+        assert float((out["comp"] - enc_p(inp["rgb_p"], 0)).abs().max()) <= ENC_ATOL
+        assert float((out["helper"] - dec_p(out["comp"], 0)).abs().max()) <= DEC_ATOL
+
+
+def test_video_services_on_the_card(dev, tmp_path):
+    """process_video with captions and cut-and-rotate through the RF hop on
+    the card: the cells exact, chunk sizes 2 and 3 alike to 1e-5, one
+    synchronising operation per wave (the caption cells ride the fetch)."""
+    import glob
+    import warnings
+
+    from color_modem_tpu_torch.frame.vbi import cc_pack
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    src = synthetic_device_source(64, 720, seed=2, device=dev)
+    text = "CARD CAPTION"
+    bits = np.stack([cc_pack(text[2 * i : 2 * i + 2]).numpy() for i in range(6)])
+    kw = dict(decoder="comb3", device=dev, rf=True, caption_bits=bits,
+              scramble=("cutrotate", 0xC0FFEE), save_outputs=True)
+    outs = []
+    for chunk in (2, 3):
+        d = str(tmp_path / f"c{chunk}")
+        process_video(plan, src, 6, d, chunk=chunk, **kw)
+        cells = np.concatenate([np.load(f) for f in sorted(glob.glob(f"{d}/cc_*.npy"))])
+        assert np.array_equal(cells, bits)
+        outs.append(np.concatenate([np.load(f) for f in sorted(glob.glob(f"{d}/rgb_*.npy"))]))
+    assert float(np.abs(outs[0] - outs[1]).max()) <= 1e-5
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            process_video(plan, src, 6, str(tmp_path / "sync"), chunk=2,
+                          **{**kw, "save_outputs": False})
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
+    assert len(syncs) == 1, syncs

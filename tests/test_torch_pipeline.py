@@ -277,7 +277,7 @@ def test_chip_smoke_imports_only_the_port():
 
 
 def _factories():
-    from color_modem_tpu_torch.frame import interlace, svideo, transcode, video
+    from color_modem_tpu_torch.frame import interlace, palplus, svideo, teletext, transcode, video
     from color_modem_tpu_torch.frame import pipeline as pl
 
     return {
@@ -288,6 +288,9 @@ def _factories():
         "make_interlaced_transcoder": transcode.make_interlaced_transcoder,
         "synthetic_device_source": video.synthetic_device_source,
         "process_video": video.process_video,
+        "make_palplus_pipeline": palplus.make_palplus_pipeline,
+        "make_interlaced_palplus_pipeline": palplus.make_interlaced_palplus_pipeline,
+        "encode_page": teletext.encode_page,
     }
 
 
@@ -302,7 +305,9 @@ def test_factories_default_to_the_card(name):
 
 @pytest.mark.parametrize("name", ["make_pipeline", "make_interlaced_pipeline",
                                   "make_svideo_pipeline", "make_transcoder",
-                                  "synthetic_device_source", "process_video"])
+                                  "synthetic_device_source", "process_video",
+                                  "make_palplus_pipeline", "make_interlaced_palplus_pipeline",
+                                  "encode_page"])
 def test_default_device_raises_without_cuda(name, monkeypatch, tmp_path):
     """With the default device and no CUDA, a factory raises before it does
     any work."""
@@ -319,6 +324,9 @@ def test_default_device_raises_without_cuda(name, monkeypatch, tmp_path):
         "synthetic_device_source": lambda f: f(8, 720),
         "process_video": lambda f: f(ntsc, lambda s, c: np.zeros((c, 3, 8, 720), np.float32),
                                      2, str(tmp_path)),
+        "make_palplus_pipeline": lambda f: f(make_plan(PAL(), 720)),
+        "make_interlaced_palplus_pipeline": lambda f: f(make_plan(PAL(), 720)),
+        "encode_page": lambda f: f(make_plan(PAL(), 1440), 1, 0x00, ["ROW"]),
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[name](_factories()[name])

@@ -8,7 +8,9 @@ tests/test_torch_pipeline.py); chunk independence 1e-6, as in
 tests/test_video.py; the fingerprint 1e-4 relative to ``fingerprint_jnp``;
 the device source 1e-6; the transmission hops and the equalizer against
 the JAX runner's noise-free runs to 0.02 dB and 1e-4 (5e-4 through the
-satellite hop's float32 FM phase).  Noisy runs are compared by chunk independence
+satellite hop's float32 FM phase).  The data services (``caption_bits``,
+``scramble``) against the JAX runner to 0.02 dB and 1e-4, the caption bits
+exactly; chunk sizes 1e-6 apart (1e-5 through the RF hop).  Noisy runs are compared by chunk independence
 and dB gains only: the port's per-index ``torch.Generator`` noise is not
 the JAX package's PRNG.
 """
@@ -200,15 +202,9 @@ def test_chunk_independent(case, tmp_path):
     np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], atol=CHUNK_ATOL, rtol=0)
 
 
-@pytest.mark.parametrize("option,value,item", [
-    ("mesh", object(), "item 10"),
-    ("caption_bits", np.zeros((2, 16), np.int32), "item 9"),
-    ("scramble", ("linecut", 7), "item 9"),
-])
-def test_unported_options_raise(option, value, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"),
-                      **{option: value})
+def test_unported_options_raise(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 10"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"), mesh=object())
     assert not os.path.exists(tmp_path / "x")
 
 
@@ -419,3 +415,174 @@ def test_rf_audio_options_refuse(tmp_path):
     s = process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "w"), chunk=2,
                       rf=True, rf_audio=aud, rf_audio_bw=50e3, device="cpu")
     assert s["rf_audio_bw"] == 50e3
+
+
+def _caption_bits(text, n):
+    from color_modem_tpu_torch.frame.vbi import cc_pack
+
+    padded = text.ljust(2 * n)
+    return padded, np.stack([cc_pack(padded[2 * i : 2 * i + 2]).numpy() for i in range(n)])
+
+
+def _captions(d):
+    """The decoded cells of every chunk file, in order, and their text."""
+    from color_modem_tpu_torch.frame.vbi import cc_unpack
+
+    files = sorted(f for f in os.listdir(d) if f.startswith("cc_"))
+    bits = np.concatenate([np.load(os.path.join(d, f)) for f in files])
+    cells = [cc_unpack(row) for row in bits]
+    return bits, "".join(c for c, _ in cells), all(ok for _, ok in cells)
+
+
+#: case -> (process_video options, frames, max |diff| against the JAX runner)
+SERVICE_CASES = {
+    "caption": (dict(caption=True), 5, 1e-4),
+    "caption-interlaced": (dict(caption=True, interlaced=True), 5, 1e-4),
+    "cutrotate": (dict(scramble=("cutrotate", 0xC0FFEE)), 4, 1e-4),
+    "linedelay-interlaced": (dict(scramble=("linedelay", 7), interlaced=True), 4, 1e-4),
+    "shuffle": (dict(scramble=("shuffle", 3)), 4, 1e-4),
+    "caption-cutrotate-rf": (dict(caption=True, scramble=("cutrotate", 0x5EC4E7), rf=True),
+                             5, 1e-4),
+    "caption-cutrotate-interlaced": (dict(caption=True, scramble=("cutrotate", 9),
+                                          interlaced=True), 5, 1e-4),
+}
+
+
+@pytest.mark.parametrize("case", list(SERVICE_CASES))
+def test_services_match_jax(case, tmp_path):
+    """Captions on row 0 (of each frame's first field when interlaced) and
+    scrambling between the encoder and the hop, against the JAX runner:
+    PSNR (the caption row left out) to 0.02 dB, frames to 1e-4, the decoded
+    caption cells bit for bit and equal to those sent, the manifest keys."""
+    kw, n, atol = SERVICE_CASES[case]
+    kw = dict(kw)
+    text = None
+    if kw.pop("caption", False):
+        text, kw["caption_bits"] = _caption_bits("CAPS 4 ALL", n)
+    runs = {}
+    for pkg, run, plan in (("j", jvideo.process_video, get_plan("ntsc")),
+                           ("t", process_video, tplan())):
+        d = str(tmp_path / pkg)
+        extra = {"device": "cpu"} if pkg == "t" else {}
+        runs[pkg] = run(plan, synthetic_source(L, N), n, d, decoder="comb3", chunk=2,
+                        save_outputs=True, **kw, **extra)
+    s, s_j = runs["t"], runs["j"]
+    assert s["frames_processed_this_run"] == n
+    assert abs(s["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.02, (s, s_j)
+    np.testing.assert_allclose(saved(str(tmp_path / "t"), n, 2),
+                               saved(str(tmp_path / "j"), n, 2), rtol=0, atol=atol)
+    for key in ("scramble", "scramble_key", "caption", "rf", "interlaced"):
+        assert s.get(key) == s_j.get(key), key
+    if text is not None:
+        bits, got, ok = _captions(str(tmp_path / "t"))
+        bits_j, _, _ = _captions(str(tmp_path / "j"))
+        assert torch.equal(torch.tensor(bits), torch.tensor(bits_j.astype(np.int32)))
+        assert bits.dtype == np.int32 and ok and got == text
+
+
+@pytest.mark.parametrize("interlaced", [False, True])
+def test_services_are_chunk_independent(interlaced, tmp_path):
+    """Caption cells keyed by the absolute frame index and the scrambler
+    keyed by the absolute line index (field-sequential when interlaced):
+    chunks of 2 and 3 frames (the second starting on an odd frame, so its
+    fields sit at other offsets in the batch) give the same frames, under
+    channel noise, and the same caption cells; through the RF hop to 1e-5."""
+    n = 6
+    text, bits = _caption_bits("CHUNKED CAPS", n)
+    for kw, atol in ((dict(channel={"noise_sigma": 0.01}), CHUNK_ATOL), (dict(rf=True), 1e-5)):
+        outs, caps = {}, {}
+        for chunk in (2, 3):
+            d = str(tmp_path / f"{'rf' if 'rf' in kw else 'ch'}{chunk}")
+            s = process_video(tplan(), synthetic_source(L, N), n, d, decoder="comb3",
+                              chunk=chunk, interlaced=interlaced, caption_bits=bits,
+                              scramble=("cutrotate", 0xC0FFEE), save_outputs=True,
+                              device="cpu", **kw)
+            assert s["min_psnr_db"] > 25.0, s
+            outs[chunk] = saved(d, n, chunk)
+            caps[chunk] = _captions(d)
+        np.testing.assert_allclose(outs[2], outs[3], rtol=0, atol=atol)
+        assert caps[2][1] == caps[3][1] == text and caps[2][2] and caps[3][2]
+
+
+def test_clean_scramble_is_bit_transparent(tmp_path):
+    """tests/test_video.py: on a clean channel, scrambled then descrambled
+    output is bit-identical to the plain run's (gathers never touch a
+    sample's value)."""
+    outs = {}
+    for name, kw in (("clear", {}), ("scr", {"scramble": ("linedelay", 7)})):
+        d = str(tmp_path / name)
+        process_video(tplan(), synthetic_source(L, N), 4, d, decoder="comb3", chunk=4,
+                      interlaced=True, save_outputs=True, device="cpu", **kw)
+        outs[name] = np.load(os.path.join(d, "rgb_000000.npy"))
+    assert np.array_equal(outs["clear"], outs["scr"])
+
+
+def test_service_options_refuse(tmp_path):
+    """A resume with another key, or without the captions, refuses to mix
+    chunks; scrambling refuses the GCR equalizer and an unknown mode."""
+    _, bits = _caption_bits("KEY", 2)
+    d = str(tmp_path / "s")
+    process_video(tplan(), synthetic_source(L, N), 2, d, chunk=2, device="cpu",
+                  scramble=("cutrotate", 1), caption_bits=bits)
+    for kw in ({"scramble": ("cutrotate", 2), "caption_bits": bits},
+               {"scramble": ("linedelay", 1), "caption_bits": bits},
+               {"scramble": ("cutrotate", 1)}):
+        with pytest.raises(ValueError, match="refusing to resume"):
+            process_video(tplan(), synthetic_source(L, N), 2, d, chunk=2, device="cpu", **kw)
+    s = process_video(tplan(), synthetic_source(L, N), 2, d, chunk=2, device="cpu",
+                      scramble=("cutrotate", 1), caption_bits=bits)
+    assert s["frames_processed_this_run"] == 0 and s["caption"] is True
+    with pytest.raises(ValueError, match="GCR equalizer"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "e"), device="cpu",
+                      scramble=("cutrotate", 1),
+                      channel={"ghost_delay_us": 3.0, "ghost_gain": 0.3, "equalize": True})
+    with pytest.raises(ValueError, match="scramble mode"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "m"), device="cpu",
+                      scramble=("linecut", 1))
+    with pytest.raises(ValueError, match="divisible by 32"):
+        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "w"), device="cpu",
+                      scramble=("shuffle", 1), interlaced=True)
+
+
+def test_source_memory_is_never_shared(tmp_path):
+    """A source may hand out read-only memory it does not own (a NumPy view
+    of a JAX buffer, a memory map): the runner copies it onto the device
+    instead of wrapping it (it warned, and on the CPU shared the memory)."""
+    import warnings
+
+    frames = np.stack([smooth_scene(L, N, seed=s) for s in range(2)]).astype(np.float32)
+    frames.flags.writeable = False
+    before = frames.copy()
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        s = process_video(tplan(), lambda start, count: frames[start : start + count], 2,
+                          str(tmp_path / "ro"), decoder="comb3", chunk=2, device="cpu",
+                          caption_bits=np.zeros((2, 16), np.int32),
+                          scramble=("cutrotate", 5))
+    assert s["frames_processed_this_run"] == 2
+    assert np.array_equal(frames, before)
+
+
+@pytest.mark.parametrize("form", ["read-only", "broadcast", "list"])
+def test_upload_is_a_copy_of_its_own(form):
+    """``utils/upload.py`` on the CPU: the values cast to the asked dtype, in
+    memory of the tensor's own, whatever the caller hands over (a read-only
+    array, a broadcast view with zero strides, a list); no warning."""
+    import warnings
+
+    from color_modem_tpu_torch.utils.upload import upload
+
+    base = np.random.default_rng(0).standard_normal((3, 5))
+    arr = {"read-only": base.copy(), "broadcast": np.broadcast_to(base[:1], (3, 5)),
+           "list": base.tolist()}[form]
+    if form == "read-only":
+        arr.flags.writeable = False
+    want = np.asarray(arr).astype(np.float32)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        got = upload(arr, "cpu", np.float32)
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    assert torch.equal(got, torch.from_numpy(want))
+    got += 1.0
+    assert np.array_equal(np.asarray(arr).astype(np.float32), want)
+    assert upload([1, 2], "cpu").dtype == torch.int64
