@@ -82,6 +82,25 @@ Phases; any failure raises and exits nonzero:
    bit exact, each PSNR +- 0.02 dB of the JAX CPU value, each chain's
    launches, each chain on the card against the CPU, TF32 on bit-identical,
    no host-blocking operation outside the host-side parses;
+4j. the parallel layer (``color_modem_tpu_torch/parallel/``) on the one
+   card: ``parallel/multihost.py`` launches 4 gloo ranks, every one
+   computing on cuda:0 (NCCL refuses two ranks on one GPU), each on its own
+   (frame, lineblk) block: NTSC comb3 at 16x3x480x720 on the (2,2), (4,1)
+   and (1,4) meshes (PSNR 46.62 +- 0.02 dB), SECAM interp and PAL
+   delayline at 16x3x576x720 on (2,2) (38.8644 and 37.9984 dB), then the
+   rest of the JAX multi-chip gate's case list at 4 frames x 64 lines
+   (comb3d/comb3dA's dual rings, the interlaced pipeline, MAC, PALplus, the
+   RF and satellite hops, RF sound, satellite audio): each gathered on rank
+   0 against the unsharded pipeline on the card (QAM bit for bit, the
+   adaptive comb3dA 1e-6, whose plain separation products cuBLAS sums in
+   an order that follows the block's line count, SECAM and
+   MAC 1e-5, PALplus 1e-6, RF hop 2e-6, satellite hop 1e-3, RF sound 2e-5 /
+   1e-5, satellite audio 1e-3 / 1e-5), each rank's launches (one encode and
+   one decode of its block) and device, the main path once more under
+   ``set_sync_debug_mode("error")`` outside the halo exchange's host
+   staging, each rank's round-trip and halo-exchange times (4 ranks sharing
+   one card: not a scaling figure); then NCCL on a 1x1 mesh (2x2 with 4
+   cards), printing which ran;
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
@@ -110,14 +129,18 @@ Phases; any failure raises and exits nonzero:
    ``caption_bits``, with ``scramble=("cutrotate", key)``, with both through
    the RF hop and with both interlaced: PSNR +- 0.02 dB of the JAX CPU run,
    the caption cells exact, chunk sizes 16 and 12 alike (1e-6, 1e-5 through
-   the RF hop), one synchronising operation per wave.
+   the RF hop), one synchronising operation per wave; last, the runner over
+   a (2,2) mesh of 4 gloo ranks on the card (``process_video(mesh=)``, NTSC
+   comb3 48x480x720 in chunks of 16): PSNR +- 0.02 dB of the unsharded run,
+   the frames equal to it bit for bit, 3 launches of each kernel per rank.
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
 CUDA kernels with equal tile arrays, on the PAL delayline path), with the
 QAM kernels' launches on phase 4i's paths beside (``launches_data_services``:
-the NTSC caption round trip, the PALplus round trip); the last line is
-``{"ok": true, "device": {...}}``.
+the NTSC caption round trip, the PALplus round trip) and each rank's
+launches on phase 4j's (2,2) full-width round trips (``launches_sharded``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2128,6 +2151,204 @@ def check_video_services(dev, card: str) -> None:
             _check(len(syncs) == 1, f"video {name} syncs: {syncs}")
 
 
+#: phase 4j: the full-width sharded cases, (standard, decoder, lines) ->
+#: the round-trip PSNR of phase 4 / 4b / 4c on the same input
+SHARDED_FULL = {("ntsc", "comb3", 480): PSNR_EXPECTED,
+                ("secam", "interp", SECAM_LINES): SECAM_PSNR["interp"],
+                ("pal", "delayline", 576): QAM_FAMILY["pal", "delayline"][0]}
+SHARDED_MESHES = [(2, 2), (4, 1), (1, 4)]
+SHARDED_RANKS = 4
+
+
+def _sharded_launches(case: dict) -> dict:
+    """Each rank's launches for one sharded round trip of ``case``: one
+    encode and one decode of its block (none for MAC, whose modem has no
+    kernel; no decode for comb3dA, whose adaptive separation runs outside
+    the decode kernel, as unsharded)."""
+    if case["kind"] == "mac":
+        return {}
+    fam = "secam" if case["standard"] == "secam" else "qam"
+    return {f"{fam}_encode": 1, f"{fam}_decode": 0 if case["decoder"] == "comb3dA" else 1}
+
+
+def sharded_cases() -> list:
+    """Phase 4j's case list: NTSC comb3 at full width on the (2,2), (4,1)
+    and (1,4) meshes (timed and under the sync check on (2,2)), SECAM interp
+    and PAL delayline at full width on (2,2), then the rest of the JAX
+    multi-chip gate's case list at 4 frames x 64 lines."""
+    from color_modem_tpu_torch.parallel import multihost as mh
+
+    cases = []
+    for (std, decoder, lines), _ in SHARDED_FULL.items():
+        for ms in SHARDED_MESHES if std == "ntsc" else SHARDED_MESHES[:1]:
+            cases.append(mh._case("pipeline", std, decoder, ms, BATCH, lines, seed=0,
+                                  broadcast=True, frame0=0,
+                                  time=10 if ms == (2, 2) else 0,
+                                  sync_debug=std == "ntsc" and ms == (2, 2)))
+    full = {(s, d) for s, d, _ in SHARDED_FULL}
+    return cases + [c for c in mh.dryrun_cases(SHARDED_RANKS, 2, 2)
+                    if c["kind"] != "pipeline" or (c["standard"], c["decoder"]) not in full]
+
+
+def check_sharded_records(cases: list, recs: list, devices: list, card: str,
+                          how: str) -> dict:
+    """Hold the ranks' records of :func:`sharded_cases` (``recs[r][k]``):
+    each rank on its device (``devices[r]``), its launches, rank 0's
+    comparison with the unsharded pipeline and the full-width PSNRs; print
+    each rank's times (``how``: how the ranks share the cards).  Returns
+    each kernel's launches per rank on the (2,2) full-width cases."""
+    full = {(c["standard"], c["decoder"], c["lines"]) for c in cases if c["frames"] == BATCH}
+    _check(full == set(SHARDED_FULL), f"full-width cases {full}")
+    launches_sharded = {}
+    for k, case in enumerate(cases):
+        r0 = recs[0][k]
+        label = f"sharded {case['name']} {case['frames']}x3x{case['lines']}x{N}"
+        got_devices = [rr[k]["device"] for rr in recs]
+        counts = [rr[k]["launches"] for rr in recs]
+        want = _sharded_launches(case)
+        full_want = [{name: want.get(name, 0) for name in c} for c in counts]
+        _check(got_devices == devices, f"{label}: rank devices {got_devices}")
+        _check(counts == full_want, f"{label}: launches per rank {counts}, expected {want}")
+        _check(r0["finite"], f"{label}: non-finite output")
+        bound = r0["bound"]
+        video_bound, audio_bound = bound if isinstance(bound, list) else (bound, None)
+        errs = r0["err"]
+        ok = all(v <= (audio_bound if key == "aud" else video_bound) for key, v in errs.items())
+        line = (f"{label}: max|err| against unsharded on the card "
+                + ", ".join(f"{key} {v:.3e}" for key, v in errs.items())
+                + f" (<= {bound}), psnr {r0['psnr']:.4f} dB, launches per rank "
+                f"{[{n: v for n, v in c.items() if v} for c in counts]}")
+        if case["frames"] == BATCH:
+            expected = SHARDED_FULL[case["standard"], case["decoder"], case["lines"]]
+            line += f" (expected {expected} +- {PSNR_TOL})"
+            _check(abs(r0["psnr"] - expected) <= PSNR_TOL, f"{label}: psnr {r0['psnr']}")
+        print(line)
+        _check(ok, f"{label}: sharded disagrees with unsharded: {errs}")
+        if case.get("sync_debug"):
+            _check(all(rr[k].get("sync_debug") for rr in recs), f"{label}: sync debug")
+            print(f"{label}: every rank's round trip again under set_sync_debug_mode('error'):"
+                  " no host-blocking operation outside the halo exchange's host staging")
+        if case.get("time"):
+            for rr in recs:
+                ms, hm = rr[k]["ms"], rr[k]["halo_ms"]
+                print(f"time {label} rank {rr[k]['rank']}: round trip "
+                      f"{_fmt(_stats(ms))}, halo exchange alone {_fmt(_stats(hm))} "
+                      f"(median [min, max] of {len(ms)} calls; {how}) on {card}")
+        if case["frames"] == BATCH and tuple(case["mesh"]) == (2, 2):
+            if case["standard"] == "pal":
+                launches_sharded["qam_encode_shared"] = [c["qam_encode"] for c in counts]
+                launches_sharded["qam_decode_shared"] = [c["qam_decode"] for c in counts]
+            else:
+                for name in want:
+                    launches_sharded[name] = [c[name] for c in counts]
+    return launches_sharded
+
+
+def check_sharded(dev, card: str) -> dict:
+    """Phase 4j: the parallel layer on one card.  4 gloo ranks, every one
+    computing on cuda:0 (NCCL refuses two ranks on one GPU), each holding its
+    own (frame, lineblk) block, run :func:`sharded_cases`; rank 0 holds each
+    gathered result against the unsharded pipeline on the card (QAM bit for
+    bit, the other bounds of the JAX gate), each rank's launches and device
+    are checked, and the main path runs once more with every host-blocking
+    CUDA operation an error outside the halo exchange's host staging.  Then
+    NCCL on a 1x1 mesh (and on 2x2 with 4 cards).  Returns each kernel's
+    launches per rank on the (2,2) full-width cases."""
+    import torch
+
+    from color_modem_tpu_torch.parallel import multihost as mh
+
+    cases = sharded_cases()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        recs = mh.launch(cases, SHARDED_RANKS, backend="gloo", outdir=out, timeout=600.0)
+    wall = time.perf_counter() - t0
+    n_cards = torch.cuda.device_count()
+    devices = [f"cuda:{r % n_cards}" for r in range(SHARDED_RANKS)]
+    how = f"{SHARDED_RANKS} gloo ranks on {n_cards} card(s): not a scaling figure"
+    launches_sharded = check_sharded_records(cases, recs, devices, card, how)
+    print(f"phase 4j: {len(cases)} sharded cases on {SHARDED_RANKS} gloo ranks on "
+          f"{sorted(set(devices))} in {wall:.1f} s")
+
+    # NCCL: one rank per card; on one card only a group of one
+    for n_ranks, ms in ((1, (1, 1)), (4, (2, 2))):
+        if n_cards < n_ranks:
+            print(f"nccl {ms[0]}x{ms[1]}: not run ({n_cards} card(s); NCCL needs one card "
+                  "per rank)")
+            continue
+        case = mh._case("pipeline", "ntsc", "comb3", ms, BATCH, 480, seed=0, broadcast=True,
+                        frame0=0)
+        with tempfile.TemporaryDirectory() as out:
+            rr = mh.launch([case], n_ranks, backend="nccl", outdir=out, timeout=300.0)
+        r0 = rr[0][0]
+        _check(r0["err"]["rt"] == 0.0 and abs(r0["psnr"] - PSNR_EXPECTED) <= PSNR_TOL,
+               f"nccl {ms}: {r0}")
+        print(f"nccl {ms[0]}x{ms[1]} ran on {[r[0]['device'] for r in rr]}: NTSC comb3 "
+              f"{BATCH}x3x480x{N} psnr {r0['psnr']:.4f} dB, bit-identical to unsharded, "
+              f"launches per rank {[r[0]['launches'] for r in rr]}")
+    return launches_sharded
+
+
+def check_video_mesh(dev, card: str, unsharded: dict) -> None:
+    """Phase 6 over a mesh: ``process_video(mesh=(2,2))`` NTSC comb3 at
+    48x480x720 in chunks of 16 from the device source, on 4 gloo ranks on
+    the card, against the same run unsharded: PSNR +- 0.02 dB of phase 6's
+    (``unsharded``: its summaries), the saved frames bit-identical (the QAM
+    bound), each rank's launches (one encode and one decode of its block
+    per chunk), only rank 0 with a summary; then the same run without
+    saving, whose Mpix/s is printed beside phase 6's unsharded runs."""
+    import glob
+
+    import numpy as np
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.parallel import multihost as mh
+
+    opts = {"decoder": "comb3", "chunk": VIDEO_CHUNK}
+    label = f"video mesh 2x2 ntsc comb3 {VIDEO_FRAMES}x3x480x{N} chunk {VIDEO_CHUNK}"
+    case = {"name": "video-mesh", "kind": "video", "mesh": [2, 2], "standard": "ntsc",
+            "out": "mesh", "source": "device", "backend": "kernel",
+            "opts": dict(opts, n_frames=VIDEO_FRAMES, lines=480)}
+    rate_case = dict(case, name="video-mesh-rate", out="rate", save=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        recs = mh.launch([case, rate_case], SHARDED_RANKS, backend="gloo", outdir=tmp,
+                         timeout=600.0)
+        wall = time.perf_counter() - t0
+        process_video(make_plan(NTSC(), N), synthetic_device_source(480, N, seed=0, device=dev),
+                      VIDEO_FRAMES, os.path.join(tmp, "one"), device=dev, save_outputs=True,
+                      **opts)
+
+        def frames(d):
+            return np.concatenate([np.load(f) for f in sorted(
+                glob.glob(os.path.join(tmp, d, "rgb_*.npy")))])
+
+        got, want = frames("mesh"), frames("one")
+    s, rate = recs[0][0]["summary"], recs[0][1]["summary"]
+    unsharded_psnr = unsharded["kernel"]["min_psnr_db"]
+    chunks = VIDEO_FRAMES // VIDEO_CHUNK
+    counts = [rr[0]["launches"] for rr in recs]
+    e = float(np.abs(got - want).max())
+    print(f"{label}: min_psnr_db {s['min_psnr_db']} (phase 6 unsharded {unsharded_psnr} +- "
+          f"{PSNR_TOL}), frames max|diff| against the unsharded run {e:.3e} (== 0), "
+          f"launches per rank {counts}, launch of both runs {wall:.1f} s")
+    print(f"{label}: {rate['mpix_per_s']} Mpix/s without saving ({s['mpix_per_s']} saving the "
+          f"frames) on {SHARDED_RANKS} ranks sharing one card through gloo (not a scaling "
+          f"figure), against {_fmt_rate(unsharded['rates']['kernel'])} Mpix/s unsharded "
+          f"(phase 6), on {card}")
+    _check(got.shape == (VIDEO_FRAMES, 3, 480, N), f"{label}: {got.shape}")
+    _check(abs(s["min_psnr_db"] - unsharded_psnr) <= PSNR_TOL, f"{label}: {s}")
+    _check(rate["min_psnr_db"] == s["min_psnr_db"], f"{label}: {rate}")
+    _check(e == 0.0, f"{label}: frames differ from the unsharded run by {e}")
+    _check(s["mesh"] == {"frame": 2, "lineblk": 2}, f"{label}: {s}")
+    _check(all(rr[0]["summary"] is None for rr in recs[1:]), f"{label}: ranks 1-3 reported")
+    want_counts = {"qam_encode": chunks, "qam_decode": chunks, "secam_encode": 0,
+                   "secam_decode": 0}
+    _check(all(c == want_counts for c in counts), f"{label}: launches {counts}")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2237,6 +2458,9 @@ def main() -> None:
     # --- 4i. the data services and instruments ------------------------------------
     services = check_data_services(dev, card)
 
+    # --- 4j. the parallel layer: ranks sharing the card -----------------------------
+    launches_sharded = check_sharded(dev, card)
+
     # --- 5. timing: main path and SECAM; 5c. PAL/NIIR; 5e. frame layer ---------
     times = {}
     for name, decoder in (("ntsc", "comb3"), ("secam", "interp"), ("pal", "delayline"),
@@ -2248,8 +2472,9 @@ def main() -> None:
     time_data_services(card, services)
 
     # --- 6. the video runner ----------------------------------------------------
-    check_video(dev, card)
+    video = check_video(dev, card)
     check_video_services(dev, card)
+    check_video_mesh(dev, card, video)
 
     _check("jax" not in sys.modules, "the port loaded jax")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
@@ -2273,6 +2498,7 @@ def main() -> None:
          "library_ms": (times[path][kernel]["library"][0]
                         if times[path][kernel]["library"] else None),
          "launches_data_services": services["launches"].get(name),
+         "launches_sharded": launches_sharded[name],
          "ms_spread": list(times[path][kernel]["kernel"][1:]),
          "plain_ms_spread": list(times[path][kernel]["plain"][1:])}
         for name, (kernel, path, where) in replaces.items()

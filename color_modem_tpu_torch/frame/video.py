@@ -52,6 +52,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from color_modem_tpu_torch.standards.decoders import temporal_comb_spacing
 from color_modem_tpu_torch.frame import rf as rf_mod
@@ -76,6 +77,12 @@ from color_modem_tpu_torch.frame.scramble import MODES as SCRAMBLE_MODES
 from color_modem_tpu_torch.frame.scramble import descramble as descramble_block
 from color_modem_tpu_torch.frame.scramble import scramble as scramble_block
 from color_modem_tpu_torch.frame.vbi import cc_spec, decode_data_line, encode_data_line
+from color_modem_tpu_torch.parallel.mesh import (
+    FRAME_AXIS,
+    all_gather_blocks,
+    gather_blocks,
+    local_block,
+)
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
 from color_modem_tpu_torch.utils.upload import upload
@@ -157,13 +164,31 @@ def synthetic_device_source(lines: int, samples: int, seed: int = 0,
     return src
 
 
-def _refuse_unported(mesh) -> None:
-    """The JAX runner's option whose module the port lacks yet, with the
-    ROADMAP queue 1 item that ports it."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "process_video mesh is not ported yet: ROADMAP queue 1 item 10 (parallel layer)"
-        )
+def _mesh_pipeline(plan: Plan, mesh, decoder: str, backend: str, interlaced: bool):
+    """``(encode, decode, roundtrip)`` on whole chunks over ``mesh``: every
+    rank holds the whole chunk and works on its own block.  ``encode``
+    returns the whole composite on every rank (for the stages that act on
+    the whole chunk); ``decode`` and ``roundtrip`` return the whole decoded
+    chunk on rank 0 and None on the others."""
+    from color_modem_tpu_torch.parallel.sharded import (
+        make_sharded_interlaced_pipeline,
+        make_sharded_pipeline,
+    )
+
+    make = make_sharded_interlaced_pipeline if interlaced else make_sharded_pipeline
+    enc_s, dec_s, rt_s = make(plan, mesh, decoder, backend)
+
+    def encode(rgb, frame0):
+        return all_gather_blocks(mesh, enc_s(local_block(mesh, rgb, "rgb"), frame0),
+                                 "composite")
+
+    def decode(comp, frame0):
+        return gather_blocks(mesh, dec_s(local_block(mesh, comp, "composite"), frame0))
+
+    def roundtrip(rgb, frame0):
+        return gather_blocks(mesh, rt_s(local_block(mesh, rgb, "rgb"), frame0))
+
+    return encode, decode, roundtrip
 
 
 def _sound_track(rf_audio, n_frames: int, snd_dev: float, fs: float):
@@ -243,10 +268,19 @@ def process_video(
     ``linedelay`` and ``shuffle`` (which needs the transmitted line count
     divisible by 32), refused together with ``channel={"equalize": True}``
     (the equalizer needs the stream continuity the scrambler destroys).
-    ``mesh`` raises ``NotImplementedError``: the parallel layer is not
-    ported yet.
+    ``mesh``: a rank mesh (``parallel/mesh.py::make_mesh``); every rank of
+    it makes the same call and computes on the mesh's device.  Each rank
+    encodes and decodes its own (frame, lineblk) block of every chunk
+    (``parallel/sharded.py``; a chunk takes in true neighbour frames up to
+    a multiple of the frame axis, with ``2 * temporal_comb_spacing``
+    frames per rank for the temporal combs).  The hop, the channel and the
+    data services act on the whole chunk, as the JAX runner's do outside
+    its ``shard_map``: each rank runs them on the gathered composite and
+    keeps its block.  Rank 0 gathers the decoded frames, applies NR,
+    writes the outputs, the manifest and the summary and returns the
+    summary; the other ranks write nothing and return None.  The manifest
+    records the mesh, so a run resumed with another mesh is refused.
     """
-    _refuse_unported(mesh)
     want_sound = rf_audio is not None
     if want_sound and not rf:
         raise ValueError("rf_audio rides the RF sound carrier — pass rf=True")
@@ -262,8 +296,12 @@ def process_video(
         if channel and channel.get("equalize"):
             raise ValueError("scramble breaks the stream continuity the GCR equalizer "
                              "needs; descramble before equalizing instead")
-    device = resolve_device(device)
-    os.makedirs(out_dir, exist_ok=True)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    # with a mesh, rank 0 alone writes; every rank reads the manifest here,
+    # before rank 0 can mark a chunk (its first mark follows a gather)
+    rank0 = mesh is None or dist.get_rank() == 0
+    if rank0:
+        os.makedirs(out_dir, exist_ok=True)
     manifest = ChunkManifest(out_dir) if resume else None
     if lines is None:
         lines = int(source(0, 1).shape[2])
@@ -289,13 +327,16 @@ def process_video(
         **({"rf_audio_bw": rf_audio_bw} if rf_audio_bw != 15e3 else {}),
         **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
         **({"caption": True} if caption_bits is not None else {}),
-        "mesh": None,
+        "mesh": mesh.shape if mesh is not None else None,
     }
     if manifest:
         manifest.check_config(config)
 
-    make = make_interlaced_pipeline if interlaced else make_pipeline
-    enc_f, dec_f, roundtrip = make(plan, decoder, backend, device)
+    if mesh is None:
+        make = make_interlaced_pipeline if interlaced else make_pipeline
+        enc_f, dec_f, roundtrip = make(plan, decoder, backend, device)
+    else:
+        enc_f, dec_f, roundtrip = _mesh_pipeline(plan, mesh, decoder, backend, interlaced)
 
     # interlaced encode puts fields (2 per frame) on the leading axis
     units = 2 if interlaced else 1
@@ -411,11 +452,12 @@ def process_video(
     if nr and nr_sigma is None and chan_noise_sigma > 0.0:
         nr_sigma = chan_noise_sigma
 
-    min_frames, overlap = 1, 0
+    min_frames, overlap, per_rank = 1, 0, 1
+    frame_axis = mesh.size(FRAME_AXIS) if mesh is not None else 1
     if decoder in ("comb3d", "comb3dA"):
         # true temporal neighbours at chunk edges: `pt` extra frames per side
         pt = temporal_comb_spacing(plan.cfg) or 1
-        min_frames, overlap = 2 * pt, pt
+        min_frames, overlap, per_rank = 2 * pt, pt, 2 * pt
     if nr:
         # the 3-frame stencil needs >= 2 frames and its true neighbours,
         # decoded from THEIR true neighbours: one frame per side on top of
@@ -444,19 +486,43 @@ def process_video(
         # a copy of its own: the source may hand out read-only or shared memory
         return upload(x, device, np.float32)
 
+    def _target(b: int) -> int:
+        """Frames a chunk of ``b`` frames goes through the pipeline as: at
+        least ``min_frames``, and a multiple of the frame axis with
+        ``per_rank`` frames on each of its ranks."""
+        t = max(b, min_frames, frame_axis * per_rank)
+        return t + -t % frame_axis
+
+    def _widen(lo: int, hi: int) -> tuple[int, int]:
+        """With a mesh, the frames the frame axis needs beyond the chunk and
+        its overlap are true frames, earlier ones first: they lie beyond the
+        stencils' reach from the chunk's own frames, so the output matches
+        the unsharded run's (repeats only for a video shorter than that)."""
+        need = _target(hi - lo) - (hi - lo)
+        k = min(need, lo)
+        return lo - k, min(n_frames, hi + need - k)
+
     def _pad_frames(rgb: torch.Tensor) -> torch.Tensor:
+        """Repeats of the last frame up to :func:`_target`."""
         b = rgb.shape[0]
-        if b >= min_frames:
+        target = _target(b)
+        if target == b:
             return rgb
-        return torch.cat([rgb, rgb[-1:].expand(min_frames - b, *rgb.shape[1:])])
+        return torch.cat([rgb, rgb[-1:].expand(target - b, *rgb.shape[1:])])
 
     @torch.inference_mode()
-    def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int, aud=None, phi0=0.0):
+    def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int, skip: int, aud=None,
+             phi0=0.0):
         """Round trip (+ NR), then PSNR and fingerprint over the chunk's own
-        frames, on the device: no host sync.  Returns the frames, the
-        metrics, the received audio (an empty tensor without sound) and the
-        decoded caption bits (None without captions)."""
+        frames, on the device: no host sync.  The fingerprint leaves out the
+        first ``skip`` frames (those a mesh run took in before the unsharded
+        run's first), so the own frames sit where the unsharded run has
+        them.  Returns the frames, the metrics, the received audio (an empty
+        tensor without sound) and the decoded caption bits (None without
+        captions)."""
         out, comp, aud_rx = roundtrip(rgb, frame0, aud, phi0)
+        if out is None:
+            return None  # a rank other than 0 of a mesh
         if nr:
             out = temporal_nr(out, nr_sigma)
         e = torch.arange(out.shape[0], device=device)
@@ -470,7 +536,7 @@ def process_video(
         err = ((pic - ref) ** 2).mean(dim=(1, 2, 3))
         mse = (err * mask).sum() / float(max(n_real, 1))
         q = 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-20))
-        metrics = torch.cat([q.reshape(1), fingerprint(pic * mask[:, None, None, None])])
+        metrics = torch.cat([q.reshape(1), fingerprint((pic * mask[:, None, None, None])[skip:])])
         if aud_rx is None:
             aud_rx = metrics.new_zeros(0)
         if cc is not None:
@@ -520,11 +586,17 @@ def process_video(
         end = min(start + chunk, n_frames)
         if manifest and manifest.is_done(start, end):
             continue
-        lo, hi = max(0, start - overlap), min(n_frames, end + overlap)
+        lo_u = lo = max(0, start - overlap)
+        hi = min(n_frames, end + overlap)
+        if mesh is not None:
+            lo, hi = _widen(lo, hi)
         rgb = _pad_frames(_input(source(lo, hi - lo)))
         pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
         sound = _chunk_sound(lo, rgb.shape[0]) if want_sound else ()
-        out, metrics, aud_rx, cc = step(rgb, lo, start - lo, end - start, *sound)
+        res = step(rgb, lo, start - lo, end - start, lo_u - lo, *sound)
+        if res is None:
+            continue
+        out, metrics, aud_rx, cc = res
         pending.append((start, end, start - lo, out if save_outputs else None, metrics,
                         aud_rx, cc))
         if len(pending) >= wave:
@@ -533,6 +605,11 @@ def process_video(
     if pending:
         _resolve(pending)
     wall = time.perf_counter() - t_start
+    if not rank0:
+        # return once rank 0 has written the run: a next call on this
+        # directory reads its manifest
+        dist.barrier()
+        return None
 
     summary = {
         **config,
@@ -546,4 +623,6 @@ def process_video(
     os.makedirs(results_dir, exist_ok=True)
     with open(os.path.join(results_dir, f"run_{time.time_ns()}.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    if mesh is not None:
+        dist.barrier()
     return summary

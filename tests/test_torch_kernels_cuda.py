@@ -844,3 +844,46 @@ def test_video_services_on_the_card(dev, tmp_path):
             torch.cuda.set_sync_debug_mode(0)
     syncs = [str(c.message) for c in caught if "synchronizing CUDA" in str(c.message)]
     assert len(syncs) == 1, syncs
+
+
+# --- the parallel layer: ranks sharing the card ------------------------------
+
+
+@pytest.fixture(scope="module")
+def two_gloo_ranks(dev, tmp_path_factory):
+    """NTSC comb3 at 4x3x480x720 on 2 gloo ranks, both computing on the card
+    (NCCL refuses two ranks on one GPU), on the (2,1) and (1,2) meshes; the
+    round trip run a second time with every host-blocking CUDA operation
+    an error outside the halo exchange's host staging."""
+    from color_modem_tpu_torch.parallel import multihost as mh
+
+    cases = [dict(mh._case("pipeline", "ntsc", "comb3", ms, 4, 480, seed=0, broadcast=True,
+                           frame0=0), sync_debug=True) for ms in [(2, 1), (1, 2)]]
+    return mh.launch(cases, 2, backend="gloo", outdir=str(tmp_path_factory.mktemp("ranks")),
+                     timeout=600.0)
+
+
+def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
+    for k in range(2):
+        r0 = two_gloo_ranks[0][k]
+        assert r0["err"] == {"rt": 0.0, "enc": 0.0, "dec": 0.0}, r0
+        assert abs(r0["psnr"] - 46.62) <= 0.02
+        for rr in two_gloo_ranks:
+            assert rr[k]["device"] == "cuda:0"
+            assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
+                                         "secam_decode": 0}
+
+
+def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
+    assert all(r["sync_debug"] for rr in two_gloo_ranks for r in rr)
+
+
+def test_nccl_refuses_more_ranks_than_cards(dev, monkeypatch):
+    from color_modem_tpu_torch.parallel import mesh
+
+    n = torch.cuda.device_count() + 1
+    monkeypatch.setenv("WORLD_SIZE", str(n))
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", str(n))
+    with pytest.raises(ValueError, match="one card per rank"):
+        mesh.init_distributed("nccl")
+    assert not torch.distributed.is_initialized()

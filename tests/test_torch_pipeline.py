@@ -250,6 +250,12 @@ def test_port_never_imports_jax():
                                     device="cpu", rf=True,
                                     rf_audio=np.zeros(2 * 16 * 720, np.float32))
         assert s["rf_audio"] is True
+        # the parallel layer: a one-rank mesh
+        from color_modem_tpu_torch.parallel import halo, mesh, multihost, sharded
+        m = mesh.make_mesh(backend="gloo", device="cpu")
+        _, _, rt = sharded.make_sharded_pipeline(make_plan(NTSC(), 720), m, "comb3")
+        assert psnr(mesh.gather_blocks(m, rt(mesh.local_block(m, rgb), 0)), rgb) > 30.0
+        torch.distributed.destroy_process_group()
         import importlib, pkgutil
         import color_modem_tpu_torch as port
         for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):

@@ -202,12 +202,6 @@ def test_chunk_independent(case, tmp_path):
     np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], atol=CHUNK_ATOL, rtol=0)
 
 
-def test_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 10"):
-        process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "x"), mesh=object())
-    assert not os.path.exists(tmp_path / "x")
-
-
 #: case -> (process_video options, max |diff| of the saved frames against
 #: the JAX runner's).  Satellite: the reference's float32 FM phase integral
 #: (its cumsum) is off the float64 one by up to ~2e-4 rad per sample, which
