@@ -92,15 +92,18 @@ Phases; any failure raises and exits nonzero:
    (comb3d/comb3dA's dual rings, the interlaced pipeline, MAC, PALplus, the
    RF and satellite hops, RF sound, satellite audio): each gathered on rank
    0 against the unsharded pipeline on the card (QAM bit for bit, the
-   adaptive comb3dA 1e-6, whose plain separation products cuBLAS sums in
-   an order that follows the block's line count, SECAM and
+   adaptive comb3dA 1e-6 on the card, whose plain separation products
+   cuBLAS sums in an order that follows the product's row count, SECAM and
    MAC 1e-5, PALplus 1e-6, RF hop 2e-6, satellite hop 1e-3, RF sound 2e-5 /
    1e-5, satellite audio 1e-3 / 1e-5), each rank's launches (one encode and
    one decode of its block) and device, the main path once more under
    ``set_sync_debug_mode("error")`` outside the halo exchange's host
    staging, each rank's round-trip and halo-exchange times (4 ranks sharing
-   one card: not a scaling figure); then NCCL on a 1x1 mesh (2x2 with 4
-   cards), printing which ran;
+   one card: not a scaling figure); the comb3dA witness (the (2,2) and
+   (4,1) blocks decoded in this process from the full composite, no rank
+   involved, against the full frame, and the separation's FIR product on a
+   block's rows against the full frame's, timed); then NCCL on a 1x1 mesh
+   (2x2 with 4 cards), printing which ran;
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
    SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
@@ -132,7 +135,9 @@ Phases; any failure raises and exits nonzero:
    the RF hop), one synchronising operation per wave; last, the runner over
    a (2,2) mesh of 4 gloo ranks on the card (``process_video(mesh=)``, NTSC
    comb3 48x480x720 in chunks of 16): PSNR +- 0.02 dB of the unsharded run,
-   the frames equal to it bit for bit, 3 launches of each kernel per rank.
+   the frames equal to it bit for bit, 3 launches of each kernel per rank;
+   and over the mesh with captions and cutrotate through the RF hop, each
+   rank transmitting its share: the unsharded run's PSNR, the cells exact.
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
@@ -2244,6 +2249,88 @@ def check_sharded_records(cases: list, recs: list, devices: list, card: str,
     return launches_sharded
 
 
+class _MeshPosition:
+    """A (frame, lineblk) position of a mesh without a process group: the
+    mesh-position arithmetic of ``parallel/sharded.py`` in one process."""
+
+    def __init__(self, pos: tuple, shape: tuple, device):
+        self.pos, self.shape, self.device = pos, shape, device
+
+    def index(self, axis: str) -> int:
+        return self.pos[axis == "lineblk"]
+
+    def size(self, axis: str) -> int:
+        return self.shape[axis == "lineblk"]
+
+
+def adaptive_witness(dev, card: str, sharded_err: dict) -> None:
+    """Where comb3dA's sharded difference on the card comes from, with no
+    rank and no exchange: phase 4j's comb3dA input (8 frames x 64 lines,
+    frame 3 first) encoded once; each rank's halo-extended block of the
+    (2,2) and (4,1) meshes cut from that composite by the mesh-position
+    arithmetic (what the halo exchange delivers) and decoded in this
+    process, against the full-frame decode.  Beside it, the separation's
+    first plain FIR product (``fir_same``) on a block's rows and on the
+    full frame's, compared on the same lines and timed.  ``sharded_err``:
+    mesh -> the 4-rank run's difference.  Fails past
+    ``ADAPTIVE_CUDA_BOUND``."""
+    import torch
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.dsp.apply import fir_same
+    from color_modem_tpu_torch.dsp.nco import frame_indices
+    from color_modem_tpu_torch.frame.pipeline import decode_block, encode_block
+    from color_modem_tpu_torch.kernels.measure import time_ms
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.parallel import multihost as mh
+    from color_modem_tpu_torch.parallel.sharded import (
+        _block_rows,
+        _ext_frame_offsets,
+        _gline,
+        required_halo,
+    )
+    from color_modem_tpu_torch.standards.decoders import temporal_comb_spacing
+
+    plan = make_plan(NTSC(), N).to(dev)
+    frames, lines, frame0 = 8, 64, 3
+    pt, h = temporal_comb_spacing(plan.cfg), required_halo(plan, "comb3dA")
+    bpf, bound = plan.chroma_bpf_mat, mh.ADAPTIVE_CUDA_BOUND
+    with torch.inference_mode():
+        x = torch.tensor(mh.fixture(frames, lines), device=dev)
+        g = _gline(plan, frame_indices(frame0, frames, dev),
+                   torch.arange(lines, dtype=torch.int32, device=dev))
+        comp = encode_block(plan, x, g, "kernel")
+        full = decode_block(plan, comp, g, "comb3dA", "kernel")
+        t_full = _stats(time_ms(lambda: fir_same(comp, bpf)))
+        for shape in ((2, 2), (4, 1)):
+            b, l = frames // shape[0], lines // shape[1]
+            hl = h if shape[1] > 1 else 0
+            e_dec = e_mm = 0.0
+            for fi in range(shape[0]):
+                for li in range(shape[1]):
+                    pos = _MeshPosition((fi, li), shape, dev)
+                    f = _ext_frame_offsets(pos, b, pt)
+                    rows = _block_rows(pos, l, hl)
+                    cext = comp[f.long()][:, rows.long()]
+                    gext = _gline(plan, frame_indices(frame0, 1, dev) + f, rows)
+                    blk = decode_block(plan, cext, gext, "comb3dA", "kernel")[pt : pt + b]
+                    own = (slice(fi * b, (fi + 1) * b), slice(li * l, (li + 1) * l))
+                    e_dec = max(e_dec, _max_err(blk[..., hl : hl + l, :],
+                                                full[own[0], :, own[1]]))
+                    e_mm = max(e_mm, _max_err(fir_same(cext, bpf)[pt : pt + b, hl : hl + l],
+                                              fir_same(comp, bpf)[own]))
+            t_blk = _stats(time_ms(lambda: fir_same(cext, bpf)))
+            print(f"comb3dA witness {shape[0]}x{shape[1]}, one process, no exchange: each "
+                  f"rank's block decoded from the full composite against the full-frame "
+                  f"decode max|err| {e_dec:.3e} (the sharded run on 4 ranks read "
+                  f"{sharded_err[shape]:.3e}; <= {bound}); the separation's FIR product "
+                  f"fir_same on a block's {cext.shape[0]}x{cext.shape[1]} lines against the "
+                  f"full frame's {frames}x{lines}, on the same lines, {e_mm:.3e}; its time "
+                  f"{_fmt(t_blk)} on the block, {_fmt(t_full)} on the full frame (median "
+                  f"[min, max] of 5 windows) on {card}")
+            _check(e_dec <= bound, f"comb3dA witness {shape}: {e_dec} > {bound}")
+
+
 def check_sharded(dev, card: str) -> dict:
     """Phase 4j: the parallel layer on one card.  4 gloo ranks, every one
     computing on cuda:0 (NCCL refuses two ranks on one GPU), each holding its
@@ -2269,6 +2356,9 @@ def check_sharded(dev, card: str) -> dict:
     launches_sharded = check_sharded_records(cases, recs, devices, card, how)
     print(f"phase 4j: {len(cases)} sharded cases on {SHARDED_RANKS} gloo ranks on "
           f"{sorted(set(devices))} in {wall:.1f} s")
+    adaptive_witness(dev, card, {tuple(c["mesh"]): recs[0][k]["err"]["rt"]
+                                 for k, c in enumerate(cases)
+                                 if c["kind"] == "pipeline" and c["decoder"] == "comb3dA"})
 
     # NCCL: one rank per card; on one card only a group of one
     for n_ranks, ms in ((1, (1, 1)), (4, (2, 2))):
@@ -2289,6 +2379,28 @@ def check_sharded(dev, card: str) -> dict:
     return launches_sharded
 
 
+def mesh_services_cases() -> tuple:
+    """The mesh runner's cases with captions and cutrotate scrambling
+    through the RF hop (NTSC comb3 48x480x720 in chunks of 16 on a (2,2)
+    mesh, without saving): a first run that warms the ranks' collectives
+    and plans, and the run that is read; its caption bits and its
+    unsharded PSNR."""
+    import numpy as np
+
+    from color_modem_tpu_torch.frame.vbi import cc_pack
+
+    bits = np.stack([cc_pack(VIDEO_CAPTION[2 * i : 2 * i + 2]).numpy()
+                     for i in range(VIDEO_FRAMES)])
+    kw, want, _ = VIDEO_SERVICES["caption scramble rf"]
+    case = {"name": "video-mesh-services", "kind": "video", "mesh": [2, 2],
+            "standard": "ntsc", "out": "services", "source": "device", "backend": "kernel",
+            "save": False,
+            "opts": {"decoder": "comb3", "chunk": VIDEO_CHUNK, "n_frames": VIDEO_FRAMES,
+                     "lines": 480, "rf": True, "scramble": list(kw["scramble"]),
+                     "caption_bits": bits.tolist()}}
+    return [dict(case, name="video-mesh-services-warm", out="services-warm"), case], bits, want
+
+
 def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     """Phase 6 over a mesh: ``process_video(mesh=(2,2))`` NTSC comb3 at
     48x480x720 in chunks of 16 from the device source, on 4 gloo ranks on
@@ -2296,7 +2408,11 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     (``unsharded``: its summaries), the saved frames bit-identical (the QAM
     bound), each rank's launches (one encode and one decode of its block
     per chunk), only rank 0 with a summary; then the same run without
-    saving, whose Mpix/s is printed beside phase 6's unsharded runs."""
+    saving, whose Mpix/s is printed beside phase 6's unsharded runs; and
+    the mesh run with captions and cutrotate scrambling through the RF hop
+    (each rank transmitting its share of every chunk), without saving, its
+    second run read: the PSNR of its unsharded phase 6 run
+    (``VIDEO_SERVICES``) and the caption cells exact."""
     import glob
 
     import numpy as np
@@ -2312,11 +2428,14 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
             "out": "mesh", "source": "device", "backend": "kernel",
             "opts": dict(opts, n_frames=VIDEO_FRAMES, lines=480)}
     rate_case = dict(case, name="video-mesh-rate", out="rate", save=False)
+    svc_cases, bits, svc_psnr = mesh_services_cases()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        recs = mh.launch([case, rate_case], SHARDED_RANKS, backend="gloo", outdir=tmp,
-                         timeout=600.0)
+        recs = mh.launch([case, rate_case, *svc_cases], SHARDED_RANKS, backend="gloo",
+                         outdir=tmp, timeout=600.0)
         wall = time.perf_counter() - t0
+        cells = np.concatenate([np.load(f) for f in sorted(
+            glob.glob(os.path.join(tmp, "services", "cc_*.npy")))])
         process_video(make_plan(NTSC(), N), synthetic_device_source(480, N, seed=0, device=dev),
                       VIDEO_FRAMES, os.path.join(tmp, "one"), device=dev, save_outputs=True,
                       **opts)
@@ -2347,6 +2466,17 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     want_counts = {"qam_encode": chunks, "qam_decode": chunks, "secam_encode": 0,
                    "secam_decode": 0}
     _check(all(c == want_counts for c in counts), f"{label}: launches {counts}")
+    svc = recs[0][3]["summary"]
+    svc_counts = [rr[3]["launches"] for rr in recs]
+    label = f"video mesh 2x2 ntsc comb3 caption scramble rf {VIDEO_FRAMES}x3x480x{N}"
+    print(f"{label}: min_psnr_db {svc['min_psnr_db']} (unsharded {svc_psnr} +- {PSNR_TOL}), "
+          f"{len(cells)} caption cells exact: {np.array_equal(cells, bits)}, launches per "
+          f"rank {svc_counts}, {svc['mpix_per_s']} Mpix/s without saving on "
+          f"{SHARDED_RANKS} ranks sharing one card through gloo (not a scaling figure), "
+          f"on {card}")
+    _check(abs(svc["min_psnr_db"] - svc_psnr) <= PSNR_TOL, f"{label}: {svc}")
+    _check(np.array_equal(cells, bits), f"{label}: caption cells")
+    _check(all(c == want_counts for c in svc_counts), f"{label}: launches {svc_counts}")
 
 
 def main() -> None:

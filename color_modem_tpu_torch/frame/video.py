@@ -79,9 +79,15 @@ from color_modem_tpu_torch.frame.scramble import scramble as scramble_block
 from color_modem_tpu_torch.frame.vbi import cc_spec, decode_data_line, encode_data_line
 from color_modem_tpu_torch.parallel.mesh import (
     FRAME_AXIS,
-    all_gather_blocks,
     gather_blocks,
+    line_block,
     local_block,
+)
+from color_modem_tpu_torch.parallel.sharded import (
+    hop_stage,
+    make_sharded_interlaced_pipeline,
+    make_sharded_pipeline,
+    sound_from_rf_ring,
 )
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
@@ -164,33 +170,6 @@ def synthetic_device_source(lines: int, samples: int, seed: int = 0,
     return src
 
 
-def _mesh_pipeline(plan: Plan, mesh, decoder: str, backend: str, interlaced: bool):
-    """``(encode, decode, roundtrip)`` on whole chunks over ``mesh``: every
-    rank holds the whole chunk and works on its own block.  ``encode``
-    returns the whole composite on every rank (for the stages that act on
-    the whole chunk); ``decode`` and ``roundtrip`` return the whole decoded
-    chunk on rank 0 and None on the others."""
-    from color_modem_tpu_torch.parallel.sharded import (
-        make_sharded_interlaced_pipeline,
-        make_sharded_pipeline,
-    )
-
-    make = make_sharded_interlaced_pipeline if interlaced else make_sharded_pipeline
-    enc_s, dec_s, rt_s = make(plan, mesh, decoder, backend)
-
-    def encode(rgb, frame0):
-        return all_gather_blocks(mesh, enc_s(local_block(mesh, rgb, "rgb"), frame0),
-                                 "composite")
-
-    def decode(comp, frame0):
-        return gather_blocks(mesh, dec_s(local_block(mesh, comp, "composite"), frame0))
-
-    def roundtrip(rgb, frame0):
-        return gather_blocks(mesh, rt_s(local_block(mesh, rgb, "rgb"), frame0))
-
-    return encode, decode, roundtrip
-
-
 def _sound_track(rf_audio, n_frames: int, snd_dev: float, fs: float):
     """The soundtrack as ``(n_frames, item)`` float32 blocks and each
     frame's starting deviation phase: the float64 prefix sum of the whole
@@ -269,17 +248,24 @@ def process_video(
     divisible by 32), refused together with ``channel={"equalize": True}``
     (the equalizer needs the stream continuity the scrambler destroys).
     ``mesh``: a rank mesh (``parallel/mesh.py::make_mesh``); every rank of
-    it makes the same call and computes on the mesh's device.  Each rank
-    encodes and decodes its own (frame, lineblk) block of every chunk
-    (``parallel/sharded.py``; a chunk takes in true neighbour frames up to
-    a multiple of the frame axis, with ``2 * temporal_comb_spacing``
-    frames per rank for the temporal combs).  The hop, the channel and the
-    data services act on the whole chunk, as the JAX runner's do outside
-    its ``shard_map``: each rank runs them on the gathered composite and
-    keeps its block.  Rank 0 gathers the decoded frames, applies NR,
-    writes the outputs, the manifest and the summary and returns the
-    summary; the other ranks write nothing and return None.  The manifest
-    records the mesh, so a run resumed with another mesh is refused.
+    it makes the same call and computes on the mesh's device, which
+    ``device`` must name (``"cuda"`` stands for any card; another device
+    raises ``ValueError``).  Each rank reads its
+    own frames of every chunk (rank 0 the whole chunk: the reference of
+    the metrics it computes) and encodes and decodes its (frame, lineblk)
+    block (``parallel/sharded.py``).  The data services, the hop and the
+    channel act on whole frames: the line ring gathers its blocks and
+    spreads the frames over its members (``sharded.py::hop_stage``), so
+    each rank transmits its share of the chunk, and a soundtrack's
+    receiver takes one item of RF from each neighbour around the rank ring
+    (``sharded.py::sound_from_rf_ring``).  A chunk takes in true neighbour
+    frames up to a multiple of the frame axis (of the rank count when
+    frames are transmitted), with ``2 * temporal_comb_spacing`` frames per
+    frame block for the temporal combs.  Rank 0 gathers the decoded frames,
+    the received audio and the caption cells, applies NR, writes the
+    outputs, the manifest and the summary and returns the summary; the
+    other ranks write nothing and return None.  The manifest records the
+    mesh, so a run resumed with another mesh is refused.
     """
     want_sound = rf_audio is not None
     if want_sound and not rf:
@@ -296,7 +282,14 @@ def process_video(
         if channel and channel.get("equalize"):
             raise ValueError("scramble breaks the stream continuity the GCR equalizer "
                              "needs; descramble before equalizing instead")
-    device = mesh.device if mesh is not None else resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
+    else:
+        want = torch.device(device)
+        if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+            raise ValueError(f"device {want} is not the mesh's device {mesh.device}: "
+                             "every rank computes on its mesh's device")
+        device = mesh.device
     # with a mesh, rank 0 alone writes; every rank reads the manifest here,
     # before rank 0 can mark a chunk (its first mark follows a gather)
     rank0 = mesh is None or dist.get_rank() == 0
@@ -334,9 +327,10 @@ def process_video(
 
     if mesh is None:
         make = make_interlaced_pipeline if interlaced else make_pipeline
-        enc_f, dec_f, roundtrip = make(plan, decoder, backend, device)
+        enc_f, dec_f, rt_f = make(plan, decoder, backend, device)
     else:
-        enc_f, dec_f, roundtrip = _mesh_pipeline(plan, mesh, decoder, backend, interlaced)
+        make = make_sharded_interlaced_pipeline if interlaced else make_sharded_pipeline
+        enc_f, dec_f, rt_f = make(plan, mesh, decoder, backend)
 
     # interlaced encode puts fields (2 per frame) on the leading axis
     units = 2 if interlaced else 1
@@ -353,42 +347,31 @@ def process_video(
         cap_spec = cc_spec(plan)
         cap_bits = upload(caption_bits, device, np.int64)
 
-    def transmit(rgb: torch.Tensor, frame0: int) -> torch.Tensor:
-        """Encode, then the caption cell on row 0 of each frame (of each
-        frame's first field when interlaced: the field-sequential blocks put
-        it on every other block), keyed by the absolute frame index, then
-        the scrambler over the finished composite."""
-        comp = enc_f(rgb, frame0)
-        if cap_spec is not None:
-            idx = torch.clamp(frame_indices(frame0, comp.shape[0] // units, device), 0,
-                              cap_bits.shape[0] - 1).to(torch.int64)
-            comp[::units, 0, :] = encode_data_line(plan, cap_spec, cap_bits[idx])
-        if scramble is not None:
-            comp = scramble_block(plan, comp, _lines(comp, frame0), *scramble)
-        return comp
-
     hop = None
     if rf:
         rfp = rf_mod.make_rf_plan(plan, audio_bw=rf_audio_bw)
 
-        def hop(comp, frame0, aud=None, phi0=0.0):
+        def hop(comp, frame0, aud=None):
             # the carrier's row law keys on the absolute leading-axis index
             g0 = frame0 * units
             rf_sig = rf_mod.rf_modulate(rfp, comp, g0)
             aud_rx = None
             if aud is not None:
                 # the chunk's frames (fields when interlaced: consecutive
-                # halves of each frame's block) are one broadcast stream
+                # halves of each frame's block) are one broadcast stream,
+                # over the rank ring's order with a mesh
                 aud = aud.reshape(rf_sig.shape[0], -1)
+                phi0 = float(phi0_all[min(frame0, n_frames)])
                 rf_sig = rf_mod.sound_on_rf(rfp, rf_sig, g0, aud, phi0)
-                aud_rx = rf_mod.sound_from_rf(rfp, rf_sig, g0)
+                aud_rx = (rf_mod.sound_from_rf(rfp, rf_sig, g0) if mesh is None
+                          else sound_from_rf_ring(mesh, rfp, rf_sig, g0))
             return rf_mod.rf_demodulate(rfp, rf_sig, g0), aud_rx
 
     elif satellite:
         sp = sat_mod.make_sat_plan(plan.fs, plan.n_samples)
         sat_sigma = sat_mod.noise_sigma(sp, sat_cnr) if sat_cnr is not None else 0.0
 
-        def hop(comp, frame0, aud=None, phi0=0.0):
+        def hop(comp, frame0, aud=None):
             # frame-local by design (per-frame circular FM); the noise keys
             # on each item's absolute leading-axis index
             rf_sig = sat_mod.fm_modulate(sp, comp)
@@ -427,33 +410,67 @@ def process_video(
                 comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
             return comp
 
-    lib_roundtrip = roundtrip
     direct = hop is None and _channel is None and cap_spec is None and scramble is None
 
-    def roundtrip(rgb, frame0, aud=None, phi0=0.0):  # noqa: F811 — services, hop, channel
-        """(decoded frames, the received composite as the receiver's data
-        slicer sees it (descrambled), the received audio)."""
-        if direct:
-            return lib_roundtrip(rgb, frame0), None, None
-        comp = transmit(rgb, frame0)
+    def link(comp: torch.Tensor, frame0: int, aud=None) -> tuple:
+        """The transmission between encoder and decoder, on whole frames
+        (fields when interlaced) from ``frame0`` on: the caption cell on
+        row 0 of each frame (of each frame's first field), keyed by the
+        absolute frame index, the scrambler over the finished composite,
+        the hop, the composite channel (the receiver side), then the
+        subscriber's keyed descrambler (the services descramble
+        bit-exactly) and the data slicer.  Returns the received composite as
+        the decoder sees it, the received audio and the caption cells
+        (float32), each None where there is none."""
+        if cap_spec is not None:
+            idx = torch.clamp(frame_indices(frame0, comp.shape[0] // units, device), 0,
+                              cap_bits.shape[0] - 1).to(torch.int64)
+            comp[::units, 0, :] = encode_data_line(plan, cap_spec, cap_bits[idx])
+        if scramble is not None:
+            comp = scramble_block(plan, comp, _lines(comp, frame0), *scramble)
         aud_rx = None
         if hop is not None:
-            # the transmission hop first; the composite impairments model the
-            # receiver side
-            comp, aud_rx = hop(comp, frame0, aud, phi0)
+            comp, aud_rx = hop(comp, frame0, aud)
         if _channel is not None:
             comp = _channel(comp, frame0)
         if scramble is not None:
-            # the subscriber's keyed descrambler, before the decoder and the
-            # data slicer (the services descramble bit-exactly)
             comp = descramble_block(plan, comp, _lines(comp, frame0), *scramble)
-        return dec_f(comp, frame0), comp, aud_rx
+        cells = None
+        if cap_spec is not None:
+            cells = decode_data_line(plan, cap_spec, comp[::units, 0, :])[0].to(torch.float32)
+        return comp, aud_rx, cells
+
+    def _link_stage(comp, *args):
+        """:func:`link` as ``sharded.hop_stage`` calls a hop."""
+        return link(comp, args[-1], *args[:-1])
+
+    def _to_rank0(t):
+        return None if t is None else gather_blocks(mesh, t, "frames")
+
+    def roundtrip(rgb, frame0, aud=None) -> tuple:
+        """(decoded frames, received audio, caption cells).  With a mesh,
+        ``rgb`` and ``aud`` are this rank's blocks and the results arrive
+        on rank 0 (None on the others)."""
+        if mesh is None:
+            if direct:
+                return rt_f(rgb, frame0), None, None
+            comp, aud_rx, cells = link(enc_f(rgb, frame0), frame0, aud)
+            return dec_f(comp, frame0), aud_rx, cells
+        if direct:
+            return gather_blocks(mesh, rt_f(rgb, frame0)), None, None
+        streams = () if aud is None else (aud,)
+        comp, aud_rx, cells = hop_stage(mesh, enc_f(rgb, frame0), frame0, _link_stage,
+                                        *streams, units=units)
+        out = gather_blocks(mesh, dec_f(line_block(mesh, comp), frame0))
+        return out, _to_rank0(aud_rx), _to_rank0(cells)
 
     if nr and nr_sigma is None and chan_noise_sigma > 0.0:
         nr_sigma = chan_noise_sigma
 
     min_frames, overlap, per_rank = 1, 0, 1
     frame_axis = mesh.size(FRAME_AXIS) if mesh is not None else 1
+    # the link spreads whole frames over every rank, one share each
+    multiple = mesh.n_ranks if mesh is not None and not direct else frame_axis
     if decoder in ("comb3d", "comb3dA"):
         # true temporal neighbours at chunk edges: `pt` extra frames per side
         pt = temporal_comb_spacing(plan.cfg) or 1
@@ -471,14 +488,13 @@ def process_video(
         aud_frames, phi0_all = _sound_track(rf_audio, n_frames, rfp.snd_dev, plan.fs)
         aud_item = aud_frames.shape[1]
 
-        def _chunk_sound(lo: int, b: int) -> tuple:
+        def _chunk_sound(lo: int, b: int) -> torch.Tensor:
             """The soundtrack of frames lo .. lo + b on the device (silence
-            past the end), copied to the card without synchronising it, and the
-            deviation phase before frame lo."""
+            past the end), copied to the card without synchronising it."""
             idx = np.arange(lo, lo + b)
             blk = aud_frames[np.clip(idx, 0, n_frames - 1)]
             blk[idx >= n_frames] = 0.0
-            return upload(blk, device), float(phi0_all[lo])
+            return upload(blk, device)
 
     def _input(x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -488,50 +504,51 @@ def process_video(
 
     def _target(b: int) -> int:
         """Frames a chunk of ``b`` frames goes through the pipeline as: at
-        least ``min_frames``, and a multiple of the frame axis with
-        ``per_rank`` frames on each of its ranks."""
+        least ``min_frames``, ``per_rank`` frames on each rank of the frame
+        axis, and a multiple of ``multiple``."""
         t = max(b, min_frames, frame_axis * per_rank)
-        return t + -t % frame_axis
+        return t + -t % multiple
 
     def _widen(lo: int, hi: int) -> tuple[int, int]:
-        """With a mesh, the frames the frame axis needs beyond the chunk and
-        its overlap are true frames, earlier ones first: they lie beyond the
+        """With a mesh, the frames the mesh needs beyond the chunk and its
+        overlap are true frames, earlier ones first: they lie beyond the
         stencils' reach from the chunk's own frames, so the output matches
         the unsharded run's (repeats only for a video shorter than that)."""
         need = _target(hi - lo) - (hi - lo)
         k = min(need, lo)
         return lo - k, min(n_frames, hi + need - k)
 
-    def _pad_frames(rgb: torch.Tensor) -> torch.Tensor:
-        """Repeats of the last frame up to :func:`_target`."""
-        b = rgb.shape[0]
-        target = _target(b)
-        if target == b:
-            return rgb
-        return torch.cat([rgb, rgb[-1:].expand(target - b, *rgb.shape[1:])])
+    def _read(first: int, count: int, end: int) -> torch.Tensor:
+        """Frames ``first .. first + count`` of a chunk that ends at ``end``,
+        on the device; those past ``end`` repeat its last frame (a short
+        tail chunk's padding)."""
+        have = max(0, min(count, end - first))
+        x = _input(source(min(first, end - 1), max(have, 1)))
+        if have == count:
+            return x
+        return torch.cat([x[:have], x[-1:].expand(count - have, *x.shape[1:])])
 
     @torch.inference_mode()
-    def step(rgb: torch.Tensor, frame0: int, off: int, n_real: int, skip: int, aud=None,
-             phi0=0.0):
-        """Round trip (+ NR), then PSNR and fingerprint over the chunk's own
+    def step(blk: torch.Tensor, rgb, frame0: int, off: int, n_real: int, skip: int,
+             aud=None):
+        """Round trip (+ NR) of ``blk`` (with a mesh, this rank's block of
+        the chunk ``rgb``), then PSNR and fingerprint over the chunk's own
         frames, on the device: no host sync.  The fingerprint leaves out the
         first ``skip`` frames (those a mesh run took in before the unsharded
         run's first), so the own frames sit where the unsharded run has
         them.  Returns the frames, the metrics, the received audio (an empty
         tensor without sound) and the decoded caption bits (None without
-        captions)."""
-        out, comp, aud_rx = roundtrip(rgb, frame0, aud, phi0)
+        captions); None on a rank other than 0 of a mesh."""
+        out, aud_rx, cc = roundtrip(blk, frame0, aud)
         if out is None:
-            return None  # a rank other than 0 of a mesh
+            return None
         if nr:
             out = temporal_nr(out, nr_sigma)
         e = torch.arange(out.shape[0], device=device)
         mask = ((e >= off) & (e < off + n_real)).to(torch.float32)
-        cc, pic, ref = None, out, rgb
+        pic, ref = out, rgb
         if cap_spec is not None:
-            # row 0 carries data, not picture; its cells come off the received
-            # row 0 of every frame (of each frame's first field)
-            cc, _ = decode_data_line(plan, cap_spec, comp[::units, 0, :])
+            # row 0 carries data, not picture
             pic, ref = out[:, :, 1:, :], rgb[:, :, 1:, :]
         err = ((pic - ref) ** 2).mean(dim=(1, 2, 3))
         mse = (err * mask).sum() / float(max(n_real, 1))
@@ -540,7 +557,7 @@ def process_video(
         if aud_rx is None:
             aud_rx = metrics.new_zeros(0)
         if cc is not None:
-            cc = cc.to(torch.float32).reshape(-1)
+            cc = cc.reshape(-1)
         return out, metrics, aud_rx.reshape(-1), cc
 
     t_start = time.perf_counter()
@@ -590,12 +607,19 @@ def process_video(
         hi = min(n_frames, end + overlap)
         if mesh is not None:
             lo, hi = _widen(lo, hi)
-        rgb = _pad_frames(_input(source(lo, hi - lo)))
-        pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
-        sound = _chunk_sound(lo, rgb.shape[0]) if want_sound else ()
-        res = step(rgb, lo, start - lo, end - start, lo_u - lo, *sound)
+        first, count = lo, _target(hi - lo)
+        rgb = _read(lo, count, hi) if rank0 else None
+        blk = rgb
+        if mesh is not None:
+            count //= frame_axis
+            first += mesh.index(FRAME_AXIS) * count
+            blk = local_block(mesh, rgb, "rgb") if rank0 else \
+                line_block(mesh, _read(first, count, hi))
+        sound = (_chunk_sound(first, count),) if want_sound else ()
+        res = step(blk, rgb, lo, start - lo, end - start, lo_u - lo, *sound)
         if res is None:
             continue
+        pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
         out, metrics, aud_rx, cc = res
         pending.append((start, end, start - lo, out if save_outputs else None, metrics,
                         aud_rx, cc))

@@ -30,7 +30,7 @@ is made and recorded on it:
 
 A composite block is ``(B/F, L/Lb, N)``, an RGB block ``(B/F, 3, L/Lb, N)``;
 :func:`local_block` takes a rank's block from a global array and
-:func:`gather_blocks` assembles the global array on one rank.
+:func:`gather_blocks` assembles the global array on rank 0.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ LINE_AXIS = "lineblk"
 #: the flattened grid, frame-major: every rank of the mesh in one ring
 FLAT = "flat"
 BACKENDS = ("nccl", "gloo")
+#: how long a collective waits for its peers before the group gives up
+TIMEOUT = datetime.timedelta(seconds=600)
 
 #: layout -> the axes of the global array that the frame and line axes
 #: split (None: not split)
@@ -85,7 +87,7 @@ def _check_backend(backend: str, world: int) -> None:
             )
 
 
-def init_distributed(backend: str, timeout_s: float = 600.0) -> None:
+def init_distributed(backend: str) -> None:
     """Join the process group from the torchrun environment (``RANK``,
     ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``).
 
@@ -105,7 +107,7 @@ def init_distributed(backend: str, timeout_s: float = 600.0) -> None:
     port = os.environ.get("MASTER_PORT") or str(free_port())
     dist.init_process_group(
         backend, init_method=f"tcp://{addr}:{port}", rank=_env_int("RANK", 0),
-        world_size=world, timeout=datetime.timedelta(seconds=timeout_s),
+        world_size=world, timeout=TIMEOUT,
     )
 
 
@@ -256,6 +258,14 @@ def local_block(mesh: Mesh, x, layout: str = "rgb") -> torch.Tensor:
     return torch.tensor(np.ascontiguousarray(blk, np.float32), device=mesh.device)
 
 
+def line_block(mesh: Mesh, full: torch.Tensor) -> torch.Tensor:
+    """This rank's line block of frames that hold every line (axis -2), on
+    the device they are on."""
+    n = full.shape[-2] // mesh.size(LINE_AXIS)
+    j = mesh.index(LINE_AXIS)
+    return full[..., j * n : (j + 1) * n, :].contiguous()
+
+
 @contextlib.contextmanager
 def staging():
     """The host copies of a gloo exchange on a card: the one intended host
@@ -305,24 +315,15 @@ def _assemble(mesh: Mesh, blocks: list, layout: str) -> torch.Tensor:
     return out
 
 
-def gather_blocks(mesh: Mesh, blk: torch.Tensor, layout: str = "rgb",
-                  dst: int = 0) -> torch.Tensor | None:
-    """Assemble every rank's block into the global array on rank ``dst``
-    (on its device); the other ranks get None.  Every rank must call it."""
+def gather_blocks(mesh: Mesh, blk: torch.Tensor, layout: str = "rgb") -> torch.Tensor | None:
+    """Assemble every rank's block into the global array on rank 0 (on its
+    device); the other ranks get None.  Every rank must call it."""
     send = to_comm(mesh, blk)
-    bufs = [torch.empty_like(send) for _ in range(mesh.n_ranks)] if dist.get_rank() == dst \
+    bufs = [torch.empty_like(send) for _ in range(mesh.n_ranks)] if dist.get_rank() == 0 \
         else None
-    dist.gather(send, bufs, dst=dst)
+    dist.gather(send, bufs, dst=0)
     if bufs is None:
         return None
-    return from_comm(mesh, _assemble(mesh, bufs, layout))
-
-
-def all_gather_blocks(mesh: Mesh, blk: torch.Tensor, layout: str = "rgb") -> torch.Tensor:
-    """The global array on every rank."""
-    send = to_comm(mesh, blk)
-    bufs = [torch.empty_like(send) for _ in range(mesh.n_ranks)]
-    dist.all_gather(bufs, send)
     return from_comm(mesh, _assemble(mesh, bufs, layout))
 
 

@@ -48,6 +48,7 @@ from color_modem_tpu_torch.parallel.mesh import (
     LINE_AXIS,
     Mesh,
     from_comm,
+    line_block,
     ring_all_gather,
     to_comm,
 )
@@ -353,38 +354,34 @@ def make_sharded_palplus_pipeline(plan: Plan, mesh: Mesh, decoder: str = "comb3"
 # --- the transmission hops ----------------------------------------------------
 
 
-def _line_block(mesh: Mesh, full: torch.Tensor) -> torch.Tensor:
-    """This rank's line block of frames that hold every line (axis -2)."""
-    n = full.shape[-2] // mesh.size(LINE_AXIS)
-    j = mesh.index(LINE_AXIS)
-    return full[..., j * n : (j + 1) * n, :].contiguous()
-
-
-def _hop_stage(mesh: Mesh, comp_blk: torch.Tensor, frame0, hop, *streams):
+def hop_stage(mesh: Mesh, comp_blk: torch.Tensor, frame0, hop, *streams, units: int = 1):
     """Run a frame-local hop on whole frames.
 
     The line ring gathers its line blocks into whole frames (the hop runs
     on each frame's rows joined into one broadcast-time stream, so it
     cannot split lines).  When the rank's frames divide the line ring, the
     ring spreads them over its members (the batch over the whole flat grid,
-    every rank busy) and gathers the results back; otherwise every member
-    runs the hop on all of them (the frame-axis fallback).  ``streams``:
-    per-frame side inputs (audio) that ride with their frames; ``hop(comp,
-    *streams, frame0)`` returns the composite, or the composite and the
-    received streams.  Returns whole frames: the composite and the
-    received streams.
+    every rank busy, a rank's frames following the flat ring's order) and
+    gathers the results back; otherwise every member runs the hop on all of
+    them (the frame-axis fallback).  ``units``: composite items per frame
+    (2 for field-sequential fields).  ``streams``: per-frame side inputs
+    (audio) that ride with their frames; ``hop(comp, *streams, frame0)``
+    returns the composite, or a tuple of the composite and per-frame or
+    per-item outputs (None where there is none).  Returns whole frames of
+    the rank's frame block: the composite, or the tuple.
     """
     full = ring_all_gather(mesh, LINE_AXIS, comp_blk, dim=-2)
-    b, nl = full.shape[0], mesh.size(LINE_AXIS)
+    b, nl = full.shape[0] // units, mesh.size(LINE_AXIS)
     f0 = frame0 + mesh.index(FRAME_AXIS) * b
     if b % nl:
         return hop(full, *streams, f0)
     s, j = b // nl, mesh.index(LINE_AXIS)
-    out = hop(full[j * s : (j + 1) * s], *(x[j * s : (j + 1) * s] for x in streams),
-              f0 + j * s)
+    out = hop(full[j * s * units : (j + 1) * s * units],
+              *(x[j * s : (j + 1) * s] for x in streams), f0 + j * s)
     if isinstance(out, torch.Tensor):
         return ring_all_gather(mesh, LINE_AXIS, out.contiguous(), dim=0)
-    return tuple(ring_all_gather(mesh, LINE_AXIS, o.contiguous(), dim=0) for o in out)
+    return tuple(None if o is None else ring_all_gather(mesh, LINE_AXIS, o.contiguous(), dim=0)
+                 for o in out)
 
 
 def make_sharded_hop_pipeline(plan: Plan, mesh: Mesh, hop, decoder: str = "notch",
@@ -412,8 +409,8 @@ def make_sharded_hop_pipeline(plan: Plan, mesh: Mesh, hop, decoder: str = "notch
 
     @torch.inference_mode()
     def roundtrip(rgb_blk, frame0=0):
-        comp = _hop_stage(mesh, enc(rgb_blk, frame0), frame0, hop)
-        return dec(_line_block(mesh, comp), frame0)
+        comp = hop_stage(mesh, enc(rgb_blk, frame0), frame0, hop)
+        return dec(line_block(mesh, comp), frame0)
 
     return enc, dec, roundtrip
 
@@ -441,10 +438,29 @@ def make_sharded_hop_audio_pipeline(plan: Plan, mesh: Mesh, hop, decoder: str = 
         aud = _input(mesh, aud_blk)
         if aud.ndim == 2:
             aud = aud[:, None, :]
-        comp, aud_rx = _hop_stage(mesh, enc(rgb_blk, frame0), frame0, hop, aud)
-        return dec(_line_block(mesh, comp), frame0), aud_rx
+        comp, aud_rx = hop_stage(mesh, enc(rgb_blk, frame0), frame0, hop, aud)
+        return dec(line_block(mesh, comp), frame0), aud_rx
 
     return enc, dec, roundtrip
+
+
+def sound_from_rf_ring(mesh: Mesh, rfp, rf: torch.Tensor, frame0) -> torch.Tensor:
+    """The sound takeoff of this rank's RF items (B, L, N*r), consecutive
+    items of one broadcast stream laid along the flat ring: ONE neighbour
+    item of RF each way around the ring, demodulated with the own items
+    (``frame/rf.py::sound_from_rf_halo``) and cropped.  The global first
+    and last ranks get zero halo items with the discriminator dead over
+    them, which reproduces the unsharded stream's ends.  ``frame0``: the
+    absolute index of the first own item.  Returns (B, L*N) audio."""
+    from color_modem_tpu_torch.frame.rf import sound_from_rf_halo
+
+    n, me = mesh.n_ranks, mesh.index(FLAT)
+    from_prev, from_next = ring_exchange(mesh, FLAT, rf[:1], rf[-1:])
+    zero = torch.zeros_like(rf[:1])
+    rf_ext = torch.cat([zero if from_prev is None else from_prev, rf,
+                        zero if from_next is None else from_next])
+    return sound_from_rf_halo(rfp, rf_ext, frame0 - 1, 1, head_dead=me == 0,
+                              tail_dead=me == n - 1)
 
 
 def make_sharded_rf_sound_pipeline(plan: Plan, mesh: Mesh, rfp, decoder: str = "notch",
@@ -466,11 +482,9 @@ def make_sharded_rf_sound_pipeline(plan: Plan, mesh: Mesh, rfp, decoder: str = "
       nco.py::running_phase``).  A rank's phase differs from the unsharded
       joined sum only by float64 reassociation.
     * **receive** — the sound takeoff's stream filters need true neighbour
-      context at rank boundaries: each rank fetches ONE neighbour frame of
-      RF each way around the same flat ring, demodulates the extended
-      stream (``frame/rf.py::sound_from_rf_halo``) and crops.  The global
-      first and last ranks get ZERO halo frames with the discriminator
-      dead over them, which reproduces the unsharded stream's ends.
+      context at rank boundaries: :func:`sound_from_rf_ring`, one
+      neighbour frame of RF each way around the same flat ring, zeros with
+      a dead discriminator at the global ends.
 
     Video stays frame-local and is spread like
     :func:`make_sharded_hop_pipeline`'s flat path; the composite encode and
@@ -486,12 +500,7 @@ def make_sharded_rf_sound_pipeline(plan: Plan, mesh: Mesh, rfp, decoder: str = "
     """
     import torch.distributed as dist
 
-    from color_modem_tpu_torch.frame.rf import (
-        rf_demodulate,
-        rf_modulate,
-        sound_from_rf_halo,
-        sound_on_rf,
-    )
+    from color_modem_tpu_torch.frame.rf import rf_demodulate, rf_modulate, sound_on_rf
 
     enc, dec, _ = make_sharded_pipeline(plan, mesh, decoder, backend)
     n, me = mesh.n_ranks, mesh.index(FLAT)
@@ -508,15 +517,7 @@ def make_sharded_rf_sound_pipeline(plan: Plan, mesh: Mesh, rfp, decoder: str = "
         dist.all_gather(totals, send)
         phi0 = torch.remainder(from_comm(mesh, torch.cat(totals)[:me].sum()), TWO_PI)
         rf = sound_on_rf(rfp, rf, f0, aud, phi0)
-        comp_rx = rf_demodulate(rfp, rf, f0)
-        # receive: one RF frame of halo each way (zeros at the global ends)
-        from_prev, from_next = ring_exchange(mesh, FLAT, rf[:1], rf[-1:])
-        zero = torch.zeros_like(rf[:1])
-        rf_ext = torch.cat([zero if from_prev is None else from_prev, rf,
-                            zero if from_next is None else from_next])
-        aud_rx = sound_from_rf_halo(rfp, rf_ext, f0 - 1, 1,
-                                    head_dead=me == 0, tail_dead=me == n - 1)
-        return comp_rx, aud_rx
+        return rf_demodulate(rfp, rf, f0), sound_from_rf_ring(mesh, rfp, rf, f0)
 
     @torch.inference_mode()
     def roundtrip(rgb_blk, aud_blk, frame0=0):
@@ -527,7 +528,7 @@ def make_sharded_rf_sound_pipeline(plan: Plan, mesh: Mesh, rfp, decoder: str = "
                 "joined-stream sound ring gives every rank an equal consecutive sub-batch"
             )
         aud = _input(mesh, aud_blk)
-        comp, aud_rx = _hop_stage(mesh, enc(rgb_blk, frame0), frame0, _hop, aud)
-        return dec(_line_block(mesh, comp), frame0), aud_rx
+        comp, aud_rx = hop_stage(mesh, enc(rgb_blk, frame0), frame0, _hop, aud)
+        return dec(line_block(mesh, comp), frame0), aud_rx
 
     return enc, dec, roundtrip

@@ -9,7 +9,9 @@ checks: each gathered result against the unsharded pipeline on the card,
 each rank's launches and device, the full-width PSNRs, the main path under
 ``set_sync_debug_mode("error")``; it prints each rank's round-trip and
 halo-exchange times, then ``process_video(mesh=(2,2))`` NTSC comb3
-48x480x720 in chunks of 16 (without saving: its Mpix/s and PSNR).  Run
+48x480x720 in chunks of 16, plain and with captions and cutrotate through
+the RF hop (without saving, each one's second run read: their Mpix/s and
+PSNR, the cells exact).  Run
 from the repository root on a machine with 4 cards:
 
     python3 scripts/torch_sharded_nccl.py
@@ -19,6 +21,7 @@ It exits nonzero when a check fails or fewer than 4 cards are present.
 
 from __future__ import annotations
 
+import glob
 import os
 import subprocess
 import sys
@@ -30,6 +33,7 @@ sys.path.insert(0, REPO)
 
 
 def main() -> None:
+    import numpy as np
     import torch
 
     import chip_smoke as cs
@@ -47,20 +51,28 @@ def main() -> None:
              "out": "mesh", "source": "device", "backend": "kernel", "save": False,
              "opts": {"decoder": "comb3", "chunk": cs.VIDEO_CHUNK,
                       "n_frames": cs.VIDEO_FRAMES, "lines": 480}}
+    services, bits, svc_psnr = cs.mesh_services_cases()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out:
-        recs = mh.launch(cases + [video], n, backend="nccl", outdir=out, timeout=600.0)
+        warm = dict(video, name="video-mesh-warm", out="mesh-warm")
+        recs = mh.launch(cases + [warm, video, *services], n, backend="nccl", outdir=out,
+                         timeout=600.0)
+        cells = np.concatenate([np.load(f) for f in sorted(
+            glob.glob(os.path.join(out, "services", "cc_*.npy")))])
     wall = time.perf_counter() - t0
-    launches = cs.check_sharded_records(cases, [rr[:-1] for rr in recs],
+    launches = cs.check_sharded_records(cases, [rr[:-4] for rr in recs],
                                         [f"cuda:{r}" for r in range(n)], card,
                                         f"{n} NCCL ranks, one card each")
-    s = recs[0][-1]["summary"]
-    print(f"video mesh 2x2 ntsc comb3 {cs.VIDEO_FRAMES}x3x480x720 chunk {cs.VIDEO_CHUNK}: "
-          f"min_psnr_db {s['min_psnr_db']}, {s['mpix_per_s']} Mpix/s without saving, "
-          f"launches per rank {[rr[-1]['launches'] for rr in recs]}, on {card}")
-    cs._check(abs(s["min_psnr_db"] - cs.VIDEO_MIN_PSNR) <= cs.PSNR_TOL, f"video: {s}")
+    for k, name, want in ((-3, "", cs.VIDEO_MIN_PSNR), (-1, " caption scramble rf", svc_psnr)):
+        s = recs[0][k]["summary"]
+        print(f"video mesh 2x2 ntsc comb3{name} {cs.VIDEO_FRAMES}x3x480x720 chunk "
+              f"{cs.VIDEO_CHUNK}: min_psnr_db {s['min_psnr_db']} (expected {want} +- "
+              f"{cs.PSNR_TOL}), {s['mpix_per_s']} Mpix/s without saving, launches per rank "
+              f"{[rr[k]['launches'] for rr in recs]}, on {card}")
+        cs._check(abs(s["min_psnr_db"] - want) <= cs.PSNR_TOL, f"video{name}: {s}")
+    cs._check(np.array_equal(cells, bits), "video caption scramble rf: caption cells")
     print(f"launches per rank on the (2,2) full-width cases: {launches}")
-    print(f"{len(cases) + 1} cases on {n} NCCL ranks in {wall:.1f} s: all checks passed")
+    print(f"{len(cases) + 4} cases on {n} NCCL ranks in {wall:.1f} s: all checks passed")
 
 
 if __name__ == "__main__":

@@ -9,10 +9,9 @@ frames (8 for the temporal combs) x 64 lines x 720 samples, frame0 = 3,
 ``backend="plain"``, and the main path (NTSC comb3) once more through the
 kernel wrappers (their plain versions on the CPU).  Rank 0 holds each case
 against the same pipeline unsharded, at the JAX gate's bounds: QAM encode,
-decode and round trip bit-identical (the adaptive comb3dA 1e-6, the JAX
-suite's bound: its separation's plain FIR products run outside the kernel,
-and cuBLAS sums them in an order that follows the block's line count, 2.4e-7
-apart on an NVIDIA H100; bit-identical on the CPU); SECAM and MAC 1e-5; PALplus 1e-6; the
+decode and round trip bit-identical, the adaptive comb3dA included (its
+1e-6 on a card, ``multihost.ADAPTIVE_CUDA_BOUND``, does not apply to the
+CPU); SECAM and MAC 1e-5; PALplus 1e-6; the
 RF hop 2e-6; the satellite hop 1e-3; the RF hop with sound 2e-5 on the
 video and 1e-5 on the audio; the satellite hop with audio 1e-3 and 1e-5.
 (Measured: every QAM, MAC and hop case bit-identical on the CPU; SECAM
@@ -89,6 +88,9 @@ def test_sharded_equals_unsharded(name, ranks):
     r = rec0[name]
     assert r["finite"]
     bound = r["bound"]
+    case = next(c for c in CASES if c["name"] == name)
+    if case["kind"] in ("pipeline", "interlaced") and case["standard"] != "secam":
+        assert bound == 0.0  # every QAM decoder bit-identical on the CPU
     if isinstance(bound, list):  # (video, audio)
         assert r["err"]["rt"] <= bound[0], r["err"]
         assert r["err"]["aud"] <= bound[1], r["err"]
