@@ -137,15 +137,35 @@ Phases; any failure raises and exits nonzero:
    comb3 48x480x720 in chunks of 16): PSNR +- 0.02 dB of the unsharded run,
    the frames equal to it bit for bit, 3 launches of each kernel per rank;
    and over the mesh with captions and cutrotate through the RF hop, each
-   rank transmitting its share: the unsharded run's PSNR, the cells exact.
+   rank transmitting its share: the unsharded run's PSNR, the cells exact;
+7. the surfaces: (a) the native host codec built with g++ and equal to its
+   NumPy path (576x720 u8<->f32, a 4:2:0 Y4M decode); (b) the main path
+   through the CLI, ``video --standard ntsc --decoder comb3 --input
+   clip.y4m --output out.y4m --chunk 16`` on a 48-frame 480x720 clip from
+   ``write_y4m``: PSNR and chunk fingerprints equal to ``process_video``'s
+   on the same frames, the clip equal to ``write_y4m`` of that runner's
+   frames, 3 launches of rows 1-2, and warm Mpix/s with and without the
+   clip beside phase 6's runner; (c) ``roundtrip --demo --pattern scene``
+   at full height, NTSC comb3, PAL delayline, SECAM interp and NIIR avg,
+   each PSNR +- 0.02 dB of the JAX CLI's CPU value and one launch per
+   kernel; (d) ``encode --raw`` then ``decode`` against ``roundtrip`` and
+   ``gallery``, where Pillow imports (a line says whether it did); (e) the
+   per-line modems over 24 lines, 24 one-line encode launches each, against
+   the batch pipeline (encode 2e-5 / 2e-4 SECAM, interior lines 5e-4), a
+   one-line kernel encode against the plain encode, lines per second;
+   (f) ``checked`` raising on a NaN in a composite; (g) ``cli video
+   --mesh`` under ``torch.distributed.run`` over NCCL (1x1; 2x2 with four
+   cards), rank 0 alone reporting, frames and clip equal to the unsharded
+   verb's.
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
 CUDA kernels with equal tile arrays, on the PAL delayline path), with the
 QAM kernels' launches on phase 4i's paths beside (``launches_data_services``:
 the NTSC caption round trip, the PALplus round trip) and each rank's
-launches on phase 4j's (2,2) full-width round trips (``launches_sharded``);
-the last line is ``{"ok": true, "device": {...}}``.
+launches on phase 4j's (2,2) full-width round trips (``launches_sharded``),
+on the CLI's video run of phase 7b (``launches_cli_video``) and on phase
+7e's per-line modems (``launches_line_api``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2479,6 +2499,348 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     _check(all(c == want_counts for c in svc_counts), f"{label}: launches {svc_counts}")
 
 
+# --- phase 7: the surfaces (native codec, Y4M, CLI verbs, per-line API) -------------------
+
+#: phase 7c: the CLI's flagship round trips at full height on the scene
+#: pattern, as the JAX CLI prints them on the CPU (two decimals):
+#:   JAX_PLATFORMS=cpu python -m color_modem_tpu.cli roundtrip --demo \
+#:       --pattern scene --standard S --decoder D
+#: with the kernels each launches once
+CLI_ROUNDTRIP = {
+    ("ntsc", "comb3"): (46.62, QAM_1_1),
+    ("pal", "delayline"): (38.0, QAM_1_1),
+    ("secam", "interp"): (38.87, SECAM_1_1),
+    ("niir", "avg"): (33.18, QAM_1_1),
+}
+#: phase 7d: the rows of ``cli gallery`` at its defaults
+GALLERY_ROWS = 58
+LINE_API_LINES = 24
+#: phase 7e: (standard, batch decoder, modem, first interior line, entry of
+#: the kernels line its encode launches); the streaming seam covers the
+#: first lines (and the last for comb3), as tests/test_torch_compat.py says
+LINE_API_CASES = (
+    ("ntsc", "notch", "NtscModem", 0, "qam_encode"),
+    ("ntsc", "comb2", "SimpleCombModem", 1, "qam_encode"),
+    ("ntsc", "comb3", "Simple3DCombModem", 1, "qam_encode"),
+    ("pal", "notch", "PalModem", 0, "qam_encode_shared"),
+    ("pal", "delayline", "DelayLinePalModem", 1, "qam_encode_shared"),
+    ("secam", "notch", "SecamModem", 1, "secam_encode"),
+    ("niir", "notch", "NiirModem", 1, "qam_encode_shared"),
+)
+
+
+def run_cli(argv: list[str]) -> dict:
+    """The port's CLI in this process: the JSON report it prints last."""
+    import contextlib
+    import io
+
+    from color_modem_tpu_torch import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    _check(rc == 0, f"cli {' '.join(argv)}: exit code {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def check_native() -> None:
+    """Phase 7a: the host codec built with g++, equal to its NumPy path on a
+    576x720 frame and on a 4:2:0 Y4M decode."""
+    import numpy as np
+
+    from color_modem_tpu_torch import native
+
+    _check(native.available(), "native codec: g++ build failed or missing")
+    rng = np.random.default_rng(7)
+    rgb8 = rng.integers(0, 256, (1, SECAM_LINES, N, 3), dtype=np.uint8)
+    count, h, w = 4, SECAM_LINES, N
+    marker = b"FRAME\n"
+    plane = h * w + 2 * (h // 2) * (w // 2)
+    raw = b"".join(marker + rng.integers(0, 256, plane, dtype=np.uint8).tobytes()
+                   for _ in range(count))
+    y4m_args = (raw, count, len(marker) + plane, len(marker), h, w, h // 2, w // 2, 2, 2)
+
+    def codec():
+        t0 = time.perf_counter()
+        rgb = native.y4m_to_rgb(*y4m_args)
+        ms = (time.perf_counter() - t0) * 1e3
+        f = native.rgb8_to_chw_f32(rgb8)
+        return (f, native.chw_f32_to_rgb8(f * 1.1 - 0.05), rgb), ms
+
+    fast, ms_native = codec()
+    saved = native._LIB, native._LIB_TRIED
+    native._LIB, native._LIB_TRIED = None, True  # the NumPy path
+    try:
+        slow, ms_numpy = codec()
+    finally:
+        native._LIB, native._LIB_TRIED = saved
+    for name, a, b in zip(("u8->f32", "f32->u8", "y4m 4:2:0"), fast, slow):
+        _check(a.shape == b.shape and np.array_equal(a, b),
+               f"native codec {name} differs from its NumPy path")
+    print(f"native codec: built, equal to its NumPy path on 1x{h}x{w} (u8<->f32) and a "
+          f"{count}x{h}x{w} 4:2:0 Y4M decode (native {ms_native:.1f} ms, NumPy "
+          f"{ms_numpy:.1f} ms, host clock)")
+
+
+def check_cli_video(dev, card: str, video: dict) -> dict:
+    """Phase 7b, the main path through the CLI: ``video --standard ntsc
+    --decoder comb3 --input clip.y4m --output out.y4m --chunk 16`` on a
+    48-frame 480x720 clip that ``write_y4m`` made.  Its PSNR and
+    fingerprints against ``process_video`` on the same decoded frames, its
+    clip against ``write_y4m`` of that runner's saved frames, 3 launches of
+    rows 1-2; then warm Mpix/s with and without writing the clip, beside
+    phase 6's runner on synthetic device frames."""
+    import glob
+
+    import numpy as np
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame.video import process_video, synthetic_source
+    from color_modem_tpu_torch.frame.y4m import write_y4m, y4m_source
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    chunks = VIDEO_FRAMES // VIDEO_CHUNK
+    label = f"cli video ntsc comb3 {VIDEO_FRAMES}x3x480x{N} .y4m chunk {VIDEO_CHUNK}"
+    with tempfile.TemporaryDirectory() as tmp:
+        clip, out_clip = os.path.join(tmp, "clip.y4m"), os.path.join(tmp, "out.y4m")
+        src = synthetic_source(480, N)
+        t0 = time.perf_counter()
+        write_y4m(clip, (src(s, VIDEO_CHUNK) for s in range(0, VIDEO_FRAMES, VIDEO_CHUNK)))
+        t_write = time.perf_counter() - t0
+        argv = ["video", "--standard", "ntsc", "--decoder", "comb3", "--input", clip,
+                "--chunk", str(VIDEO_CHUNK)]
+        reset_counts()
+        rep = run_cli(argv + ["--out", os.path.join(tmp, "cli"), "--output", out_clip])
+        launches = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+        source, n, h, w = y4m_source(clip)
+        s = process_video(make_plan(NTSC(), N), source, n, os.path.join(tmp, "runner"),
+                          decoder="comb3", chunk=VIDEO_CHUNK, device=dev, save_outputs=True)
+        ref_clip = os.path.join(tmp, "ref.y4m")
+        write_y4m(ref_clip, (np.load(f) for f in sorted(
+            glob.glob(os.path.join(tmp, "runner", "rgb_*.npy")))))
+
+        def chunks_of(d):
+            with open(os.path.join(tmp, d, "manifest.json")) as f:
+                return json.load(f)["chunks"]
+
+        same_fp = chunks_of("cli") == chunks_of("runner")
+        with open(out_clip, "rb") as f, open(ref_clip, "rb") as g:
+            same_clip = f.read() == g.read()
+        print(f"{label}: min_psnr_db {rep['min_psnr_db']} (process_video on the same frames "
+              f"{s['min_psnr_db']}), chunk fingerprints equal: {same_fp}, clip equal to "
+              f"write_y4m of the runner's frames: {same_clip}, launches {launches}, backend "
+              f"{rep['backend']} on {dev}; writing the clip took {t_write:.2f} s")
+        _check((n, h, w) == (VIDEO_FRAMES, 480, N), f"{label}: clip {n}x{h}x{w}")
+        _check(rep["frames_processed_this_run"] == VIDEO_FRAMES
+               and rep["output_frames"] == VIDEO_FRAMES, f"{label}: {rep}")
+        _check(rep["min_psnr_db"] == s["min_psnr_db"], f"{label}: {rep} vs {s}")
+        _check(same_fp, f"{label}: chunk fingerprints differ from process_video's")
+        _check(same_clip, f"{label}: the clip differs from write_y4m of the runner's frames")
+        rates = {"clip": [], "read only": []}
+        for i in range(3):
+            for key, extra in (("clip", ["--output", out_clip]), ("read only", [])):
+                r = run_cli(argv + ["--out", os.path.join(tmp, f"warm{i}{len(extra)}"),
+                                    "--no-resume", *extra])
+                rates[key].append(r["mpix_per_s"])
+    print(f"{label}: warm {_fmt_rate(rates['clip'])} Mpix/s writing the clip, "
+          f"{_fmt_rate(rates['read only'])} reading only (median [min, max] of 3 runs; first "
+          f"run {rep['mpix_per_s']}), against the runner's {_fmt_rate(video['rates']['kernel'])} "
+          f"on synthetic device frames (phase 6), host clock, on {card}")
+    return {"qam_encode": launches["qam_encode"], "qam_decode": launches["qam_decode"]}
+
+
+def check_cli_roundtrips(card: str) -> None:
+    """Phase 7c: ``cli roundtrip --demo --pattern scene`` at full height,
+    each flagship decoder, against the JAX CLI's CPU value."""
+    for (std, dec), (want, kernels) in CLI_ROUNDTRIP.items():
+        label = f"cli roundtrip {std} {dec} scene"
+        reset_counts()
+        rep = run_cli(["roundtrip", "--demo", "--pattern", "scene", "--standard", std,
+                       "--decoder", dec])
+        got = read_counts(label, kernels)
+        print(f"{label} {rep['lines']}x{N}: psnr_db {rep['psnr_db']} (JAX CPU {want} +- "
+              f"{PSNR_TOL}), launches {got}, {rep['seconds']} s on {rep['device']} ({card})")
+        _check(abs(rep["psnr_db"] - want) <= PSNR_TOL + 1e-9, f"{label}: {rep}")
+        _check(rep["device"] == "cuda" and rep["backend"] == "kernel", f"{label}: {rep}")
+
+
+def check_cli_png_verbs(card: str) -> None:
+    """Phase 7d: ``encode --raw`` then ``decode`` against ``roundtrip`` on
+    the same input, and ``gallery``.  ``encode`` and ``gallery`` write PNGs
+    through Pillow, so they run only where it imports."""
+    import numpy as np
+
+    from color_modem_tpu_torch import native
+    from color_modem_tpu_torch.frame.image_io import HAVE_PIL, save_rgb
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    if not HAVE_PIL:
+        print("cli encode/decode/gallery: Pillow does not import here; the PNG writers "
+              "(encode, gallery) did not run")
+        return
+    print("cli encode/decode/gallery: Pillow imports here; running them")
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "in.ppm")
+        save_rgb(src, smooth_scene(SECAM_LINES, N).astype(np.float32))
+        common = ["--standard", "pal", "--decoder", "delayline"]
+        run_cli(["roundtrip", "--input", src, "--output", os.path.join(tmp, "rt.ppm"), *common])
+        enc = run_cli(["encode", "--input", src, "--output", os.path.join(tmp, "c.png"),
+                       "--raw", os.path.join(tmp, "c.npy"), *common])
+        run_cli(["decode", "--input", os.path.join(tmp, "c.npy"),
+                 "--output", os.path.join(tmp, "dec.ppm"), *common])
+        a, b = (native.read_ppm(os.path.join(tmp, f)).astype(int) for f in ("rt.ppm", "dec.ppm"))
+        e = int(np.abs(a - b).max())
+        print(f"cli encode --raw -> decode pal delayline {enc['lines']}x{N}: decoded image "
+              f"against roundtrip's max |diff| {e} code values (bytes equal: {e == 0}), on "
+              f"{card}")
+        _check(e <= 1, f"cli encode -> decode differs from roundtrip by {e} code values")
+        t0 = time.perf_counter()
+        gal = run_cli(["gallery", "--out", os.path.join(tmp, "gallery")])
+        rows = gal["psnr_db"]
+        pngs = [f for f in os.listdir(os.path.join(tmp, "gallery")) if f.endswith(".png")]
+        print(f"cli gallery: {len(rows)} rows, {len(pngs)} PNGs in "
+              f"{time.perf_counter() - t0:.1f} s; ntsc_comb3 {rows['ntsc_comb3']} dB, "
+              f"pal_delayline {rows['pal_delayline']} dB, d2mac {rows['d2mac']} dB, on {card}")
+        # 8 standards x their still decoders, S-Video, the RF, dropout,
+        # ghost and scrambling rows, D2-MAC and the PALplus pair
+        _check(len(rows) == GALLERY_ROWS and all(np.isfinite(v) for v in rows.values()),
+               f"cli gallery: {len(rows)} rows (expected {GALLERY_ROWS}): {rows}")
+
+
+def check_line_api(dev, card: str) -> dict:
+    """Phase 7e: the per-line modems on the card over 24 lines.  Each
+    line's encode launches the encode kernel on one line (24 launches per
+    image), held against the batch pipeline's encode (2e-5, SECAM 2e-4);
+    the decoded interior lines against the batch decode (5e-4); a 1-line
+    kernel encode against the plain encode on the card.  Returns the
+    launches per kernels-line entry."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import compat
+    from color_modem_tpu_torch.frame.pipeline import encode_block, frame_line_index, make_pipeline
+    from color_modem_tpu_torch.modem.plan import make_plan, plan_on
+    from color_modem_tpu_torch.standards import ALL_STANDARDS
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    lines = LINE_API_LINES
+    img = smooth_scene(lines, N, seed=3).astype(np.float32)
+    launches = {}
+    for std, decoder, cls, skip, entry in LINE_API_CASES:
+        if cls in ("SimpleCombModem", "Simple3DCombModem"):
+            modem = getattr(compat, cls)(compat.NtscModem(N, dev))
+        else:
+            modem = getattr(compat, cls)(N, dev)
+        im = compat.ImageModem(modem)
+        enc, dec, _ = make_pipeline(make_plan(ALL_STANDARDS[std](), N), decoder, device=dev)
+        comp_b = enc(img[None], 0)
+        rgb_b = dec(comp_b, 0)[0].cpu().numpy()
+        comp_b = comp_b[0].cpu().numpy()
+        label = f"line api {cls} ({std} {decoder}) {lines}x{N}"
+        kernel = "secam_encode" if std == "secam" else "qam_encode"
+        reset_counts()
+        t0 = time.perf_counter()
+        comp = im.modulate_image(img)
+        rgb = im.demodulate_image(comp_b)
+        dt = time.perf_counter() - t0
+        got = read_counts(label, {kernel: lines})
+        launches[entry] = launches.get(entry, 0) + got[kernel]
+        e_enc = float(np.abs(comp - comp_b).max())
+        hi = lines - 1 if decoder == "comb3" else lines
+        e_dec = float(np.abs(rgb[:, skip:hi] - rgb_b[:, skip:hi]).max())
+        atol = SECAM_ENC_ATOL if std == "secam" else ENC_ATOL
+        print(f"{label}: encode vs batch {e_enc:.3e} (<= {atol}), decode vs batch on lines "
+              f"{skip}:{hi} {e_dec:.3e} (<= {DEC_ATOL}), {kernel} launches {got[kernel]}, "
+              f"{2 * lines / dt:.1f} lines/s (modulate + demodulate, host clock) on {card}")
+        _check(e_enc <= atol, f"{label}: encode {e_enc}")
+        _check(e_dec <= DEC_ATOL, f"{label}: decode {e_dec}")
+    # one line through each encode kernel against the plain encode, on the card
+    rgb1 = torch.tensor(img[None, :, 7:8], device=dev)
+    for std in ("ntsc", "pal", "secam"):
+        plan = plan_on(make_plan(ALL_STANDARDS[std](), N), dev)
+        g = frame_line_index(plan, 5, 1, 1, dev)
+        k, p = encode_block(plan, rgb1, g, "kernel"), encode_block(plan, rgb1, g, "plain")
+        torch.cuda.synchronize()
+        e = _max_err(k, p)
+        atol = SECAM_ENC_ATOL if std == "secam" else ENC_ATOL
+        print(f"line api {std}: a 1-line kernel encode against the plain encode on the card, "
+              f"max|err| {e:.3e} (<= {atol})")
+        _check(e <= atol, f"line api {std}: 1-line kernel encode {e}")
+    return launches
+
+
+def check_sanitizer(dev) -> None:
+    """Phase 7f: ``utils/debug.py::checked`` passes a clean decode on the
+    card and raises on a NaN put into one composite sample."""
+    import numpy as np
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils.debug import checked
+    from color_modem_tpu_torch.utils.testimages import smooth_scene
+
+    enc, dec, _ = make_pipeline(make_plan(NTSC(), N), "comb3", device=dev)
+    comp = enc(smooth_scene(480, N).astype(np.float32)[None], 0).clone()
+    checked(dec)(comp, 0)
+    comp[0, 5, 100] = float("nan")
+    try:
+        checked(dec)(comp, 0)
+    except FloatingPointError as e:
+        print(f"sanitizer: checked() passed the clean decode and raised on a NaN in the "
+              f"composite on {dev}: {e}")
+        return
+    raise AssertionError("sanitizer: checked() let a NaN through on the card")
+
+
+def check_cli_mesh(card: str) -> None:
+    """Phase 7g: ``cli video --mesh`` under ``python -m
+    torch.distributed.run`` over NCCL (1x1 on one card, 2x2 with four),
+    rank 0 alone reporting, its frames and clip equal to the unsharded
+    verb's."""
+    import glob
+
+    import numpy as np
+    import torch
+
+    ranks, mesh = (4, "2x2") if torch.cuda.device_count() >= 4 else (1, "1x1")
+    frames = 16
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["video", "--standard", "ntsc", "--decoder", "comb3", "--frames", str(frames),
+                "--chunk", str(frames)]
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+             str(ranks), "-m", "color_modem_tpu_torch.cli", *argv, "--mesh", mesh, "--out",
+             os.path.join(tmp, "mesh"), "--output", os.path.join(tmp, "mesh.y4m")],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        _check(res.returncode == 0, f"cli video --mesh {mesh}: rc {res.returncode}\n"
+               f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+        reports = [json.loads(x) for x in res.stdout.splitlines() if x.startswith("{")]
+        one = run_cli(argv + ["--out", os.path.join(tmp, "one"),
+                              "--output", os.path.join(tmp, "one.y4m")])
+
+        def saved(d):
+            return np.concatenate([np.load(f) for f in sorted(
+                glob.glob(os.path.join(tmp, d, "rgb_*.npy")))])
+
+        e = float(np.abs(saved("mesh") - saved("one")).max())
+        with open(os.path.join(tmp, "mesh.y4m"), "rb") as f, \
+                open(os.path.join(tmp, "one.y4m"), "rb") as g:
+            same_clip = f.read() == g.read()
+    label = f"cli video --mesh {mesh} over NCCL ({ranks} rank(s), torch.distributed.run)"
+    _check(len(reports) == 1, f"{label}: {len(reports)} reports (rank 0 alone reports)")
+    rep = reports[0]
+    print(f"{label}: min_psnr_db {rep['min_psnr_db']} (unsharded {one['min_psnr_db']}), frames "
+          f"max|diff| {e:.3e} (== 0), clip equal: {same_clip}, {rep['mpix_per_s']} Mpix/s "
+          f"(a first run), launch to exit {wall:.1f} s, on {card}")
+    _check(rep["mesh"] == dict(zip(("frame", "lineblk"), map(int, mesh.split("x")))),
+           f"{label}: {rep}")
+    _check(rep["min_psnr_db"] == one["min_psnr_db"] and e == 0.0 and same_clip,
+           f"{label}: differs from the unsharded verb")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2606,6 +2968,15 @@ def main() -> None:
     check_video_services(dev, card)
     check_video_mesh(dev, card, video)
 
+    # --- 7. the surfaces: native codec, Y4M, the CLI verbs, per-line API -------
+    check_native()
+    launches_cli = check_cli_video(dev, card, video)
+    check_cli_roundtrips(card)
+    check_cli_png_verbs(card)
+    launches_line_api = check_line_api(dev, card)
+    check_sanitizer(dev)
+    check_cli_mesh(card)
+
     _check("jax" not in sys.modules, "the port loaded jax")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     # entry -> (its CUDA kernel, the path it is timed on, the Pallas kernel)
@@ -2629,6 +3000,8 @@ def main() -> None:
                         if times[path][kernel]["library"] else None),
          "launches_data_services": services["launches"].get(name),
          "launches_sharded": launches_sharded[name],
+         "launches_cli_video": launches_cli.get(name, 0),
+         "launches_line_api": launches_line_api.get(name, 0),
          "ms_spread": list(times[path][kernel]["kernel"][1:]),
          "plain_ms_spread": list(times[path][kernel]["plain"][1:])}
         for name, (kernel, path, where) in replaces.items()

@@ -27,6 +27,7 @@ from color_modem_tpu_torch.kernels.tiles import (
 from color_modem_tpu_torch.frame.pipeline import frame_line_index
 from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.modem.plan import make_plan, plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 QAM_NAMES = sorted(k for k, f in ALL_STANDARDS.items() if not f().is_fm)
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4

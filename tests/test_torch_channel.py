@@ -22,6 +22,7 @@ from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame import channel
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL = 2e-5
 L, N = 48, TEST_SAMPLES

@@ -28,6 +28,7 @@ from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
 from color_modem_tpu_torch.frame.raster import make_raster
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N = 48, 720
 

@@ -34,6 +34,7 @@ from color_modem_tpu_torch.frame.transcode import make_transcoder
 from color_modem_tpu_torch.frame.video import noise_keying, process_video
 from color_modem_tpu_torch.modem.plan import make_plan, plan_on
 from color_modem_tpu_torch.utils.testimages import smooth_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 720
 _PLANS = {}

@@ -43,6 +43,7 @@ from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
 from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL, SECAM_ENC_ATOL, DEC_ATOL = 2e-5, 2e-4, 5e-4
 RGB_ATOL = 1e-5  # resample, NR, deinterlace, telecine on the same RGB

@@ -20,6 +20,7 @@ from color_modem_tpu.modem import mac as jmac
 from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.modem import mac as tmac
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, W = 48, 720
 VARIANTS = ("d2", "d")

@@ -8,6 +8,7 @@ import pytest
 from color_modem_tpu_torch import NTSC, PAL, SECAM
 from color_modem_tpu_torch.kernels import measure
 from color_modem_tpu_torch.modem.plan import make_plan
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("kernel,want", [("qam_encode", 0.026409), ("qam_decode", 0.033012)])

@@ -20,6 +20,7 @@ from color_modem_tpu.golden import sound as gs
 from color_modem_tpu_torch.frame import mts as tmts
 from color_modem_tpu_torch.frame.rf import make_rf_plan, rf_demodulate_sound, rf_modulate
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 T_LINES = 64
 CROP = 16384  # the channel low-pass transient

@@ -28,6 +28,7 @@ from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.frame.rf import make_rf_plan, rf_demodulate, rf_modulate
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 PASSBAND_ATOL = 1e-3
 

@@ -27,6 +27,7 @@ from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame import palplus as tpp
 from color_modem_tpu_torch.frame.pipeline import frame_line_index
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N = 64, 720
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4

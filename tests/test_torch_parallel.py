@@ -35,6 +35,7 @@ import jax.numpy as jnp
 
 from conftest import get_plan
 from color_modem_tpu_torch.parallel import multihost as mh
+from torch_threads import one_torch_thread  # noqa: F401
 
 N_RANKS = 4
 MESHES = [(2, 2), (4, 1), (1, 4)]

@@ -37,6 +37,7 @@ from color_modem_tpu.standards.decoders import allowed_decoders
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.parallel import halo, mesh, multihost as mh, sharded
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = [(1, 4), (2, 2), (4, 1)]

@@ -28,6 +28,7 @@ from color_modem_tpu_torch import NTSC
 from color_modem_tpu_torch.frame.video import process_video, synthetic_source
 from color_modem_tpu_torch.modem.plan import make_plan
 from color_modem_tpu_torch.parallel import multihost as mh
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N, FRAMES = 32, 720, 7
 CAPTIONS = np.random.default_rng(5).integers(0, 2, (FRAMES, 16)).tolist()

@@ -27,6 +27,7 @@ from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame.pipeline import decode_block, make_pipeline
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAME0 = 3
@@ -256,10 +257,35 @@ def test_port_never_imports_jax():
         _, _, rt = sharded.make_sharded_pipeline(make_plan(NTSC(), 720), m, "comb3")
         assert psnr(mesh.gather_blocks(m, rt(mesh.local_block(m, rgb), 0)), rgb) > 30.0
         torch.distributed.destroy_process_group()
+        # the surfaces: the native codec, Y4M, a line modem, the sanitizer, the CLI
+        import contextlib, io, json
+        from color_modem_tpu_torch import cli, native
+        from color_modem_tpu_torch.compat import NtscModem
+        from color_modem_tpu_torch.frame import image_io, y4m
+        from color_modem_tpu_torch.utils import debug, testimages
+        bars = testimages.color_bars(4, 720).astype(np.float32)
+        assert np.array_equal(native.chw_f32_to_rgb8(native.rgb8_to_chw_f32(
+            native.chw_f32_to_rgb8(bars[None]))), native.chw_f32_to_rgb8(bars[None]))
+        with tempfile.TemporaryDirectory() as d:
+            assert y4m.write_y4m(d + "/c.y4m", [bars]) == 1
+            assert y4m.y4m_source(d + "/c.y4m")[1:] == (1, 4, 720)
+            image_io.save_rgb(d + "/c.ppm", bars)
+        modem = NtscModem(720, device="cpu")
+        assert modem.modulate(0, 0, *bars[:, 0]).shape == (720,)
+        assert debug.checked(lambda x: x + 1)(torch.zeros(2)).sum() == 2
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["roundtrip", "--demo", "--lines", "16", "--device", "cpu"]) == 0
+        assert json.loads(out.getvalue())["psnr_db"] > 20.0
+        # every module of the port, found by walking the package
         import importlib, pkgutil
         import color_modem_tpu_torch as port
-        for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
-            importlib.import_module(m.name)
+        walked = {m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")}
+        for name in sorted(walked):
+            importlib.import_module(name)
+        surfaces = {"cli", "native", "compat", "compat.line_api", "frame.y4m",
+                    "frame.image_io", "utils.debug", "utils.testimages"}
+        assert {"color_modem_tpu_torch." + n for n in surfaces} <= walked, sorted(walked)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         ref = sorted(m for m in sys.modules if m.split(".")[0] == "color_modem_tpu")
         assert not ref, ref
@@ -273,13 +299,39 @@ def test_port_never_imports_jax():
 
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the system only through the port: no import of
-    jax or of the JAX package, at any depth of the script."""
-    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    jax or of the JAX package, at any depth of the script; and importing
+    every module of the port that it names, in a fresh process, loads no
+    jax either.  The script drives the surfaces too (phase 7)."""
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
-    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom) and n.module:
+            names.append(n.module)
+            # `from package import module` names modules too
+            names += [f"{n.module}.{a.name}" for a in n.names]
     tops = {m.split(".")[0] for m in names}
     assert "color_modem_tpu_torch" in tops
     assert not tops & {"jax", "jaxlib", "color_modem_tpu"}, sorted(tops)
+    port = sorted({m for m in names if m.split(".")[0] == "color_modem_tpu_torch"})
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {port!r}:
+            try:
+                importlib.import_module(name)
+            except ModuleNotFoundError:
+                # `from module import function`: the module must import
+                importlib.import_module(name.rsplit(".", 1)[0])
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        loaded = sorted(m for m in sys.modules if m.startswith("color_modem_tpu"))
+        assert all(m.split(".")[0] == "color_modem_tpu_torch" for m in loaded), loaded
+        print(len(loaded))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    for surface in ("cli", "native", "compat", "frame.y4m", "utils.debug", "utils.testimages"):
+        assert f"color_modem_tpu_torch.{surface}" in port, surface
 
 
 def _factories():

@@ -35,6 +35,7 @@ from color_modem_tpu_torch.modem.plan import (
     make_plan,
     plan_from_numpy,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = TEST_SAMPLES
 QAM = sorted(n for n, f in ALL_STANDARDS.items() if not f().is_fm)

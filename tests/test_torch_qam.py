@@ -28,6 +28,7 @@ from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.modem import qam
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.separate import comb, stencil
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, L, N = 2, 32, TEST_SAMPLES
 FRAME0 = 3

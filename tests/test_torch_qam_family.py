@@ -41,6 +41,7 @@ from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.modem import niir
 from color_modem_tpu_torch.modem.plan import make_plan, plan_from_numpy
 from color_modem_tpu_torch.separate import stencil
+from torch_threads import one_torch_thread  # noqa: F401
 
 FRAME0 = 3
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4

@@ -28,6 +28,7 @@ from color_modem_tpu_torch.frame import raster
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4
 BURST_ATOL = 1e-5

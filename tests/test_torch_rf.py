@@ -26,6 +26,7 @@ from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.frame.raster import make_raster
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L = 64
 PLAN_ARRAYS = ("tx_taps", "rx_taps", "det_taps", "ramp", "snd_bpf", "snd_lpf", "aud_lpf",

@@ -31,6 +31,7 @@ from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.modem import mac
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, W = 48, 720
 PLAN_ARRAYS = ("interp_taps", "rx_taps", "iq_taps", "dec_taps", "pre_taps", "de_taps",

@@ -19,6 +19,7 @@ from color_modem_tpu.frame import scramble as js
 from color_modem_tpu.frame.raster import make_raster as jax_make_raster
 from color_modem_tpu_torch.frame import scramble as ts
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEYS = (0, 1, 0x5EC4E7, 0xC0FFEE, 2**32 - 1, 2**32 + 5, 12345678901)
 

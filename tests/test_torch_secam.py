@@ -40,6 +40,7 @@ from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.separate.delayline import average_with_neighbor
+from torch_threads import one_torch_thread  # noqa: F401
 
 B, L, N = 2, 32, TEST_SAMPLES
 FRAME0 = 3

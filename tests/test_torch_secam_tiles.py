@@ -33,6 +33,7 @@ from color_modem_tpu_torch.kernels.tiles import BAND_TILE, band_steps16, band_ti
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import FM_TAPS, make_plan, plan_from_numpy
 from color_modem_tpu_torch.utils.testimages import smooth_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL, DEC_ATOL = 2e-4, 5e-4
 #: the card test's bound on the FIR alone (tests/test_torch_kernels_cuda.py)

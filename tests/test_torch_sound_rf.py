@@ -23,6 +23,7 @@ from color_modem_tpu_torch.frame import rf as trf
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N = 16, 720
 CROP = 8192  # the audio low-pass transient

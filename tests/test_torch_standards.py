@@ -19,6 +19,7 @@ from color_modem_tpu_torch.modem.plan import make_plan
 from color_modem_tpu_torch.standards import base as tbase
 from color_modem_tpu_torch.standards import decoders as tdec
 from color_modem_tpu_torch.utils.testimages import smooth_scene
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = sorted(jstd.ALL_STANDARDS)
 

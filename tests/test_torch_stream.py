@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from color_modem_tpu.dsp import stream as jstream
 from color_modem_tpu_torch.dsp import apply as tapply
 from color_modem_tpu_torch.dsp import stream as tstream
+from torch_threads import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(11)
 

@@ -19,6 +19,7 @@ from color_modem_tpu.modem.plan import make_plan as jax_make_plan
 from color_modem_tpu.standards import PAL as JPAL
 from color_modem_tpu_torch.frame import teletext as tt
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 WAVE_ATOL, MARGIN_ATOL = 1e-6, 1e-5
 ROWS = ["HELLO WORLD", "ROW TWO", "0123456789 abcdefghij ABCDEFGHIJ !@#$%^&*+", ""]

@@ -22,6 +22,7 @@ from color_modem_tpu.standards import NTSC as JNTSC
 from color_modem_tpu.standards import PAL as JPAL
 from color_modem_tpu_torch.frame import vbi
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 WAVE_ATOL, MARGIN_ATOL = 1e-6, 1e-5
 

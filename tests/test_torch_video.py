@@ -37,6 +37,7 @@ from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.manifest import ChunkManifest, array_hash
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N = 32, TEST_SAMPLES
 DEC_ATOL, CHUNK_ATOL = 5e-4, 1e-6

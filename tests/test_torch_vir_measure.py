@@ -34,6 +34,7 @@ from color_modem_tpu_torch.frame import measure as tm
 from color_modem_tpu_torch.frame import vir as tvir
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils.metrics import psnr
+from torch_threads import one_torch_thread  # noqa: F401
 
 L, N = 32, 720
 RGB_ATOL = 5e-4

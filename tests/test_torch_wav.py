@@ -17,6 +17,7 @@ from color_modem_tpu.utils import wav as jwav
 from color_modem_tpu_torch.frame.rf import make_rf_plan, rf_demodulate_sound, rf_modulate
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils import wav as twav
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("rate_in,rate_out,n_out", [

@@ -22,6 +22,7 @@ from color_modem_tpu.standards import PAL as JPAL
 from color_modem_tpu_torch.frame import vitc as tvt
 from color_modem_tpu_torch.frame import wss as tw
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from torch_threads import one_torch_thread  # noqa: F401
 
 WAVE_ATOL, MARGIN_ATOL = 1e-6, 1e-5
 GRIDS = [("pal", 720), ("pal", 1440), ("ntsc", 720), ("ntsc", 960)]
