@@ -156,7 +156,18 @@ Phases; any failure raises and exits nonzero:
    (f) ``checked`` raising on a NaN in a composite; (g) ``cli video
    --mesh`` under ``torch.distributed.run`` over NCCL (1x1; 2x2 with four
    cards), rank 0 alone reporting, frames and clip equal to the unsharded
-   verb's.
+   verb's;
+8. the benchmark: ``python -m color_modem_tpu_torch.benchmark --roofline``
+   in its own process at the four flagship shapes (NTSC comb3 16x480x720;
+   SECAM interp, PAL delayline, NIIR avg 16x576x720) from a temporary
+   directory, and ``cli bench`` once in this process: the last line the
+   four keys with a finite positive value, the record's PSNR +- 0.02 dB of
+   the JAX CPU value, one launch of each path kernel per call, every
+   roofline share in (0, 1.05], the CLI's PSNR equal to the module's; each
+   printed beside the Mpix/s phase 5's kernel round trip implies, and the
+   record's power limit (read by the card's UUID) equal to ``nvidia-smi``'s;
+   (b) ``entry()``'s step once on the card (shape, finite, one launch
+   each) and ``dryrun_multichip(4)`` on 4 gloo ranks on the card(s).
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
 kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
@@ -164,8 +175,10 @@ CUDA kernels with equal tile arrays, on the PAL delayline path), with the
 QAM kernels' launches on phase 4i's paths beside (``launches_data_services``:
 the NTSC caption round trip, the PALplus round trip) and each rank's
 launches on phase 4j's (2,2) full-width round trips (``launches_sharded``),
-on the CLI's video run of phase 7b (``launches_cli_video``) and on phase
-7e's per-line modems (``launches_line_api``); the last line is ``{"ok": true, "device": {...}}``.
+on the CLI's video run of phase 7b (``launches_cli_video``), on phase
+7e's per-line modems (``launches_line_api``) and per call of phase 8's
+benchmark (``launches_bench``); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -388,11 +401,9 @@ def _which_side_moved(label: str, what: str, where: str, first: tuple, again) ->
 
 def reset_counts() -> None:
     """Zero the launch counters of all four CUDA kernels."""
-    from color_modem_tpu_torch.kernels import qam as qk
-    from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels import reset_launches
 
-    qk.reset_launches()
-    sk.reset_launches()
+    reset_launches()
 
 
 def read_counts(label: str, want: dict) -> dict:
@@ -400,11 +411,10 @@ def read_counts(label: str, want: dict) -> dict:
     kernel it leaves out must not have launched)."""
     import torch
 
-    from color_modem_tpu_torch.kernels import qam as qk
-    from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels import launch_counts
 
     torch.cuda.synchronize()
-    got = {**qk.LAUNCHES, **sk.LAUNCHES}
+    got = launch_counts()
     full = {k: want.get(k, 0) for k in got}
     _check(got == full, f"{label}: launches {got}, expected {full}")
     return got
@@ -2841,6 +2851,145 @@ def check_cli_mesh(card: str) -> None:
            f"{label}: differs from the unsharded verb")
 
 
+# --- phase 8: the benchmark and the entry point ----------------------------------------------
+
+#: phase 8: the benchmark's flagship paths, (standard, decoder) -> the JAX
+#: CPU round-trip PSNR that phases 4, 4b and 4c hold at the same shape
+BENCH_PATHS = {
+    ("ntsc", "comb3"): (PSNR_EXPECTED, QAM_1_1),
+    ("secam", "interp"): (SECAM_PSNR["interp"], SECAM_1_1),
+    ("pal", "delayline"): (QAM_FAMILY["pal", "delayline"][0], QAM_1_1),
+    ("niir", "avg"): (QAM_FAMILY["niir", "avg"][0], QAM_1_1),
+}
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+ROOFLINE_SHARES = ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak")
+#: a roofline share above this is a counting fault
+SHARE_MAX = 1.05
+
+
+def check_bench_output(label: str, stdout: str, results: str, std: str, dec: str,
+                       want: tuple, power_limit: float) -> dict:
+    """A bench run's last line (the four keys, a finite positive value),
+    its roofline line and its record under ``results``: the PSNR +-
+    PSNR_TOL of the JAX CPU value, one launch of each path kernel per call,
+    every roofline share in (0, SHARE_MAX], the power limit
+    ``power_limit``.  Returns the record."""
+    import math
+
+    psnr_want, kernels = want
+    out = stdout.strip().splitlines()
+    line = json.loads(out[-1])
+    _check(set(line) == BENCH_KEYS, f"{label}: last line {out[-1]}")
+    _check(math.isfinite(line["value"]) and line["value"] > 0, f"{label}: {line}")
+    roof = json.loads(out[-2])["roofline"]
+    with open(os.path.join(results, f"bench_{std}_{dec}_kernel.json")) as f:
+        rec = json.load(f)
+    _check(rec["roofline"] == roof, f"{label}: roofline line differs from the record")
+    _check(rec["power_limit_w"] == power_limit, f"{label}: power limit {rec['power_limit_w']} "
+           f"W, nvidia-smi {power_limit} W")
+    launches = {k: kernels.get(k, 0) for k in rec["kernel_launches"]}
+    _check(rec["kernel_launches"] == launches,
+           f"{label}: launches per call {rec['kernel_launches']}, expected {launches}")
+    q = rec["roundtrip_psnr_db"]
+    _check(abs(q - psnr_want) <= PSNR_TOL + 1e-9, f"{label}: psnr {q}, expected {psnr_want}")
+    shares = [roof[k] for k in ROOFLINE_SHARES]
+    _check(all(v is not None and 0.0 < v <= SHARE_MAX for v in shares),
+           f"{label}: roofline shares {shares} outside (0, {SHARE_MAX}]")
+    return rec
+
+
+def check_bench(card: str, times: dict) -> dict:
+    """Phase 8: ``python -m color_modem_tpu_torch.benchmark --roofline`` at
+    the four flagship shapes, each in its own process, and ``cli bench``
+    once in this one, from a temporary directory; each beside the Mpix/s
+    that phase 5's kernel round trip implies at the same shape.  Returns
+    the records by standard."""
+    import contextlib
+    import io
+
+    from color_modem_tpu_torch import ALL_STANDARDS, cli
+
+    # "NVIDIA H100 80GB HBM3, 700.00 W" -> 700.0
+    power_limit = float(card.rsplit(",", 1)[1].split()[0])
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [REPO] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p])}
+    records = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for (std, dec), want in BENCH_PATHS.items():
+            lines = ALL_STANDARDS[std]().active_lines
+            label = f"bench {std} {dec} {BATCH}x{lines}x{N}"
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "color_modem_tpu_torch.benchmark", "--standard", std,
+                 "--decoder", dec, "--roofline"],
+                cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            _check(res.returncode == 0, f"{label}: rc {res.returncode}\n{res.stderr[-3000:]}")
+            rec = check_bench_output(label, res.stdout, os.path.join(tmp, "results"), std, dec,
+                                     want, power_limit)
+            roof = rec["roofline"]
+            rt_ms = times[std][f"{dec} roundtrip"]["kernel"]
+            lo, hi = rec["spread_mpix_per_s"]
+            print(f"{label}: {rec['mpix_per_s']} Mpix/s [{lo:.1f}, {hi:.1f}] (median [min, max] "
+                  f"of 10 windows of {rec['iters']} calls), psnr {rec['roundtrip_psnr_db']} dB "
+                  f"(JAX CPU {want[0]} +- {PSNR_TOL}), launches per call "
+                  f"{ {k: v for k, v in rec['kernel_launches'].items() if v} }, roofline "
+                  f"{roof['logical_tflops']} TFLOP/s ({roof['tflops_fraction_of_f32_peak']} of "
+                  f"f32 peak), {roof['hbm_gbps']} GB/s ({roof['hbm_fraction_of_peak']} of HBM), "
+                  f"bound {roof['bound_ms']:.4f} ms by {roof['binding_constraint']}; phase 5's "
+                  f"kernel round trip {rt_ms[0]:.4f} ms implies "
+                  f"{BATCH * lines * N / 1e3 / rt_ms[0]:.1f} Mpix/s; {rec['device_name']} "
+                  f"{rec['power_limit_w']} W ({card}); process {wall:.1f} s")
+            records[std] = rec
+        # the CLI verb once, in this process, on the main path
+        std, dec = "ntsc", "comb3"
+        out, here = io.StringIO(), os.getcwd()
+        os.chdir(tmp)
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(["bench", "--standard", std, "--decoder", dec, "--roofline"])
+        finally:
+            os.chdir(here)
+        _check(rc == 0, f"cli bench: exit code {rc}")
+        rec = check_bench_output("cli bench ntsc comb3", out.getvalue(),
+                                 os.path.join(tmp, "results"), std, dec, BENCH_PATHS[std, dec],
+                                 power_limit)
+        print(f"cli bench {std} {dec}: {rec['mpix_per_s']} Mpix/s, psnr "
+              f"{rec['roundtrip_psnr_db']} dB (module: {records[std]['roundtrip_psnr_db']}), "
+              f"on {card}")
+        _check(rec["roundtrip_psnr_db"] == records[std]["roundtrip_psnr_db"],
+               "cli bench: PSNR differs from the module's")
+    return records
+
+
+def check_entry(dev) -> None:
+    """Phase 8b: ``entry()``'s step once on the card: its output's shape,
+    finite values, one launch of each main-path kernel; then
+    ``dryrun_multichip(4)`` at its default device, 4 gloo ranks on the
+    card(s), which raises on a wrong shape, a garbage PSNR or a case
+    outside its bound."""
+    import torch
+
+    from color_modem_tpu_torch.entry import dryrun_multichip, entry
+
+    step, (rgb,) = entry()
+    _check(rgb.device.type == "cuda", f"entry: example input on {rgb.device}")
+    reset_counts()
+    out = step(rgb)
+    got = read_counts("entry step", QAM_1_1)
+    _check(tuple(out.shape) == (2, 3, 480, 720) and bool(torch.isfinite(out).all()),
+           f"entry: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
+    print(f"entry(): step{tuple(rgb.shape)} -> {tuple(out.shape)} on {out.device}, finite, "
+          f"launches {got}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        recs = dryrun_multichip(4, outdir=out_dir)
+    on = {rec["device"] for rec in recs}
+    _check(on == {"cuda:0"}, f"dryrun_multichip: rank 0 ran on {on}, not cuda:0")
+    print(f"dryrun_multichip(4): {len(recs)} cases, rank 0 on cuda:0, in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -2977,6 +3126,10 @@ def main() -> None:
     check_sanitizer(dev)
     check_cli_mesh(card)
 
+    # --- 8. the benchmark, the CLI's bench verb and the entry point -------------
+    bench = check_bench(card, times)
+    check_entry(dev)
+
     _check("jax" not in sys.modules, "the port loaded jax")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s")
     # entry -> (its CUDA kernel, the path it is timed on, the Pallas kernel)
@@ -3002,6 +3155,7 @@ def main() -> None:
          "launches_sharded": launches_sharded[name],
          "launches_cli_video": launches_cli.get(name, 0),
          "launches_line_api": launches_line_api.get(name, 0),
+         "launches_bench": bench[path]["kernel_launches"][kernel],
          "ms_spread": list(times[path][kernel]["kernel"][1:]),
          "plain_ms_spread": list(times[path][kernel]["plain"][1:])}
         for name, (kernel, path, where) in replaces.items()

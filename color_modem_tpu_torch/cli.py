@@ -1,5 +1,5 @@
 """Command-line interface of the port: encode | decode | roundtrip | video |
-transcode | mac | measure | gallery | info.
+transcode | mac | measure | gallery | bench | info.
 
 Port of ``color_modem_tpu/cli.py``: the same verbs, flags, validation
 messages and JSON report keys, over the PyTorch modules of this package.
@@ -443,6 +443,12 @@ def build_parser() -> argparse.ArgumentParser:
                      "interlaced PAL at 576x1440 with teletext/WSS/VITC/captions, "
                      "Videocrypt-style scrambling, RF hop with FM + NICAM sound")
 
+    from color_modem_tpu_torch.benchmark import add_bench_args
+
+    bm = sub.add_parser("bench", help="round-trip throughput benchmark (the protocol of "
+                        "python -m color_modem_tpu_torch.benchmark)")
+    add_bench_args(bm)
+
     sub.add_parser("info", help="list standards, decoders, devices")
     return ap
 
@@ -568,6 +574,13 @@ def _validate(args) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.cmd == "bench":
+        # broadcast-batch frames: the temporal decoders are fine here, so
+        # the still-image guards of _validate do not apply
+        from color_modem_tpu_torch.benchmark import run as bench_run
+
+        bench_run(args)
+        return 0
     _validate(args)
     if args.cmd == "info":
         return _info()

@@ -137,6 +137,17 @@ def hilbert_taps(
     return freq_sampled_taps(fs, resp, ntaps)
 
 
+def freqz(taps: np.ndarray, fs: float, freqs: np.ndarray) -> np.ndarray:
+    """Complex response of ``taps`` at ``freqs`` Hz, **after** 'same' centering.
+
+    The (ntaps-1)/2 group delay of the centered application is divided out, so
+    a symmetric (linear-phase) filter reads as purely real here.
+    """
+    n = np.arange(len(taps), dtype=np.float64) - (len(taps) - 1) / 2.0
+    w = 2.0 * np.pi * np.asarray(freqs, dtype=np.float64) / fs
+    return (taps[None, :] * np.exp(-1j * np.outer(w, n))).sum(axis=1)
+
+
 # --- SECAM transfer functions ------------------------------------------------
 
 

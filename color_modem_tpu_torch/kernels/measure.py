@@ -1,7 +1,9 @@
 """What a kernel's times are held against: the least time the card could
-take for a launch's work, and CUDA-event timing.  The port's code never
-calls this module; ``chip_smoke.py`` and ``scripts/torch_kernel_ab.py``
-both read it, so their bounds and windows are the same.
+take for a launch's work, and CUDA-event timing.  The pipelines never call
+this module; the benchmark (``benchmark.py`` through
+``utils/profiling.py``), ``chip_smoke.py`` and
+``scripts/torch_kernel_ab.py`` read it, so their peaks, bounds and windows
+are the same.
 
 It imports nothing of the package (a plan is read by its attributes only),
 so a script may load this file by its path while it times another tree.

@@ -37,6 +37,8 @@ import time
 
 import numpy as np
 
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
+
 FAIL_ENV = "CMTPU_TORCH_MULTIHOST_FAIL_RANK"
 #: samples per line of every case
 SAMPLES = 720
@@ -137,21 +139,6 @@ def sat_audio_fixture(fs: float, frames: int, lines: int) -> np.ndarray:
     return np.stack([np.stack([
         0.6 * np.sin(2 * np.pi * round((700.0 + 37 * b + 23 * k) * s / fs) * t * fs / s)
         for k in range(2)]) for b in range(frames)]).astype(np.float32)
-
-
-def _counts() -> dict:
-    from color_modem_tpu_torch.kernels import qam as qk
-    from color_modem_tpu_torch.kernels import secam as sk
-
-    return {**qk.LAUNCHES, **sk.LAUNCHES}
-
-
-def _reset() -> None:
-    from color_modem_tpu_torch.kernels import qam as qk
-    from color_modem_tpu_torch.kernels import secam as sk
-
-    qk.reset_launches()
-    sk.reset_launches()
 
 
 def _sync(dev) -> None:
@@ -321,11 +308,11 @@ def run_case(case: dict, mesh, backend: str, outdir: pathlib.Path) -> dict:
 
     dist.barrier()
     _sync(dev)
-    _reset()
+    reset_launches()
     with torch.inference_mode():
         got = rt_s(*args, frame0)
         _sync(dev)
-    rec = {**_record(case, mesh), "launches": _counts(), "block": list(blk.shape)}
+    rec = {**_record(case, mesh), "launches": launch_counts(), "block": list(blk.shape)}
     rt_blk, aud_rx = (got, None) if aud is None else got
     outs = {"rt": gather_blocks(mesh, rt_blk, "rgb")}
     if aud_rx is not None:
@@ -495,7 +482,7 @@ def _video_case(case: dict, mesh, backend: str, outdir: pathlib.Path) -> dict:
     if opts.get("rf_audio") == "tones":
         opts["rf_audio"] = sound_fixture(plan.fs, n, lines).reshape(-1)
     rec = _record(case, mesh)
-    _reset()
+    reset_launches()
     try:
         rec["summary"] = process_video(plan, src, n, str(outdir / case["out"]), mesh=mesh,
                                        backend=backend, device=device,
@@ -505,7 +492,7 @@ def _video_case(case: dict, mesh, backend: str, outdir: pathlib.Path) -> dict:
             raise
         rec["error"] = str(e)
     _sync(mesh.device)
-    rec["launches"] = _counts()
+    rec["launches"] = launch_counts()
     return rec
 
 

@@ -30,6 +30,8 @@ from color_modem_tpu_torch.separate.stencil import (
     prev_reflect_frames,
 )
 
+#: the separations :func:`separate` offers
+SEPARATORS = ("notch", "comb2", "comb3", "comb3d", "combA", "comb3dA")
 #: the decoders whose separation is the adaptive blend, not a stencil + BPF
 ADAPTIVE = ("combA", "comb3dA")
 

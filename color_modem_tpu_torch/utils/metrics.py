@@ -14,6 +14,10 @@ import struct
 import numpy as np
 import torch
 
+# the serial first call of each MKL-backed function (``dsp/__init__.py``)
+# before the fingerprint's ``torch.cos``
+import color_modem_tpu_torch.dsp  # noqa: F401
+
 
 def mse(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.mean((a.to(torch.float64) - b.to(torch.float64)) ** 2))

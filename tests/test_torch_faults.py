@@ -199,3 +199,59 @@ def test_plan_copies_are_made_once_per_device():
     rgb = torch.tensor(np.broadcast_to(smooth_scene(8, N, seed=0), (1, 3, 8, N)),
                        dtype=torch.float32)
     assert torch.isfinite(rt(rgb)).all()
+
+
+def _top_level_imports(path) -> set:
+    """The modules a module's body imports at import time (not in a def)."""
+    import ast
+
+    names = set()
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, ast.Import):
+                names.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
+                names.add(node.module)
+                names.update(f"{node.module}.{a.name}" for a in node.names)
+            elif isinstance(node, (ast.If, ast.Try, ast.With)):
+                visit(node.body)
+                visit(getattr(node, "orelse", []))
+                for h in getattr(node, "handlers", []):
+                    visit(h.body)
+
+    visit(ast.parse(path.read_text()).body)
+    return names
+
+
+def test_every_module_that_calls_mkl_math_warms_it_first():
+    """PyTorch's MKL-backed CPU functions (``dsp._VML_FUNCTIONS``) have each
+    run once on one element before any module of the port can call them on
+    a large tensor: every module that calls one imports
+    ``color_modem_tpu_torch.dsp``, directly or through its imports."""
+    import pathlib
+    import re
+
+    from color_modem_tpu_torch import dsp
+
+    root = pathlib.Path(dsp.__file__).resolve().parents[1]
+    mods = {".".join(p.relative_to(root.parent).with_suffix("").parts).removesuffix(
+        ".__init__"): p for p in root.rglob("*.py")}
+    graph = {m: {n for n in _top_level_imports(p) if n in mods} for m, p in mods.items()}
+    for m in mods:  # importing a.b.c runs a and a.b first
+        parts = m.split(".")
+        graph[m] |= {".".join(parts[:k]) for k in range(1, len(parts))}
+
+    def reaches(m, seen):
+        if m == "color_modem_tpu_torch.dsp":
+            return True
+        seen.add(m)
+        return any(reaches(n, seen) for n in graph[m] - seen)
+
+    calls = re.compile(r"torch\.(%s)\(" % "|".join(dsp._VML_FUNCTIONS))
+    users = [m for m, p in mods.items() if calls.search(p.read_text())]
+    assert len(users) > 10
+    missing = [m for m in users if not reaches(m, set())]
+    assert not missing, missing
+    for name in dsp._VML_FUNCTIONS:
+        assert callable(getattr(torch, name)), name

@@ -887,3 +887,30 @@ def test_nccl_refuses_more_ranks_than_cards(dev, monkeypatch):
     with pytest.raises(ValueError, match="one card per rank"):
         mesh.init_distributed("nccl")
     assert not torch.distributed.is_initialized()
+
+
+def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
+    import json
+
+    from color_modem_tpu_torch import benchmark
+
+    monkeypatch.chdir(tmp_path)
+    benchmark.main(["--roofline"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"} and line["value"] > 0
+    with open(tmp_path / "results" / "bench_ntsc_comb3_kernel.json") as f:
+        rec = json.load(f)
+    assert rec["shape"] == [16, 480, 720] and rec["device"] == "cuda"
+    assert abs(rec["roundtrip_psnr_db"] - 46.62) <= 0.02
+    assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
+                                      "secam_decode": 0}
+    for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
+        assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
+
+
+def test_dryrun_multichip_on_the_card(dev, tmp_path):
+    from color_modem_tpu_torch.entry import dryrun_multichip
+
+    recs = dryrun_multichip(2, outdir=str(tmp_path))
+    assert {r["device"] for r in recs} == {"cuda:0"}
+    assert {r["name"] for r in recs} >= {"step:ntsc/comb3", "step:ntsc/comb3d"}

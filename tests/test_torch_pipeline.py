@@ -277,6 +277,25 @@ def test_port_never_imports_jax():
         with contextlib.redirect_stdout(out):
             assert cli.main(["roundtrip", "--demo", "--lines", "16", "--device", "cpu"]) == 0
         assert json.loads(out.getvalue())["psnr_db"] > 20.0
+        # the benchmark, the profiling helpers, the root factories, the entry point
+        import os
+        from color_modem_tpu_torch import benchmark, entry, make_transcoder
+        from color_modem_tpu_torch.utils import profiling
+        with tempfile.TemporaryDirectory() as d:
+            here = os.getcwd()
+            os.chdir(d)
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    benchmark.main(["--device", "cpu", "--batch", "1", "--lines", "16",
+                                    "--iters", "1"])
+                with open("results/bench_ntsc_comb3_kernel.json") as f:
+                    assert json.load(f)["roundtrip_psnr_db"] > 30.0
+            finally:
+                os.chdir(here)
+        assert profiling.measure(torch.add, rgb, 1.0, iters=1)["seconds_per_call"] > 0.0
+        assert make_transcoder("ntsc", "pal", device="cpu")(comp, 0).shape == (1, 19, 720)
+        step, (zeros,) = entry.entry(device="cpu")
+        assert step(zeros[:, :, :16]).shape == (2, 3, 16, 720)
         # every module of the port, found by walking the package
         import importlib, pkgutil
         import color_modem_tpu_torch as port
@@ -284,7 +303,8 @@ def test_port_never_imports_jax():
         for name in sorted(walked):
             importlib.import_module(name)
         surfaces = {"cli", "native", "compat", "compat.line_api", "frame.y4m",
-                    "frame.image_io", "utils.debug", "utils.testimages"}
+                    "frame.image_io", "utils.debug", "utils.testimages", "benchmark",
+                    "entry", "utils.profiling"}
         assert {"color_modem_tpu_torch." + n for n in surfaces} <= walked, sorted(walked)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         ref = sorted(m for m in sys.modules if m.split(".")[0] == "color_modem_tpu")
