@@ -13,7 +13,7 @@ Phases; any failure raises and exits nonzero:
 3b. the SIMT FIR (``csrc/fir.cuh``, whose zero and held edges the SECAM
    kernels' staging matches) against ``np.convolve`` on asymmetric taps, and
    the tensor-core FIR in the QAM kernels' form (``csrc/band_fir.cuh``) the
-   same way, zero edges, <= 2e-6, over 16 shapes (ragged last tiles of lines
+   same way, zero edges, <= 2e-6, over 18 shapes (ragged last tiles of lines
    included); each SECAM kernel (the tensor-core form with the lines as
    columns) against its plain version at 16x576x720 and 4x576x1440: encode
    <= 2e-4, decoded RGB <= 5e-4, and the raw demodulated component's error
@@ -497,8 +497,8 @@ def check_fir(dev) -> float:
 def check_band_fir(dev) -> float:
     """band_fir.cuh through csrc/band_fir_check.cu against np.convolve on
     random asymmetric taps: taps longer than the line, widths that are not
-    multiples of 8, lines cut into spans, 17 lines (a ragged last tile of
-    16) and 7681 lines at the main path's width."""
+    multiples of 8, lines cut into spans, 17, 63 and 65 lines (ragged last
+    tiles of 16) and 7681 lines at the main path's width."""
     import numpy as np
     import torch
 
@@ -507,7 +507,8 @@ def check_band_fir(dev) -> float:
     rng = np.random.default_rng(2)
     worst = 0.0
     shapes = [(t, n, 17) for t in (31, 129, 259) for n in (61, 97, 720, 722, 1440)]
-    for ntaps, n, lines in shapes + [(129, 720, 7681)]:
+    extra = [(129, 720, 63), (129, 720, 65), (129, 720, 7681)]
+    for ntaps, n, lines in shapes + extra:
         taps = rng.normal(size=ntaps) / ntaps
         x = rng.normal(size=(lines, n)).astype(np.float32)
         h = (ntaps - 1) // 2
@@ -520,8 +521,9 @@ def check_band_fir(dev) -> float:
         _check(e <= BAND_FIR_ATOL,
                f"band_fir.cuh disagrees with np.convolve at {lines}x{n}, {ntaps} taps: {e}")
         worst = max(worst, e)
-    print(f"band_fir.cuh vs np.convolve, {len(shapes) + 1} shapes (taps 31/129/259, widths "
-          f"61-1440, 17 and 7681 lines): max|err| {worst:.3e} (<= {BAND_FIR_ATOL})")
+    print(f"band_fir.cuh vs np.convolve, {len(shapes) + len(extra)} shapes (taps 31/129/259, "
+          f"widths 61-1440, 17, 63, 65 and 7681 lines): max|err| {worst:.3e} "
+          f"(<= {BAND_FIR_ATOL})")
     return worst
 
 

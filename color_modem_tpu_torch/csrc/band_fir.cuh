@@ -12,10 +12,24 @@
 //
 // one mma.sync.m16n8k8 per (t, s) with M = 16 lines, N = 8 outputs, K = 8
 // samples: 136 multiply-adds per output for 129 taps (5% above the direct
-// FIR).  Why mma.sync and not wgmma: the band makes every output tile cost
-// T + N - 1 multiply-adds per output, so N must stay at 8, the narrowest
-// tile; a wgmma of N = 8 issues no faster than mma.sync, and mma.sync keeps
-// the operands in registers, where a warp can reuse them.
+// FIR).  Why mma.sync and not wgmma, measured (scripts/torch_mma_ceiling.py
+// on NVIDIA H100 80GB HBM3, 700.00 W; share of the card's 495 TFLOP/s, one
+// warpgroup per SM):
+//
+//   wgmma.m64nNk8 tf32   N = 8    16     32     64     128    256
+//   A from registers     28.7%  54.9%  87.7%  98.0%  98.2%  99.5%
+//   A from shared        22.1%  39.6%  65.8%  98.2%  98.4%  98.1%
+//   mma.sync.m16n8k8 tf32: 51.4-64.9% (4-16 accumulators a warp)
+//
+// The band makes an output tile of N outputs cost T + N - 1 multiply-adds
+// per output, so here N stays at 8, where wgmma runs at half the rate of
+// mma.sync.  The other layout, 64 outputs as M and 32 lines as N (A the
+// Toeplitz tile from a table in shared memory, B the signal from TMA-staged
+// slabs, 1.49x the direct FIR's products at 129 taps), was built and
+// measured in full: slower than these kernels (PERF.md, section 6),
+// because a warpgroup's own products stall it while the tensor cores take
+// them in, the products ran at about half their rate in the kernels, and
+// shared memory could not hold both the decode's rings.
 //
 // Precision: acc += A_lo*B_hi + A_hi*B_lo + A_hi*B_hi, fp32 accumulators.
 // The B tiles are built once per plan on the host in float64 and split

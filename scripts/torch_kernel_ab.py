@@ -3,7 +3,7 @@ on one CUDA GPU, in turns, at the paths' shapes.
 
     python3 scripts/torch_kernel_ab.py [--family qam|secam] [--tree DIR ...] [--rounds 1]
 
-QAM: NTSC 16x480 and PAL 16x576 lines x 720 samples.  SECAM: 16x576x720 and
+QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720 and
 4x576x1440, the plans of chip_smoke.py's phase 3b.  Each tree (default:
 this one) runs in its own process, which imports that tree's
 ``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
@@ -13,7 +13,9 @@ kernels against their plain versions (QAM 2e-5 encode, 5e-4 decode; SECAM
 the CUDA-event median ms of 10 windows of
 20 launches with their spread, the bound and the share of it reached, and
 the host-clock us per call of the wrapper while 100 calls are queued (the
-host's cost of a launch, checks and CUDA runtime calls included).  The
+host's cost of a launch, checks and CUDA runtime calls included); for
+QAM also the library yardstick of ``chip_smoke.py``'s phase 5, one grouped
+``conv2d`` of the kernel's FIRs alone (TF32 off), timed the same way.  The
 timer and the bound are this tree's ``color_modem_tpu_torch/kernels/measure.py``
 (loaded by its path, so every tree is timed and bounded alike).  The last
 line is a JSON object of every measurement.
@@ -31,8 +33,9 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-#: QAM: (standard, lines, decoder) at 16 frames x 720 samples
-SHAPES = (("NTSC", 480, "comb3"), ("PAL", 576, "delayline"))
+#: QAM: (standard, frames, lines, samples, decoder)
+SHAPES = (("NTSC", 16, 480, 720, "comb3"), ("PAL", 16, 576, 720, "delayline"),
+          ("PAL", 4, 576, 1440, "delayline"))
 #: SECAM: (frames, samples) at 576 lines
 SECAM_SHAPES = ((16, 720), (4, 1440))
 
@@ -61,11 +64,24 @@ def _timed(measure, fn) -> tuple[list[float], float]:
     return w, host_us
 
 
-def _record(w, host_us, bound, err) -> dict:
+def _record(w, host_us, bound, err, library=None) -> dict:
     med = statistics.median(w)
-    return {"ms": med, "min": min(w), "max": max(w), "bound_ms": bound[0],
-            "bound_by": bound[1], "share": bound[0] / med, "host_us": host_us,
-            "max_abs_err": err}
+    rec = {"ms": med, "min": min(w), "max": max(w), "bound_ms": bound[0],
+           "bound_by": bound[1], "share": bound[0] / med, "host_us": host_us,
+           "max_abs_err": err}
+    if library is not None:
+        rec.update(conv2d_ms=statistics.median(library), conv2d_min=min(library),
+                   conv2d_max=max(library))
+    return rec
+
+
+def _smoke():
+    """This tree's ``chip_smoke.py`` (its yardsticks), loaded by its path."""
+    path = os.path.join(HERE, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("_kernel_ab_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def secam_worker() -> dict:
@@ -133,6 +149,7 @@ def worker(tree: str, family: str) -> None:
         os.path.abspath(tree), "color_modem_tpu_torch"), cmt.__file__
     measure = _measure()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     load_library()
     if family == "secam":
         print(json.dumps({"tree": tree, "results": secam_worker()}))
@@ -140,13 +157,13 @@ def worker(tree: str, family: str) -> None:
     dev = torch.device("cuda:0")
     rng = np.random.default_rng(0)
     res = {}
-    for std, lines, decoder in SHAPES:
-        plan = make_plan(getattr(cmt, std)(), 720).to(dev)
-        ycc = torch.tensor(np.stack([rng.uniform(0.0, 1.0, (16, lines, 720)),
-                                     rng.uniform(-0.6, 0.6, (16, lines, 720)),
-                                     rng.uniform(-0.6, 0.6, (16, lines, 720))], axis=1),
+    for std, frames, lines, n, decoder in SHAPES:
+        plan = make_plan(getattr(cmt, std)(), n).to(dev)
+        ycc = torch.tensor(np.stack([rng.uniform(0.0, 1.0, (frames, lines, n)),
+                                     rng.uniform(-0.6, 0.6, (frames, lines, n)),
+                                     rng.uniform(-0.6, 0.6, (frames, lines, n))], axis=1),
                            dtype=torch.float32, device=dev)
-        cols = qk.phase_cols(plan, frame_line_index(plan, 0, 16, lines, dev))
+        cols = qk.phase_cols(plan, frame_line_index(plan, 0, frames, lines, dev))
         comp = qk.encode_lines(plan, ycc, cols)
         sep = stencil_signal(plan, comp, decoder)
         e_enc = float((comp - qk.encode_lines_plain(plan, ycc, cols)).abs().max())
@@ -154,12 +171,14 @@ def worker(tree: str, family: str) -> None:
                        - qk.decode_lines_plain(plan, sep, comp, cols)).abs().max())
         if e_enc > 2e-5 or e_dec > 5e-4:
             raise AssertionError(f"{std}: kernel vs plain {e_enc}, {e_dec}")
+        yard = _smoke().qam_library_calls(plan, ycc, sep, comp, cols)
         for name, fn in (("qam_encode", lambda: qk.encode_lines(plan, ycc, cols)),
                          ("qam_decode", lambda: qk.decode_lines(plan, sep, comp, cols))):
             w, host_us = _timed(measure, fn)
-            res[f"{name} {std} 16x{lines}x720"] = _record(
-                w, host_us, measure.kernel_bound(plan, name, 16 * lines),
-                e_enc if name == "qam_encode" else e_dec)
+            res[f"{name} {std} {frames}x{lines}x{n}"] = _record(
+                w, host_us, measure.kernel_bound(plan, name, frames * lines),
+                e_enc if name == "qam_encode" else e_dec,
+                measure.time_ms(yard[name], windows=10))
     print(json.dumps({"tree": tree, "results": res}))
 
 
@@ -189,10 +208,12 @@ def main() -> None:
             run = json.loads(out.stdout.strip().splitlines()[-1])
             runs.append(run)
             for key, r in run["results"].items():
+                yard = (f", conv2d {r['conv2d_ms']:.4f} ms [{r['conv2d_min']:.4f}, "
+                        f"{r['conv2d_max']:.4f}]" if "conv2d_ms" in r else "")
                 print(f"{tree} {key} on {card}: {r['ms']:.4f} ms [{r['min']:.4f}, "
                       f"{r['max']:.4f}], bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                       f"{100 * r['share']:.1f}% of it, host {r['host_us']:.2f} us per call, "
-                      f"max|err| {r['max_abs_err']:.3e}")
+                      f"max|err| {r['max_abs_err']:.3e}{yard}")
     print(json.dumps({"card": card, "runs": runs}))
 
 

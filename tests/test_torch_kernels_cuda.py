@@ -80,6 +80,18 @@ def test_kernels_match_plain_at_odd_shapes(dev, name, frames, lines, n):
     _kernel_vs_plain(dev, name, frames, lines, n, "notch")
 
 
+QAM_NAMES = sorted(k for k, f in ALL_STANDARDS.items() if not f().is_fm)
+
+
+@pytest.mark.parametrize("lines,n", [(1, 720), (63, 720), (65, 720), (481, 720), (65, 722)])
+@pytest.mark.parametrize("name", QAM_NAMES)
+def test_qam_kernels_match_plain_per_standard(dev, name, lines, n):
+    """Every QAM standard through both kernels at line counts that leave a
+    ragged last tile (1, 63, 65, 481 lines in one frame) and at 722 samples
+    (a row stride that is not a multiple of 16 bytes: 4-byte copies)."""
+    _kernel_vs_plain(dev, name, 1, lines, n, "notch", seed=lines + n)
+
+
 def test_main_path_roundtrip(dev):
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
     one = smooth_scene(480, 720, seed=0)
@@ -124,15 +136,15 @@ def test_fir_orientation_on_asymmetric_taps(dev, n, ntaps, held):
     np.testing.assert_allclose(got.cpu().numpy(), ref, atol=1e-6)
 
 
-@pytest.mark.parametrize("lines", [1, 17, 7681])
+@pytest.mark.parametrize("lines", [1, 17, 63, 65, 7681])
 @pytest.mark.parametrize("n", [61, 97, 720, 722, 1440])
 @pytest.mark.parametrize("ntaps", [31, 129, 259])
 def test_band_fir_against_np_convolve(dev, ntaps, n, lines):
     """csrc/band_fir.cuh alone (three TF32 passes on the tensor cores)
     against np.convolve(mode='same') on random asymmetric taps, <= 2e-6:
     taps longer than the line, widths that are not multiples of 4 or 8,
-    lines cut into spans, and 1, 17 and 7681 lines (ragged last tiles of
-    16)."""
+    lines cut into spans, and 1, 17, 63, 65 and 7681 lines (ragged last
+    tiles of 16)."""
     rng = np.random.default_rng(ntaps * n + lines)
     taps = rng.normal(size=ntaps) / ntaps
     x = rng.normal(size=(lines, n)).astype(np.float32)
