@@ -18,6 +18,14 @@ Phases; any failure raises and exits nonzero:
    columns) against its plain version at 16x576x720 and 4x576x1440: encode
    <= 2e-4, decoded RGB <= 5e-4, and the raw demodulated component's error
    printed;
+3c. the kernels' memory sanitizer (``kernels/sanitize.py``): the poisoned
+   build (``-DCMT_POISON``: shared memory filled with a NaN before the
+   first staging) and the normal one, every input in a NaN-guarded
+   allocation and every output in a sentinel-filled one, for each kernel
+   row (NTSC, PAL and NIIR pairs, SECAM pair) at 1/63/65/481 lines x
+   720/722/1440 samples x 1/3 frames: poisoned bit-equal to normal, no NaN,
+   sentinels and inputs intact, every output sample written, 20 launches
+   identical; per kernel and shape a line; no wrapper launch counted;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel, agreement with the plain backend on the card
@@ -30,6 +38,14 @@ Phases; any failure raises and exits nonzero:
    and adaptive combs, each round trip's PSNR +- 0.02 dB, its launches
    (combA/comb3dA separate outside the decode kernel, as in the JAX
    package: 0 decode launches), the same two agreements;
+4k. the card against the port's own oracle (``color_modem_tpu_torch/golden/``,
+   NumPy float64 per line): every frame path of 4, 4b and 4c on frames 0-1
+   of the 16-frame scene, encode and decode >= 60 dB (the temporal combs
+   through ``golden.decode_sequence``); the RF and satellite hops and the
+   sound chains (intercarrier, MTS, satellite subcarriers, A2) on two frames
+   of phases 4g and 4h's 480 x 720, D2-MAC and PALplus on two frames of 576
+   x 720, each within its CPU test's bound against golden; each row's dB
+   and the time of 3c + 4k;
 4d. the raster and channel layers: sync/burst raster identities, channel
    phase and gain errors decoded nominally, burst-locked, with ACC and with
    PAL ident, and NIIR's reference normalisation against NTSC, each PSNR
@@ -153,7 +169,9 @@ Phases; any failure raises and exits nonzero:
    per-line modems over 24 lines, 24 one-line encode launches each, against
    the batch pipeline (encode 2e-5 / 2e-4 SECAM, interior lines 5e-4), a
    one-line kernel encode against the plain encode, lines per second;
-   (f) ``checked`` raising on a NaN in a composite; (g) ``cli video
+   (f) ``checked`` raising on a NaN in a composite, naming the operation
+   and the port's line of a NaN made and removed inside a decode, and the
+   CUDA kernel whose output holds a NaN; (g) ``cli video
    --mesh`` under ``torch.distributed.run`` over NCCL (1x1; 2x2 with four
    cards), rank 0 alone reporting, frames and clip equal to the unsharded
    verb's;
@@ -2783,26 +2801,58 @@ def check_line_api(dev, card: str) -> dict:
 
 def check_sanitizer(dev) -> None:
     """Phase 7f: ``utils/debug.py::checked`` passes a clean decode on the
-    card and raises on a NaN put into one composite sample."""
+    card and raises on a NaN put into one composite sample; it names the
+    operation and the port's line that made a NaN which the decode then
+    removes (``nan_to_num`` after it), and names the CUDA kernel whose output
+    holds a NaN (its wrapper's hook), the NaN again removed after it."""
+    import re
+
     import numpy as np
+    import torch
 
     from color_modem_tpu_torch import NTSC
-    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+    from color_modem_tpu_torch.kernels import qam as qk
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.utils.debug import checked
     from color_modem_tpu_torch.utils.testimages import smooth_scene
 
-    enc, dec, _ = make_pipeline(make_plan(NTSC(), N), "comb3", device=dev)
+    def raises(fn, *args, kind=FloatingPointError) -> str:
+        try:
+            fn(*args)
+        except kind as e:
+            return str(e)
+        raise AssertionError(f"sanitizer: checked() let a NaN through on the card ({fn})")
+
+    plan = make_plan(NTSC(), N)
+    enc, dec, _ = make_pipeline(plan, "comb3", device=dev)
     comp = enc(smooth_scene(480, N).astype(np.float32)[None], 0).clone()
     checked(dec)(comp, 0)
     comp[0, 5, 100] = float("nan")
-    try:
-        checked(dec)(comp, 0)
-    except FloatingPointError as e:
-        print(f"sanitizer: checked() passed the clean decode and raised on a NaN in the "
-              f"composite on {dev}: {e}")
-        return
-    raise AssertionError("sanitizer: checked() let a NaN through on the card")
+    msg = raises(checked(dec), comp, 0)
+    print(f"sanitizer: checked() passed the clean decode and raised on a NaN in the "
+          f"composite on {dev}: {msg}")
+
+    def decode_then_clean(c, frame0):
+        return torch.nan_to_num(dec(c, frame0))
+
+    msg = raises(checked(decode_then_clean), comp, 0)
+    print(f"sanitizer: a NaN made and removed inside a decode on {dev}: {msg}")
+    _check(re.search(r"aten\.\S+ made a NaN at color_modem_tpu_torch/\S+\.py:\d+", msg)
+           is not None, f"sanitizer: the op and its line are not named: {msg}")
+
+    pd = plan.to(dev)
+    ycc = torch.zeros((1, 3, 16, N), device=dev)
+    ycc[0, 1, 3, 100] = float("nan")
+    cols = qk.phase_cols(pd, frame_line_index(pd, 0, 1, 16, dev))
+
+    def encode_then_clean(x):
+        return torch.nan_to_num(qk.encode_lines(pd, x, cols))
+
+    msg = raises(checked(encode_then_clean), ycc)
+    print(f"sanitizer: a NaN in a kernel's output, through the wrappers' hook, on {dev}: {msg}")
+    _check("the CUDA kernel qam_encode made a NaN" in msg,
+           f"sanitizer: the kernel is not named: {msg}")
 
 
 def check_cli_mesh(card: str) -> None:
@@ -2992,6 +3042,299 @@ def check_entry(dev) -> None:
           f"{time.perf_counter() - t0:.1f} s")
 
 
+# --- phase 3c: the kernels' memory sanitizer; phase 4k: the port's oracle -----------------
+
+#: phase 4k: least parity with the port's oracle (``color_modem_tpu_torch/golden/``), dB.
+#: Every frame path: PSNR >= tests/test_roundtrip.py's PARITY_BOUND.  The
+#: transmission, sound, MAC and PALplus rows: the bound of the port's CPU test of each
+#: against golden (variance-relative parity as those tests read it; MAC and PALplus
+#: as tests/test_torch_mac.py and tests/test_torch_palplus.py read them).  The hops
+#: and the sound chains run on 2 frames of phases 4g and 4h's 480 lines x 720
+ORACLE_DB = 60.0
+ORACLE_BOUNDS = {
+    "rf_modulate": 54.0, "rf_demodulate": 42.0,                  # tests/test_torch_rf.py
+    "fm_modulate": 60.0, "fm_demodulate": 95.0,                  # tests/test_torch_satellite.py
+    "sat_fm_modulate_audio": 60.0, "sat_fm_demodulate_audio": 100.0,
+    "sound_on_rf": 100.0, "sound_from_rf": 65.0,                 # tests/test_torch_sound_rf.py
+    "mts_encode": 120.0, "mts_decode": 120.0,                    # tests/test_torch_mts.py
+    "a2_on_rf": 105.0, "a2_takeoff2": 85.0,                      # tests/test_torch_a2.py
+    "mac_encode": 60.0, "mac_decode": 60.0,                      # tests/test_torch_mac.py
+    "palplus_encode": 120.0, "palplus_decode": 115.0,            # tests/test_torch_palplus.py
+}
+#: phase 4k: the frame paths of phases 4, 4b and 4c
+ORACLE_PATHS = ([("ntsc", "comb3")] + [("secam", d) for d in SECAM_PSNR] + list(QAM_FAMILY))
+#: phase 4k: lines per frame of the hop and sound rows (phases 4g and 4h's)
+ORACLE_STREAM_LINES = 480
+
+
+def check_kernel_sanitizer(dev, card: str) -> dict:
+    """Phase 3c: ``kernels/sanitize.py`` on every kernel row (the unshared
+    pair on NTSC, the shared pair on PAL and NIIR, the SECAM pair) at every
+    (frames, lines, samples) of its grid: the poisoned build (shared memory
+    filled with a NaN first) against the normal one, NaNs, guard sentinels,
+    inputs, unwritten samples (the sentinel under two different fills) and
+    20 repeated launches.  Launches the C
+    entry points directly: the wrappers' counts stay 0.  Returns the
+    poisoned build's seconds and the phase's."""
+    from color_modem_tpu_torch.kernels import sanitize
+    from color_modem_tpu_torch.kernels.build import load_library
+
+    t0 = time.perf_counter()
+    load_library(poison=True)
+    t_build = time.perf_counter() - t0
+    print(f"3c poisoned build (-DCMT_POISON, {len(sanitize.ROWS) // 2} sources' kernels): "
+          f"{t_build:.2f} s")
+
+    def report(r):
+        f, l, n = r["shape"]
+        p = r["poison"]
+        print(f"3c {r['row']} {r['standard']} {f}x{l}x{n}: poisoned vs normal max|diff| "
+              f"{r['max_poison_diff']:.3e} (bit-equal {r['poison_equal']}), NaNs {r['nan']} / "
+              f"{p['nan']}, sentinels intact {r['sentinels_intact'] and p['sentinels_intact']}, "
+              f"unwritten {r['unwritten']}, inputs intact "
+              f"{r['inputs_intact'] and p['inputs_intact']}, {sanitize.REPEATS} launches "
+              f"identical {r['repeats_equal']}: {'ok' if r['ok'] else 'FAULT'}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results = sanitize.run_all(dev, report=report)
+    read_counts("3c sanitizer", {})
+    t_run = time.perf_counter() - t0
+    bad = [(r["row"], r["standard"], r["shape"]) for r in results if not r["ok"]]
+    print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows x "
+          f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}), "
+          f"{len(bad)} faults, {t_run:.1f} s on {card}")
+    _check(not bad, f"3c sanitizer faults: {bad}")
+    return {"build_s": t_build, "run_s": t_run}
+
+
+def _psnr_np(a, b) -> float:
+    import numpy as np
+
+    err = float(np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2))
+    return float("inf") if err == 0.0 else 10.0 * np.log10(1.0 / err)
+
+
+def _parity_db(a, b) -> float:
+    """Variance-relative parity, dB, as the port's CPU tests against golden read it."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return 10.0 * np.log10(float(np.var(b)) / max(float(np.mean((a - b) ** 2)), 1e-300))
+
+
+def oracle_streams(dev, hold, frames: int = 2, lines: int = ORACLE_STREAM_LINES) -> None:
+    """Phase 4k's hop and sound rows: the RF and satellite hops and the
+    sound chains (intercarrier, MTS, satellite subcarriers, A2) on
+    ``frames`` x ``lines`` x 720 of phase 4g's NTSC notch composite, each
+    against its oracle in ``color_modem_tpu_torch/golden/``;
+    ``hold(key, parity_db, bound)`` judges each row."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import NTSC
+    from color_modem_tpu_torch.frame import a2, mts
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.frame import satellite as sat_mod
+    from color_modem_tpu_torch.frame.pipeline import make_pipeline
+    from color_modem_tpu_torch.golden import sound as g_sound
+    from color_modem_tpu_torch.golden import transmission as g_tx
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    def host(x):
+        return x.detach().double().cpu().numpy()
+
+    def up(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+
+    # the hops (phase 4g's NTSC notch composite)
+    plan = make_plan(NTSC(), N).to(dev)
+    comp = make_pipeline(plan, "notch", "kernel", dev)[0](full_scene(lines, dev, frames), 0)
+    comp_h = host(comp)
+    shape = f"{frames}x{lines}x{N}"
+    rfp, sp = rf_mod.make_rf_plan(plan), sat_mod.make_sat_plan(plan.fs, N)
+    g_rf = g_tx.rf_modulate(rfp, comp_h, 0)
+    hold(f"rf_modulate {shape}", _parity_db(host(rf_mod.rf_modulate(rfp, comp, 0)), g_rf),
+         ORACLE_BOUNDS["rf_modulate"])
+    g32 = g_rf.astype(np.float32)
+    hold(f"rf_demodulate {shape}", _parity_db(host(rf_mod.rf_demodulate(rfp, up(g32), 0)),
+                                                g_tx.rf_demodulate(rfp, g32, 0)),
+         ORACLE_BOUNDS["rf_demodulate"])
+    g_fm = g_tx.fm_modulate(sp, comp_h)
+    hold(f"fm_modulate {shape}", _parity_db(host(sat_mod.fm_modulate(sp, comp)), g_fm),
+         ORACLE_BOUNDS["fm_modulate"])
+    g32 = g_fm.astype(np.float32)
+    hold(f"fm_demodulate {shape}", _parity_db(host(sat_mod.fm_demodulate(sp, up(g32))),
+                                                g_tx.fm_demodulate(sp, g32)),
+         ORACLE_BOUNDS["fm_demodulate"])
+
+    # the sound chains (phase 4h's; A2 on NTSC, as there)
+    item = lines * N
+    tt = np.arange(frames * item, dtype=np.float64) / plan.fs
+    audio = np.stack([0.6 * np.sin(2 * np.pi * f * tt[:item]) + 0.2 * np.sin(5.4 * np.pi * f * tt[:item])
+                      for f in (700.0, 1700.0)]).astype(np.float32)
+    rf0 = np.zeros((frames, lines, rfp.n_rf), np.float32)
+    g_rf = g_sound.sound_on_rf(rfp, rf0, 0, audio, 1.234)
+    hold(f"sound_on_rf {shape}", _parity_db(host(rf_mod.sound_on_rf(
+        rfp, up(rf0), 0, up(audio), 1.234)), g_rf), ORACLE_BOUNDS["sound_on_rf"])
+    g32 = g_rf.astype(np.float32)
+    hold(f"sound_from_rf {shape}", _parity_db(host(rf_mod.sound_from_rf(rfp, up(g32), 0)),
+                                                g_sound.sound_from_rf(rfp, g32, 0)),
+         ORACLE_BOUNDS["sound_from_rf"])
+    left = (0.5 * np.sin(2 * np.pi * 900.0 * tt)).astype(np.float32)[None]
+    right = (0.5 * np.sin(2 * np.pi * 2400.0 * tt)).astype(np.float32)[None]
+    g_a = g_sound.mts_encode(N, left, right)
+    hold(f"mts_encode {shape}", _parity_db(host(mts.mts_encode(plan, up(left), up(right))), g_a),
+         ORACLE_BOUNDS["mts_encode"])
+    a32 = g_a.astype(np.float32)
+    got = mts.mts_decode(plan, up(a32))
+    want = g_sound.mts_decode(N, mts._channel_lpf(plan.fs), a32)
+    hold(f"mts_decode {shape} (left, right)", min(_parity_db(host(got[k]), want[k])
+                                                   for k in range(2)), ORACLE_BOUNDS["mts_decode"])
+    # tests/test_torch_satellite.py's stimulus: one subcarrier, a tone of 9
+    # cycles per frame stream (the stream is one period)
+    sp2 = sat_mod.make_sat_plan(plan.fs, N, audio_subs=1)
+    n_tot = comp_h.shape[1] * N
+    k = np.arange(n_tot, dtype=np.float64)
+    sub_audio = np.broadcast_to((0.7 * np.sin(2 * np.pi * 9 * k / n_tot))[None, None],
+                                (frames, 1, n_tot)).astype(np.float32)
+    g_fm = g_sound.sat_fm_modulate_audio(sp2, comp_h, sub_audio)
+    hold(f"sat_fm_modulate_audio {shape}", _parity_db(host(sat_mod.fm_modulate(
+        sp2, comp, audio=up(sub_audio))), g_fm), ORACLE_BOUNDS["sat_fm_modulate_audio"])
+    g32 = g_fm.astype(np.float32)
+    hold(f"sat_fm_demodulate_audio {shape}", _parity_db(host(sat_mod.fm_demodulate_audio(
+        sp2, up(g32))), g_sound.sat_fm_demodulate_audio(sp2, g32)),
+        ORACLE_BOUNDS["sat_fm_demodulate_audio"])
+    a2p = a2.make_a2_plan(rfp)
+    audio2 = (0.6 * np.sin(2 * np.pi * 1300.0 * tt[:item])).astype(np.float32)[None]
+    audio2 = audio2.repeat(frames, 0)
+    rf0 = np.zeros((frames, lines, rfp.n_rf), np.float32)
+    g_rf = g_sound.a2_on_rf(a2p, rf0, 0, audio2, "stereo")
+    hold(f"a2_on_rf {shape}", _parity_db(host(a2.a2_on_rf(a2p, up(rf0), 0, up(audio2),
+                                                         "stereo")), g_rf),
+         ORACLE_BOUNDS["a2_on_rf"])
+    g32 = g_rf.astype(np.float32)
+    raw, _ = a2._takeoff(a2p, up(g32), a2p.bpf2, a2p.snd2_ramp, 0,
+                         sign=a2._carrier2_sign(a2p, 0, frames, lines, dev))
+    hold(f"a2_takeoff2 {shape}", _parity_db(host(raw), g_sound.a2_takeoff2(a2p, g32, 0)),
+         ORACLE_BOUNDS["a2_takeoff2"])
+
+
+def check_oracle(dev, card: str) -> float:
+    """Phase 4k: the card against the port's own oracle
+    (``color_modem_tpu_torch/golden/``, NumPy float64 per line), at full
+    width.  Every frame path of phases 4, 4b and 4c on frames 0-1 of the
+    16-frame ``full_scene`` through the kernel backend, every line and
+    sample: the composite against ``golden.encode_frame`` and the decoded
+    RGB against ``golden.decode_frame`` on the composite the card decoded
+    (the temporal combs: ``golden.decode_sequence`` over frames 0..1+pt, in
+    which frames 0-1 see the neighbours they see in the batch), each >= 60
+    dB.  Then the RF and satellite hops and the sound chains on 2 frames of
+    phases 4g and 4h's 480 lines x 720 (:func:`oracle_streams`), and
+    D2-MAC and PALplus at phases 4g and 4i's 576 x 720 on two frames, each
+    against its oracle with its CPU test's bound.  Returns the seconds."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS, PAL, golden
+    from color_modem_tpu_torch.frame import palplus
+    from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+    from color_modem_tpu_torch.golden import mac as g_mac
+    from color_modem_tpu_torch.golden import palplus as g_pp
+    from color_modem_tpu_torch.modem import mac
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.separate.comb import temporal_comb_spacing
+
+    t_start = time.perf_counter()
+
+    def host(x):
+        return x.detach().double().cpu().numpy()
+
+    def up(x):
+        return torch.tensor(np.ascontiguousarray(x), dtype=torch.float32, device=dev)
+
+    def hold(key: str, q: float, bound: float) -> None:
+        print(f"4k {key}: {q:.4f} dB against the oracle (>= {bound}) on {card}")
+        _check(q >= bound, f"4k {key}: {q} dB < {bound}")
+
+    # the frame paths
+    encoded = set()
+    for name, decoder in ORACLE_PATHS:
+        cfg = ALL_STANDARDS[name]()
+        lines, plan = cfg.active_lines, make_plan(cfg, N)
+        t0 = time.perf_counter()
+        rgb = full_scene(lines, dev)
+        enc, dec, _ = make_pipeline(plan, decoder, "kernel", dev)
+        comp = enc(rgb, 0)
+        out = dec(comp, 0)
+        if decoder in ("comb3d", "comb3dA"):
+            pt = temporal_comb_spacing(cfg)
+            comp_h = host(comp[: max(2 * pt, 2 + pt)])
+            ref = golden.decode_sequence(plan, comp_h, frame0=0, decoder=decoder)[:2]
+        else:
+            comp_h = host(comp[:2])
+            ref = np.stack([golden.decode_frame(plan, comp_h[f], frame=f, decoder=decoder)
+                            for f in range(2)])
+        if name not in encoded:
+            encoded.add(name)
+            rgb_h = host(rgb[:2])
+            q = min(_psnr_np(comp_h[f], golden.encode_frame(plan, rgb_h[f], frame=f))
+                    for f in range(2))
+            hold(f"{name} encode, frames 0-1 of {BATCH}x3x{lines}x{N}", q, ORACLE_DB)
+        hold(f"{name} {decoder} decode, frames 0-1 of {BATCH}x3x{lines}x{N} "
+             f"({time.perf_counter() - t0:.2f} s)", _psnr_np(host(out[:2]), ref), ORACLE_DB)
+
+    oracle_streams(dev, hold)
+    pal = make_plan(PAL(), N).to(dev)
+    frames, plines = 2, 576
+
+    # D2-MAC (phase 4g: 576 lines of 720 into 1296-sample lines), picture and data
+    mplan = mac.make_mac_plan(N)
+    mrgb = full_scene(plines, dev, frames)
+    mlines = mrgb.shape[-2]
+    g = (torch.arange(frames, dtype=torch.int32, device=dev)[:, None] * mplan.cfg.total_lines
+         + torch.arange(mlines, dtype=torch.int32, device=dev))
+    cap = mplan.cfg.data_symbols - len(mplan.cfg.line_sync_word)
+    payload = np.random.default_rng(4).integers(0, 2, (frames, mlines, cap))
+    sig = mac.encode(mplan, mrgb, g, torch.tensor(payload, dtype=torch.int32, device=dev))
+    mrgb_h = host(mrgb)
+    g_sig = [g_mac.encode_frame(mplan, mrgb_h[f], f * mplan.cfg.total_lines,
+                                payload=payload[f].tolist()) for f in range(frames)]
+    hold("mac_encode 2x576x720", min(_psnr_np(host(sig[f]), g_sig[f]) for f in range(frames)),
+         ORACLE_BOUNDS["mac_encode"])
+    out = mac.decode(mplan, up(np.stack(g_sig)), g)
+    hold("mac_decode 2x576x720", min(_psnr_np(host(out[f]), g_mac.decode_frame(
+        mplan, g_sig[f], f * mplan.cfg.total_lines)) for f in range(frames)),
+        ORACLE_BOUNDS["mac_decode"])
+    sig_h = host(sig)
+    for f, l in ((0, 3), (1, mlines - 5)):
+        ok, bits = g_mac.decode_data_line(mplan, sig_h[f, l])
+        _check(ok and list(bits) == payload[f, l].tolist(),
+               f"4k mac data line {f}/{l}: the oracle reads other bits")
+    print(f"4k mac data burst: the oracle reads the card's lines 0/3 and 1/{mlines - 5} bit "
+          "for bit")
+
+    # PALplus (phase 4i: PAL 576 x 720, the helper-band scene)
+    taps = palplus._helper_taps(pal)
+    prgb_h = np.broadcast_to(palplus_scene(plines, N), (frames, 3, plines, N))
+    pg = frame_line_index(pal, 0, frames, plines, dev)
+    comp = palplus.encode_palplus(pal, up(prgb_h), pg, "kernel")
+    g_comp = np.stack([g_pp.encode_palplus(pal, prgb_h[f], taps, frame=f) for f in range(frames)])
+    hold("palplus_encode 2x576x720", _parity_db(host(comp), g_comp),
+         ORACLE_BOUNDS["palplus_encode"])
+    for use_helper in (True, False):
+        out = palplus.decode_palplus(pal, up(g_comp), pg, "comb3", "kernel",
+                                     use_helper=use_helper)
+        want = np.stack([g_pp.decode_palplus(pal, g_comp[f], taps, frame=f, decoder="comb3",
+                                             use_helper=use_helper) for f in range(frames)])
+        hold(f"palplus_decode comb3 {'helper' if use_helper else 'zoom'} 2x576x720",
+             _parity_db(host(out), want), ORACLE_BOUNDS["palplus_decode"])
+    took = time.perf_counter() - t_start
+    print(f"4k oracle: {len(ORACLE_PATHS)} frame paths, {len(ORACLE_BOUNDS)} transmission, "
+          f"sound, MAC and PALplus rows, {took:.1f} s on {card}")
+    return took
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -3063,6 +3406,9 @@ def main() -> None:
         max_err["secam_encode"] = max(max_err["secam_encode"], e_enc)
         max_err["secam_decode"] = max(max_err["secam_decode"], e_rgb)
 
+    # --- 3c. the kernels' memory sanitizer: poisoned build, guard bands, repeats --
+    sanitized = check_kernel_sanitizer(dev, card)
+
     # --- 4. main path; 4b. the SECAM path -------------------------------------
     paths = {}
     rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED, QAM_1_1)
@@ -3082,6 +3428,11 @@ def main() -> None:
             # the _shared forms: the same CUDA kernels with equal tile arrays
             launches["qam_encode_shared"] = got["qam_encode"]
             launches["qam_decode_shared"] = got["qam_decode"]
+
+    # --- 4k. the card against the port's oracle (golden/) at full width ----------
+    t_oracle = check_oracle(dev, card)
+    print(f"3c + 4k: {sanitized['run_s'] + t_oracle:.1f} s (poisoned build "
+          f"{sanitized['build_s']:.2f} s more) on {card}")
 
     # --- 4d. raster, channel and the receiver's countermeasures -----------------
     check_channel(dev)

@@ -104,6 +104,31 @@ inline int choose_span(int n, SmemOf smem_of, size_t& smem) {
   }
 }
 
+// --- the poisoned build (kernels/sanitize.py) -------------------------------
+//
+// Built with -DCMT_POISON, every kernel first fills its dynamic shared memory
+// (its size read from %dynamic_smem_size) and its static shared arrays with
+// kPoisonBits, a quiet NaN, and syncs, before its first staging: a read of
+// shared memory the kernel never wrote then turns an output into a NaN or
+// changes it, where a normal launch may find a harmless value there.  The
+// sanitizer holds the poisoned build's outputs bit for bit to the normal
+// build's.  Without the flag these blocks compile to nothing.
+#ifdef CMT_POISON
+constexpr unsigned kPoisonBits = 0x7FC5A5A5u;
+
+__device__ inline unsigned dynamic_smem_bytes() {
+  unsigned bytes;
+  asm volatile("mov.u32 %0, %%dynamic_smem_size;" : "=r"(bytes));
+  return bytes;
+}
+
+// Every 4-byte word of [base, base + bytes) := kPoisonBits, by the block.
+__device__ inline void poison_shared(void* base, unsigned bytes) {
+  unsigned* words = static_cast<unsigned*>(base);
+  for (unsigned i = threadIdx.x; i < bytes / 4; i += blockDim.x) words[i] = kPoisonBits;
+}
+#endif
+
 // --- staging --------------------------------------------------------------
 
 __device__ inline void cp_async16(float* dst, const float* src, int bytes) {

@@ -60,6 +60,10 @@ qam_decode_kernel(const float* __restrict__ sep, const float* __restrict__ comp,
                   float* __restrict__ out, int n_lines, int lines_per_group, int n,
                   int ntaps, int span, int vec) {
   extern __shared__ float4 smem4[];
+#ifdef CMT_POISON
+  bf::poison_shared(smem4, bf::dynamic_smem_bytes());
+  __syncthreads();
+#endif
   const int steps = bf::n_steps(ntaps), half = (ntaps - 1) / 2;
   const int pitch_s = bf::pitch_of(sep_chunks(span / 8, steps));
   const int pitch_m = bf::pitch_of(arm_chunks(span / 8, steps));

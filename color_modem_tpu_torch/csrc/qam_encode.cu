@@ -46,6 +46,10 @@ qam_encode_kernel(const float* __restrict__ ycc, const float* __restrict__ cols,
                   float* __restrict__ out, int n_lines, int lines_per_group, int n,
                   int ntaps, float a_ref, int span, int vec) {
   extern __shared__ float4 smem4[];
+#ifdef CMT_POISON
+  bf::poison_shared(smem4, bf::dynamic_smem_bytes());
+  __syncthreads();
+#endif
   const int steps = bf::n_steps(ntaps), half = (ntaps - 1) / 2;
   const int pitch = bf::pitch_of(bf::plane_chunks(span / 8, steps));
   const int plane = bf::kRows * pitch;

@@ -196,6 +196,11 @@ secam_decode_kernel(const float* __restrict__ comp, const float* __restrict__ is
                     float devr, float devb) {
   extern __shared__ float4 smem4[];
   __shared__ int is_r[kRows];
+#ifdef CMT_POISON
+  bf::poison_shared(smem4, bf::dynamic_smem_bytes());
+  bf::poison_shared(is_r, sizeof(is_r));
+  __syncthreads();
+#endif
   const int pitch = geo.pitch, n = geo.n, m = geo.m, n_ext = geo.n_ext;
   float* p0 = reinterpret_cast<float*>(smem4);  // ext, then i, then v (*) deemph
   float* p1 = p0 + kRows * pitch;               // takeoff, then v

@@ -80,6 +80,10 @@ secam_encode_kernel(const float* __restrict__ ycc, const float* __restrict__ isr
                     int nt_lpf, int nt_pre, int nt_anti, int pitch, float f0r_c,
                     float f0b_c, float devr_c, float devb_c) {
   extern __shared__ float4 smem4[];
+#ifdef CMT_POISON
+  bf::poison_shared(smem4, bf::dynamic_smem_bytes());
+  __syncthreads();
+#endif
   float* p0 = reinterpret_cast<float*>(smem4);  // d (held), then df
   float* p1 = p0 + kRows * pitch;               // dl (held), then the carrier
   float* ramp_s = p1 + kRows * pitch;           // the carrier ramp

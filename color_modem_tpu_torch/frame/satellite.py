@@ -11,10 +11,14 @@ subcarrier ladder above the video.  The chain:
   patterns [1,0,-1,0] / [0,1,0,-1]: exact, with no phase state.
 * The FM phase is the midpoint-rule integral of the deviation per frame
   over the contiguous row-major stream: a ``cumsum`` per line plus a line
-  carry wrapped mod 2 pi.  The sums, carries and the line's phase (up to
-  about 2.4 krad) are kept in float64 and the phase is reduced mod 2 pi
-  before it is cast to float32; the JAX package keeps them in float32
-  (good to 2.4e-4 rad there; ROADMAP queue 3).  The frame's residual phase is spread
+  carry wrapped mod 2 pi.  The video path before it (pre-emphasis,
+  interpolation, deviation), the sums, the carries and the line's phase
+  (up to about 2.4 krad) are kept in float64 and the phase is reduced mod
+  2 pi before it is cast to float32.  The integral turns the float32
+  rounding of the filters into a phase walk that grows with the frame:
+  in float32 the modulator reads 51 dB against the float64 oracle at 480
+  lines x 720, in float64 96 dB (``scripts/torch_fm_parity_length.py``).
+  The JAX package keeps all of it in float32 (ROADMAP section 3).  The frame's residual phase is spread
   over its samples, so each frame is one period of a periodic signal and
   the stream filters wrap around its ends (:func:`_wrap_pad`).
 * Every filter is an overlap-save stream convolution (``dsp/stream.py``):
@@ -385,7 +389,9 @@ def fm_modulate(sp: SatPlan, base: torch.Tensor, gline=None,
     if audio is not None and not sp.sub_freqs:
         raise ValueError(
             "this SatPlan has no audio subcarriers — pass audio_subs= to make_sat_plan")
-    v = _wrap_filter(base.to(torch.float32).reshape(b, l * n), sp.tx_video_taps())
+    # the video path in float64 (module docstring): float32 rounding of
+    # the filters, integrated over the frame, walks the phase off by mrad
+    v = _wrap_filter(base.to(torch.float64).reshape(b, l * n), sp.tx_video_taps())
     if sp.sub_freqs and audio is not None:
         v = v + _audio_mux(sp, torch.as_tensor(audio, device=base.device), l)
     v = v.reshape(b, l, n)
@@ -399,11 +405,10 @@ def fm_modulate(sp: SatPlan, base: torch.Tensor, gline=None,
     v_rf = upsample_fir_stream(_wrap_pad(v.reshape(b, l * n), pb), sp.interp_up_taps(), sp.r)
     v_rf = v_rf[..., pb * sp.r : pb * sp.r + l * sp.n_rf].reshape(b, l, sp.n_rf)
 
-    dphi = f32(TWO_PI * sp.deviation / sp.fs_rf) * (v_rf - f32(sp.center))
-    # the phase bookkeeping in float64 (module docstring): the line sums,
-    # the carries and the prefix sums agree, so no line starts off its
-    # predecessor's end by the float32 rounding of a 2.4 krad sum
-    dphi = dphi.double()
+    # the phase bookkeeping in float64 too: the line sums, the carries and
+    # the prefix sums agree, so no line starts off its predecessor's end by
+    # the float32 rounding of a 2.4 krad sum
+    dphi = (TWO_PI * sp.deviation / sp.fs_rf) * (v_rf.double() - sp.center)
     # close the phase over the frame: spread the (mod 2 pi) residual of the
     # total deviation phase over every sample, so the frame is one period
     ls0 = torch.sum(dphi, dim=-1)                                        # (B, L)

@@ -7,6 +7,12 @@ It goes to ``color_modem_tpu_torch/build/`` (git-ignored), named by a hash
 of the sources and flags: an edited source builds anew, an unchanged one
 loads what is there.  There is no fallback: without ``nvcc`` or with a
 failing build, :func:`load_library` raises.
+
+``load_library(poison=True)`` builds a second library from the same
+sources with ``-DCMT_POISON`` (:data:`POISON_FLAGS`), under its own name:
+each kernel then fills its shared memory with a NaN before its first
+staging, for ``kernels/sanitize.py``.  It is built on its first use only;
+the main library's flags, name and kernels are those of a build without it.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
+
+#: what the sanitizer's build adds (the kernels' ``#ifdef CMT_POISON`` blocks)
+POISON_FLAGS = ("-DCMT_POISON",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C signatures of the launch functions; each returns its cudaError_t
@@ -71,10 +80,10 @@ def find_nvcc() -> str:
     )
 
 
-def _sources() -> tuple[list[Path], str]:
+def _sources(flags: tuple = NVCC_FLAGS) -> tuple[list[Path], str]:
     """The .cu files to compile, and a digest of every source and flag."""
     files = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in files:
         h.update(f.name.encode())
         h.update(f.read_bytes())
@@ -85,25 +94,28 @@ def _run(cmd: list[str]) -> subprocess.CompletedProcess:
     return subprocess.run(cmd, capture_output=True, text=True)
 
 
-def build() -> Path:
-    """Compile the library unless a build of these exact sources exists."""
-    cu_files, digest = _sources()
-    out = BUILD_DIR / f"libcolor_modem_kernels_{digest}.so"
+def build(poison: bool = False) -> Path:
+    """Compile the library (with ``poison``, the sanitizer's) unless a build
+    of these exact sources and flags exists."""
+    flags = NVCC_FLAGS + POISON_FLAGS if poison else NVCC_FLAGS
+    cu_files, digest = _sources(flags)
+    kind = "poison_" if poison else ""
+    out = BUILD_DIR / f"libcolor_modem_kernels_{kind}{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc = find_nvcc()
     # private names, then an atomic rename: concurrent builders never load a
     # half-written library
-    tag = f"{digest}.{os.getpid()}"
+    tag = f"{kind}{digest}.{os.getpid()}"
     objs = [BUILD_DIR / f"{f.stem}.{tag}.o" for f in cu_files]
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+    compiles = [[nvcc, *flags, "-c", "-o", str(o), str(f)]
                 for f, o in zip(cu_files, objs)]
     try:
         with ThreadPoolExecutor(max_workers=len(compiles)) as pool:
             results = list(pool.map(_run, compiles))
-        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        link = [nvcc, *flags, "-shared", "-o", str(tmp), *map(str, objs)]
         failed = [(c, r) for c, r in zip(compiles, results) if r.returncode != 0]
         if not failed:
             res = _run(link)
@@ -122,11 +134,38 @@ def build() -> Path:
 
 
 @lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build if needed, load, and declare every launch function's C types."""
-    lib = ctypes.CDLL(str(build()))
+def load_library(poison: bool = False) -> ctypes.CDLL:
+    """Build if needed, load, and declare every launch function's C types;
+    ``poison``: the sanitizer's build (module docstring)."""
+    lib = ctypes.CDLL(str(build(poison)))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch(lib: ctypes.CDLL, name: str, dev, args) -> None:
+    """Call the launch function ``name`` of ``lib`` with ``args`` (the
+    tensors' pointers, then the scalars) on ``dev``'s current stream; raise
+    on the ``cudaError_t`` it returns."""
+    import torch
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
+
+
+def launch_counted(launches: dict, name: str, dev, call: tuple, *outputs) -> None:
+    """A wrapper's launch: launch ``name`` of the main library with the
+    arguments ``call`` (tensors, scalars), add one to ``launches[name]``,
+    and hand its ``outputs`` to the float checks
+    (``utils/debug.py::note_kernel``)."""
+    from color_modem_tpu_torch.utils.debug import note_kernel
+
+    tensors, scalars = call
+    launch(load_library(), name, dev, [*(t.data_ptr() for t in tensors), *scalars])
+    launches[name] += 1
+    note_kernel(name, *outputs)

@@ -15,7 +15,10 @@ the plan's ``*_tiles`` buffers, built once on the host.
 
 Each wrapper checks device, dtype, shape and contiguity.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises; anything
-else raises.  ``LAUNCHES`` counts kernel launches, and only those.
+else raises.  ``LAUNCHES`` counts kernel launches, and only those.  The C
+arguments of a launch come from :func:`encode_call` / :func:`decode_call`,
+which ``kernels/sanitize.py`` launches from too; after a launch the
+wrapper hands its output to ``utils/debug.py::note_kernel``.
 
 Line layout: the kernels take ``G`` groups of ``L`` lines, so that the
 ``(B, 3, L, N)`` component planes are read (encode) and written (decode)
@@ -29,6 +32,7 @@ import torch
 
 from color_modem_tpu_torch.dsp.apply import fir_same
 from color_modem_tpu_torch.dsp.nco import f32, line_phase0
+from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.modem.plan import QamPlan
 from color_modem_tpu_torch.modem.qam import reference_line_mask, v_sign
 
@@ -87,18 +91,6 @@ def _check(plan: QamPlan, cols: torch.Tensor, n_lines: int,
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    from color_modem_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    LAUNCHES[name] += 1
-
-
 # --- encode -----------------------------------------------------------------
 
 
@@ -115,6 +107,15 @@ def encode_lines_plain(plan: QamPlan, ycc: torch.Tensor,
     return ycc[:, 0] + chroma
 
 
+def encode_call(plan: QamPlan, ycc: torch.Tensor, cols: torch.Tensor,
+                out: torch.Tensor) -> tuple[list, tuple]:
+    """The C arguments of ``qam_encode`` but its stream: the tensors passed
+    by pointer, in order, and then the scalars."""
+    g, _, l, n = ycc.shape
+    return ([ycc, cols, plan.ramp_cos, plan.ramp_sin, plan.c1_lpf_tiles, plan.c2_lpf_tiles,
+             out], (g * l, l, n, plan.c1_lpf.numel(), _ref_amplitude(plan)))
+
+
 def encode_lines(plan: QamPlan, ycc: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
     """(G, 3, L, N) components + (G*L, 3) cols -> (G, L, N) composite."""
     if ycc.dim() != 4 or ycc.shape[1] != 3:
@@ -124,12 +125,7 @@ def encode_lines(plan: QamPlan, ycc: torch.Tensor, cols: torch.Tensor) -> torch.
     if dev.type == "cpu":
         return encode_lines_plain(plan, ycc, cols)
     out = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    _launch(
-        "qam_encode", dev,
-        *(t.data_ptr() for t in (ycc, cols, plan.ramp_cos, plan.ramp_sin,
-                                 plan.c1_lpf_tiles, plan.c2_lpf_tiles, out)),
-        g * l, l, n, plan.c1_lpf.numel(), _ref_amplitude(plan),
-    )
+    launch_counted(LAUNCHES, "qam_encode", dev, encode_call(plan, ycc, cols, out), out)
     return out
 
 
@@ -148,6 +144,16 @@ def decode_lines_plain(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
     return torch.stack([comp - cb, c1, c2], dim=1)
 
 
+def decode_call(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor, cols: torch.Tensor,
+                out: torch.Tensor) -> tuple[list, tuple]:
+    """The C arguments of ``qam_decode`` but its stream (:func:`encode_call`)."""
+    if not plan.c1_lpf.numel() == plan.c2_lpf.numel() == plan.chroma_bpf.numel():
+        raise ValueError("qam_decode takes one tap count for all three filters")
+    g, l, n = comp.shape
+    return ([sep, comp, cols, plan.ramp_cos, plan.ramp_sin, plan.chroma_bpf_tiles,
+             plan.c1_lpf_tiles, plan.c2_lpf_tiles, out], (g * l, l, n, plan.c1_lpf.numel()))
+
+
 def decode_lines(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
                  cols: torch.Tensor) -> torch.Tensor:
     """(G, L, N) separated signal + raw composite, (G*L, 3) cols ->
@@ -161,16 +167,8 @@ def decode_lines(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
     dev = _check(plan, cols, g * l, sep=sep, comp=comp)
     if dev.type == "cpu":
         return decode_lines_plain(plan, sep, comp, cols)
-    if not plan.c1_lpf.numel() == plan.c2_lpf.numel() == plan.chroma_bpf.numel():
-        raise ValueError("qam_decode takes one tap count for all three filters")
     out = torch.empty((g, 3, l, n), dtype=torch.float32, device=dev)
-    _launch(
-        "qam_decode", dev,
-        *(t.data_ptr() for t in (sep, comp, cols, plan.ramp_cos, plan.ramp_sin,
-                                 plan.chroma_bpf_tiles, plan.c1_lpf_tiles,
-                                 plan.c2_lpf_tiles, out)),
-        g * l, l, n, plan.c1_lpf.numel(),
-    )
+    launch_counted(LAUNCHES, "qam_decode", dev, decode_call(plan, sep, comp, cols, out), out)
     return out
 
 

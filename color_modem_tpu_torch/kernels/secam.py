@@ -16,8 +16,11 @@ the plan's 16x8 band tiles (``FmPlan.<filter>_tiles``).
 
 Each wrapper checks device, dtype, shape and contiguity.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises; anything
-else raises.  ``LAUNCHES`` counts kernel launches, and only those.  The
-per-line parity comes in as a float32 column, 1.0 on D'R lines.  The
+else raises.  ``LAUNCHES`` counts kernel launches, and only those.  The C
+arguments of a launch come from :func:`encode_call` /
+:func:`demodulate_call`, which ``kernels/sanitize.py`` launches from too;
+after a launch the wrapper hands its outputs to
+``utils/debug.py::note_kernel``.  The per-line parity comes in as a float32 column, 1.0 on D'R lines.  The
 cross-line pairing (copy or interp) stays outside the kernel, as in the JAX
 package: it is the seam a line-block split would cut.
 """
@@ -28,6 +31,7 @@ import torch
 
 from color_modem_tpu_torch.dsp.apply import fir_same, fir_same_held
 from color_modem_tpu_torch.dsp.nco import TWO_PI, f32
+from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import FmPlan
 
@@ -89,18 +93,6 @@ def _check(plan: FmPlan, isr: torch.Tensor, n_lines: int,
     return dev
 
 
-def _launch(name: str, dev: torch.device, *args) -> None:
-    from color_modem_tpu_torch.kernels.build import load_library
-
-    lib = load_library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    LAUNCHES[name] += 1
-
-
 # --- encode -----------------------------------------------------------------
 
 
@@ -119,6 +111,17 @@ def encode_lines_plain(plan: FmPlan, ycc: torch.Tensor,
     return ycc[:, 0] + fir_same(carrier, plan.anticloche_mat)
 
 
+def encode_call(plan: FmPlan, ycc: torch.Tensor, isr: torch.Tensor,
+                out: torch.Tensor) -> tuple[list, tuple]:
+    """The C arguments of ``secam_encode`` but its stream: the tensors
+    passed by pointer, in order, and then the scalars."""
+    g, _, l, n = ycc.shape
+    return ([ycc, isr, plan.fm_carrier_ramp, plan.comp_lpf_tiles, plan.preemph_tiles,
+             plan.anticloche_tiles, out],
+            (g * l, l, n, plan.comp_lpf.numel(), plan.preemph.numel(),
+             plan.anticloche.numel(), *_encode_consts(plan)))
+
+
 def encode_lines(plan: FmPlan, ycc: torch.Tensor, isr: torch.Tensor) -> torch.Tensor:
     """(G, 3, L, N) (Y, D'R, D'B) + (G*L,) parity -> (G, L, N) composite."""
     if ycc.dim() != 4 or ycc.shape[1] != 3:
@@ -128,13 +131,7 @@ def encode_lines(plan: FmPlan, ycc: torch.Tensor, isr: torch.Tensor) -> torch.Te
     if dev.type == "cpu":
         return encode_lines_plain(plan, ycc, isr)
     out = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    _launch(
-        "secam_encode", dev,
-        *(t.data_ptr() for t in (ycc, isr, plan.fm_carrier_ramp, plan.comp_lpf_tiles,
-                                 plan.preemph_tiles, plan.anticloche_tiles, out)),
-        g * l, l, n, plan.comp_lpf.numel(), plan.preemph.numel(),
-        plan.anticloche.numel(), *_encode_consts(plan),
-    )
+    launch_counted(LAUNCHES, "secam_encode", dev, encode_call(plan, ycc, isr, out), out)
     return out
 
 
@@ -161,6 +158,22 @@ def demodulate_lines_plain(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor):
     return luma[..., m : m + n], v[..., m : m + n]
 
 
+def demodulate_call(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor,
+                    luma: torch.Tensor, v: torch.Tensor) -> tuple[list, tuple]:
+    """The C arguments of ``secam_decode`` but its stream
+    (:func:`encode_call`)."""
+    if plan.bell_takeoff.numel() != plan.luma_notch.numel():
+        raise ValueError("secam_decode takes one tap count for bell_takeoff and luma_notch")
+    g, l, n = comp.shape
+    return ([comp, isr, plan.fm_margin_carrier, plan.mix_cos, plan.mix_sin,
+             plan.bell_takeoff_tiles, plan.luma_notch_tiles, plan.mix_lpf_tiles,
+             plan.diff_tiles, plan.deemph_tiles, plan.demod_lpf_tiles, luma, v],
+            (g * l, n, plan.fm_margin, plan.fm_luma_est,
+             *(t.numel() for t in (plan.bell_takeoff, plan.mix_lpf, plan.diff,
+                                   plan.deemph, plan.demod_lpf)),
+             *_decode_consts(plan)))
+
+
 def demodulate_lines(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor):
     """(G, L, N) composite + (G*L,) parity -> (luma, v), each (G, L, N)."""
     if comp.dim() != 3:
@@ -169,22 +182,10 @@ def demodulate_lines(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor):
     dev = _check(plan, isr, g * l, comp=comp)
     if dev.type == "cpu":
         return demodulate_lines_plain(plan, comp, isr)
-    if plan.bell_takeoff.numel() != plan.luma_notch.numel():
-        raise ValueError("secam_decode takes one tap count for bell_takeoff and luma_notch")
     luma = torch.empty((g, l, n), dtype=torch.float32, device=dev)
     v = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    _launch(
-        "secam_decode", dev,
-        *(t.data_ptr() for t in (comp, isr, plan.fm_margin_carrier, plan.mix_cos,
-                                 plan.mix_sin, plan.bell_takeoff_tiles,
-                                 plan.luma_notch_tiles, plan.mix_lpf_tiles,
-                                 plan.diff_tiles, plan.deemph_tiles,
-                                 plan.demod_lpf_tiles, luma, v)),
-        g * l, n, plan.fm_margin, plan.fm_luma_est,
-        *(t.numel() for t in (plan.bell_takeoff, plan.mix_lpf, plan.diff,
-                              plan.deemph, plan.demod_lpf)),
-        *_decode_consts(plan),
-    )
+    launch_counted(LAUNCHES, "secam_decode", dev, demodulate_call(plan, comp, isr, luma, v),
+                   luma, v)
     return luma, v
 
 

@@ -1,8 +1,7 @@
 """The port does all that the JAX package does, name by name.
 
-An AST walk of every module of ``color_modem_tpu/`` (not ``golden/``, the
-oracle the tests import) against the module at the same path in
-``color_modem_tpu_torch/``.  Every public top-level name of a JAX module
+An AST walk of every module of ``color_modem_tpu/`` against the module at
+the same path in ``color_modem_tpu_torch/``.  Every public top-level name of a JAX module
 (a function, class or assignment; in a package's ``__init__.py`` also what
 it re-exports from the package) must be defined or imported by the port's
 module, be a submodule the port has too, or stand in :data:`MAPPED`: either
@@ -138,8 +137,7 @@ def _ref_exists(ref: str) -> bool:
     return name in _defined(PORT / rel)
 
 
-JAX_MODULES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py")
-                     if p.relative_to(JAX).parts[0] != "golden")
+JAX_MODULES = sorted(str(p.relative_to(JAX)) for p in JAX.rglob("*.py"))
 
 
 @pytest.mark.parametrize("rel", JAX_MODULES)

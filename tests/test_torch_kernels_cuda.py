@@ -926,3 +926,40 @@ def test_dryrun_multichip_on_the_card(dev, tmp_path):
     recs = dryrun_multichip(2, outdir=str(tmp_path))
     assert {r["device"] for r in recs} == {"cuda:0"}
     assert {r["name"] for r in recs} >= {"step:ntsc/comb3", "step:ntsc/comb3d"}
+
+
+@pytest.mark.parametrize("shape", [(3, 65, 722), (1, 481, 1440)])
+def test_sanitizer_on_every_kernel(dev, shape):
+    """``kernels/sanitize.py`` at two of chip_smoke.py phase 3c's shapes:
+    every kernel row's poisoned build equal to the normal one bit for bit,
+    no NaN, every guard and input intact, every output sample written, 20
+    launches identical; the wrappers' launch counts do not move."""
+    from color_modem_tpu_torch.kernels import launch_counts, reset_launches
+    from color_modem_tpu_torch.kernels import sanitize
+
+    frames, lines, n = shape
+    reset_launches()
+    results = sanitize.run_all(dev, lines=(lines,), samples=(n,), frames=(frames,))
+    assert len(results) == len(sanitize.ROWS)
+    bad = [(r["row"], r["standard"], r["shape"], {k: v for k, v in r.items() if k != "poison"},
+            r["poison"]) for r in results if not r["ok"]]
+    assert not bad, bad
+    assert all(r["max_poison_diff"] == 0.0 for r in results)
+    assert set(launch_counts().values()) == {0}
+
+
+def test_checked_names_a_kernel_nan_on_the_card(dev):
+    """A NaN in a kernel's output reaches ``checked`` through the wrappers'
+    hook, named as the kernel's."""
+    from color_modem_tpu_torch.utils.debug import checked
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    ycc = torch.zeros((1, 3, 16, 720), device=dev)
+    ycc[0, 1, 3, 100] = float("nan")
+    cols = qk.phase_cols(plan, frame_line_index(plan, 0, 1, 16, dev))
+
+    def encode(x):
+        return torch.nan_to_num(qk.encode_lines(plan, x, cols))
+
+    with pytest.raises(FloatingPointError, match="the CUDA kernel qam_encode made a NaN"):
+        checked(encode)(ycc)

@@ -296,6 +296,36 @@ def test_port_never_imports_jax():
         assert make_transcoder("ntsc", "pal", device="cpu")(comp, 0).shape == (1, 19, 720)
         step, (zeros,) = entry.entry(device="cpu")
         assert step(zeros[:, :, :16]).shape == (2, 3, 16, 720)
+        # the correctness layer: the oracle (one call of each family), the
+        # per-operation float checks, the kernels' memory sanitizer
+        from color_modem_tpu_torch import golden
+        from color_modem_tpu_torch.golden import frame as g_frame, mac as g_mac
+        from color_modem_tpu_torch.golden import modems as g_modems, palplus as g_pp
+        from color_modem_tpu_torch.golden import sound as g_sound, transmission as g_tx
+        from color_modem_tpu_torch.kernels import sanitize
+        from color_modem_tpu_torch.frame import palplus as f_pp
+        img = testimages.smooth_scene(16, 720, seed=0)
+        gp = make_plan(NTSC(), 720)
+        g_comp = golden.encode_frame(gp, img)
+        assert psnr(torch.tensor(golden.decode_frame(gp, g_comp, decoder="comb3")),
+                    torch.tensor(img)) > 30.0
+        assert g_frame.decode_sequence(gp, np.stack([g_comp] * 2), decoder="comb3d").shape == (
+            2, 3, 16, 720)
+        assert g_modems.line_phase0_exact(455, 2, 3) == g_modems.TWO_PI * 0.5
+        assert g_tx.rf_demodulate(rfp, g_tx.rf_modulate(rfp, g_comp[None])).shape == (1, 16, 720)
+        assert g_sound.mts_decode(720, np.full(31, 1 / 31), g_sound.mts_encode(
+            720, np.zeros((1, 1440)), np.zeros((1, 1440))))[0].shape == (1, 1440)
+        assert g_mac.decode_frame(mp, g_mac.encode_frame(mp, img)).shape == (3, 16, 720)
+        pal = make_plan(PAL(), 720)
+        assert g_pp.decode_palplus(pal, g_pp.encode_palplus(pal, img, f_pp._helper_taps(pal)),
+                                   f_pp._helper_taps(pal)).shape == (3, 16, 720)
+        assert sanitize.guarded_call(lambda v: v[1].copy_(v[0]), [rgb, torch.empty_like(rgb)],
+                                     [1], 64)["sentinels_intact"]
+        try:
+            debug.checked(lambda x: torch.where(x > 0, x.log(), 0.0))(torch.zeros(2) - 1)
+            raise AssertionError("checked let a NaN made inside through")
+        except FloatingPointError:
+            pass
         # every module of the port, found by walking the package
         import importlib, pkgutil
         import color_modem_tpu_torch as port
@@ -304,7 +334,9 @@ def test_port_never_imports_jax():
             importlib.import_module(name)
         surfaces = {"cli", "native", "compat", "compat.line_api", "frame.y4m",
                     "frame.image_io", "utils.debug", "utils.testimages", "benchmark",
-                    "entry", "utils.profiling"}
+                    "entry", "utils.profiling", "golden", "golden.frame", "golden.mac",
+                    "golden.modems", "golden.palplus", "golden.sound", "golden.transmission",
+                    "kernels.sanitize"}
         assert {"color_modem_tpu_torch." + n for n in surfaces} <= walked, sorted(walked)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         ref = sorted(m for m in sys.modules if m.split(".")[0] == "color_modem_tpu")

@@ -1,0 +1,182 @@
+"""The kernels' memory sanitizer (``kernels/sanitize.py``) on the CPU.
+
+The CUDA kernels cannot run here, so these tests drive the guard plumbing
+around the kernels' plain versions, with the C arguments the wrappers
+assemble (``*_call``): a clean function passes every check, and a
+deliberately faulty one (a write one element past or before its output, a
+read one element before or past its input, an output sample left
+unwritten, an input written) is caught.  The poisoned build's flags and
+sources are checked as text; ``tests/test_torch_kernels_cuda.py`` runs the
+sanitizer itself on the card.
+"""
+
+import re
+
+import pytest
+import torch
+
+from torch_threads import one_torch_thread  # noqa: F401
+
+from color_modem_tpu_torch import ALL_STANDARDS
+from color_modem_tpu_torch.kernels import build, sanitize
+from color_modem_tpu_torch.kernels import qam as qk
+from color_modem_tpu_torch.kernels import secam as sk
+from color_modem_tpu_torch.modem.plan import make_plan
+
+N = 720
+GUARD = sanitize.GUARD_LINES * N
+
+
+def _plain(kernel, plan, v):
+    """The plain version of ``kernel`` on the guarded views ``v`` (in the
+    order of its C arguments): (output positions, results)."""
+    if kernel == "qam_encode":
+        return [6], [qk.encode_lines_plain(plan, v[0], v[1])]
+    if kernel == "qam_decode":
+        return [8], [qk.decode_lines_plain(plan, v[0], v[1], v[2])]
+    if kernel == "secam_encode":
+        return [6], [sk.encode_lines_plain(plan, v[0], v[1])]
+    return [11, 12], list(sk.demodulate_lines_plain(plan, v[0], v[1]))
+
+
+_PLANS = {}
+
+
+def _case(row):
+    _, kernel, std, decoder = row
+    if std not in _PLANS:
+        _PLANS[std] = make_plan(ALL_STANDARDS[std](), N)
+    plan = _PLANS[std]
+    (tensors, _), outs = sanitize.kernel_call(kernel, plan, 2, 17, decoder, seed=1)
+    return kernel, plan, tensors, outs
+
+
+def _launcher(kernel, plan, fault=None):
+    def launch(views):
+        pos, results = _plain(kernel, plan, views if fault != "read" else _shifted(views, kernel))
+        for p, r in zip(pos, results):
+            views[p].copy_(r)
+        out = views[pos[0]]
+        if fault == "write_past":
+            torch.as_strided(out, (out.numel() + 1,), (1,), out.storage_offset())[-1] = 0.5
+        elif fault == "write_before":
+            torch.as_strided(out, (1,), (1,), out.storage_offset() - 1)[0] = 0.5
+        elif fault == "unwritten":
+            out.view(-1)[-1] = torch.tensor(sanitize.SENTINEL_BITS, dtype=torch.int32).view(
+                torch.float32)
+        elif fault == "input_written":
+            views[0].view(-1)[3] += 1.0
+    return launch
+
+
+def _shifted(views, kernel):
+    """The first input read one element early: its first sample comes from
+    the guard band before it."""
+    v = views[0]
+    early = torch.as_strided(v, v.shape, v.stride(), v.storage_offset() - 1)
+    return [early, *views[1:]]
+
+
+@pytest.mark.parametrize("row", sanitize.ROWS, ids=lambda r: f"{r[0]}-{r[2]}")
+def test_plain_versions_pass_the_guards(row):
+    kernel, plan, tensors, outs = _case(row)
+    pos = sanitize._order_outputs(tensors, outs)
+    rep = sanitize.guarded_call(_launcher(kernel, plan), tensors, pos, GUARD)
+    assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
+    assert rep["sentinels_intact"] and rep["inputs_intact"]
+    _, want = _plain(kernel, plan, tensors)
+    for got, ref in zip(rep["outputs"], want):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("row", [sanitize.ROWS[0], sanitize.ROWS[3], sanitize.ROWS[7]],
+                         ids=lambda r: f"{r[0]}-{r[2]}")
+@pytest.mark.parametrize("fault, caught", [
+    ("write_past", lambda r: not r["sentinels_intact"]),
+    ("write_before", lambda r: not r["sentinels_intact"]),
+    ("read", lambda r: r["nan"] > 0),
+    ("unwritten", lambda r: r["sentinel_hits"] == 1),
+    ("input_written", lambda r: not r["inputs_intact"]),
+])
+def test_faults_are_caught(row, fault, caught):
+    kernel, plan, tensors, outs = _case(row)
+    pos = sanitize._order_outputs(tensors, outs)
+    rep = sanitize.guarded_call(_launcher(kernel, plan, fault), tensors, pos, GUARD)
+    assert caught(rep), rep
+
+
+@pytest.mark.parametrize("row", [sanitize.ROWS[1], sanitize.ROWS[6]],
+                         ids=lambda r: f"{r[0]}-{r[2]}")
+def test_repeats_catch_a_launch_that_changes_its_result(row):
+    """The same guarded buffers launched again and again: a clean function
+    repeats itself bit for bit; one whose result moves between launches
+    (as a race would) is counted."""
+    kernel, plan, tensors, outs = _case(row)
+    pos = sanitize._order_outputs(tensors, outs)
+    clean = sanitize.guarded_call(_launcher(kernel, plan), tensors, pos, GUARD, repeats=4)
+    assert clean["repeats_changed"] == 0 and clean["sentinels_intact"]
+    calls = []
+
+    def racy(views):
+        _launcher(kernel, plan)(views)
+        calls.append(1)
+        if len(calls) == 3:
+            views[pos[0]].view(-1)[7] += 1e-3
+
+    rep = sanitize.guarded_call(racy, tensors, pos, GUARD, sanitize.SENTINEL_BITS_2, repeats=4)
+    assert rep["repeats_changed"] == 1 and rep["sentinel_hits"] == 0
+
+
+def test_read_one_past_the_input_is_caught():
+    kernel, plan, tensors, outs = _case(sanitize.ROWS[6])
+    pos = sanitize._order_outputs(tensors, outs)
+
+    def late(views):
+        v = views[0]
+        views[pos[0]].copy_(sk.encode_lines_plain(
+            plan, torch.as_strided(v, v.shape, v.stride(), v.storage_offset() + 1), views[1]))
+
+    assert sanitize.guarded_call(late, tensors, pos, GUARD)["nan"] > 0
+
+
+def test_guards_are_a_tile_of_lines_and_keep_alignment():
+    t = torch.arange(12.0).reshape(3, 4)
+    flat, view = sanitize._guarded(t, sanitize.GUARD_BITS, GUARD, copy=True)
+    assert torch.equal(view, t) and flat.numel() == t.numel() + 2 * GUARD
+    assert torch.isnan(flat[:GUARD]).all() and torch.isnan(flat[-GUARD:]).all()
+    assert (view.data_ptr() - flat.data_ptr()) % 16 == 0
+    assert sanitize.GUARD_LINES >= 16  # the kernels' tile of lines (bf::kRows)
+    sentinel = torch.tensor(sanitize.SENTINEL_BITS, dtype=torch.int32).view(torch.float32)
+    assert torch.isfinite(sentinel)
+
+
+def test_sanitize_refuses_cpu_tensors():
+    _, plan, tensors, outs = _case(sanitize.ROWS[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        sanitize.sanitize("qam_encode", (tensors, ()), outs)
+
+
+def test_poisoned_build_flags_and_names():
+    assert build.POISON_FLAGS == ("-DCMT_POISON",)
+    assert not any("CMT_POISON" in f for f in build.NVCC_FLAGS)
+    files, digest = build._sources()
+    _, poison_digest = build._sources(build.NVCC_FLAGS + build.POISON_FLAGS)
+    assert digest == build._sources(build.NVCC_FLAGS)[1] != poison_digest
+
+
+@pytest.mark.parametrize("source, static", [("qam_encode.cu", ()), ("qam_decode.cu", ()),
+                                            ("secam_encode.cu", ()),
+                                            ("secam_decode.cu", ("is_r",))])
+def test_every_kernel_poisons_its_shared_memory_first(source, static):
+    text = (build.CSRC_DIR / source).read_text()
+    block = re.search(r"#ifdef CMT_POISON\n(.*?)#endif\n", text, re.S)
+    assert block, source
+    body = block.group(1)
+    assert "bf::poison_shared(smem4, bf::dynamic_smem_bytes());" in body
+    for name in static:
+        assert f"bf::poison_shared({name}, sizeof({name}));" in body
+    assert body.rstrip().endswith("__syncthreads();")
+    # before the kernel's first staging, right after its shared declarations
+    assert block.start() < min(text.index(k, block.end()) for k in ("stage(", "load(")
+                               if k in text[block.end():])
+    assert "%dynamic_smem_size" in (build.CSRC_DIR / "band_fir.cuh").read_text()
