@@ -15,15 +15,17 @@ Phases; any failure raises and exits nonzero:
    the tensor-core FIR in the QAM kernels' form (``csrc/band_fir.cuh``) the
    same way, zero edges, <= 2e-6, over 18 shapes (ragged last tiles of lines
    included); each SECAM kernel (the tensor-core form with the lines as
-   columns) against its plain version at 16x576x720 and 4x576x1440: encode
-   <= 2e-4, decoded RGB <= 5e-4, and the raw demodulated component's error
-   printed;
+   columns) against its plain version at 16x576x720, 4x576x1440 and
+   1x576x2160 (the pipelined kernels, then the serial ones, the decoder's
+   spans last): encode <= 2e-4, decoded RGB and luma <= 5e-4, and the raw
+   demodulated component's error printed;
 3c. the kernels' memory sanitizer (``kernels/sanitize.py``): the poisoned
    build (``-DCMT_POISON``: shared memory filled with a NaN before the
    first staging) and the normal one, every input in a NaN-guarded
    allocation and every output in a sentinel-filled one, for each kernel
    row (NTSC, PAL and NIIR pairs, SECAM pair) at 1/63/65/481 lines x
-   720/722/1440 samples x 1/3 frames: poisoned bit-equal to normal, no NaN,
+   720/722/1440 samples (and 2160 on the SECAM pair) x 1/3 frames: poisoned
+   bit-equal to normal, no NaN,
    sentinels and inputs intact, every output sample written, 20 launches
    identical; per kernel and shape a line; no wrapper launch counted;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
@@ -575,17 +577,20 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
     luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
     e_rgb = _max_err(secam_rgb(plan, luma_k, v_k, gline), secam_rgb(plan, luma_p, v_p, gline))
+    e_luma = _max_err(luma_k, luma_p)
     e_v = _max_err(v_k, v_p)
     comp_rand = sk.encode_lines(plan, ycc_rand, isr)
     e_v_rand = _max_err(sk.demodulate_lines(plan, comp_rand, isr)[1],
                         sk.demodulate_lines_plain(plan, comp_rand, isr)[1])
     torch.cuda.synchronize()
     print(f"kernel vs plain secam {frames}x{lines}x{n}: encode max|err| {e_enc:.3e} "
-          f"(<= {SECAM_ENC_ATOL}), decode RGB max|err| {e_rgb:.3e} (<= {DEC_ATOL}); "
+          f"(<= {SECAM_ENC_ATOL}), decode RGB max|err| {e_rgb:.3e}, luma {e_luma:.3e} "
+          f"(<= {DEC_ATOL}); "
           f"raw v max|err| {e_v:.3e} on the scene, {e_v_rand:.3e} on random chroma "
           f"(reported, not bounded)")
     _check(e_enc <= SECAM_ENC_ATOL, f"secam encode kernel disagrees: {e_enc}")
     _check(e_rgb <= DEC_ATOL, f"secam decode kernel disagrees: {e_rgb}")
+    _check(e_luma <= DEC_ATOL, f"secam decode kernel's luma disagrees: {e_luma}")
     return e_enc, e_rgb
 
 
@@ -3102,7 +3107,8 @@ def check_kernel_sanitizer(dev, card: str) -> dict:
     t_run = time.perf_counter() - t0
     bad = [(r["row"], r["standard"], r["shape"]) for r in results if not r["ok"]]
     print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows x "
-          f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}), "
+          f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}, "
+          f"samples {sanitize.SECAM_ONLY_SAMPLES} on the SECAM rows only), "
           f"{len(bad)} faults, {t_run:.1f} s on {card}")
     _check(not bad, f"3c sanitizer faults: {bad}")
     return {"build_s": t_build, "run_s": t_run}
@@ -3401,7 +3407,7 @@ def main() -> None:
     check_fir(dev)
     check_band_fir(dev)
     max_err["secam_encode"], max_err["secam_decode"] = 0.0, 0.0
-    for frames, n in ((BATCH, N), (4, 2 * N)):
+    for frames, n in ((BATCH, N), (4, 2 * N), (1, 3 * N)):
         e_enc, e_rgb = check_secam_kernels(dev, frames, n)
         max_err["secam_encode"] = max(max_err["secam_encode"], e_enc)
         max_err["secam_decode"] = max(max_err["secam_decode"], e_rgb)

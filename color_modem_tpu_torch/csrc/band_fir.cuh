@@ -447,11 +447,22 @@ struct PlaneB {
   }
 };
 
+// Where fir16 reads its tap tables (and the decoder its mix rows): device
+// memory through the read-only cache, or shared memory the kernel filled.
+struct GlobalTables {
+  __device__ static float2 ld(const float2* p) { return __ldg(p); }
+  __device__ static float ld(const float* p) { return __ldg(p); }
+};
+struct SharedTables {
+  __device__ static float2 ld(const float2* p) { return *p; }
+  __device__ static float ld(const float* p) { return *p; }
+};
+
 // One straight-line block of kS steps from step sb, for the kW tiles whose
 // first chunk is c0: all of its B chunks and A values are loaded before its
 // products.  acc[a * kB + j][w] += table a (*) signal j, tile w; tr[a] is the
 // lane's pointer into table a (fir16).
-template <int kW, int kS, int kA, int kB, class LoadB>
+template <int kW, int kS, int kA, int kB, class Tab, class LoadB>
 __device__ inline void fir16_block(int c0, int sb, const float2* const (&tr)[kA],
                                    const LoadB& ldb, float (&acc)[kA * kB][kW][4]) {
   constexpr int kC = 2 * kW + kS - 2;  // chunks the block reads
@@ -487,7 +498,7 @@ __device__ inline void fir16_block(int c0, int sb, const float2* const (&tr)[kA]
 #pragma unroll
   for (int a = 0; a < kA; ++a)
 #pragma unroll
-    for (int k = 0; k < 2 * kS + 2; ++k) wa[a][k] = __ldg(tr[a] + 8 * sb + 4 * k);
+    for (int k = 0; k < 2 * kS + 2; ++k) wa[a][k] = Tab::ld(tr[a] + 8 * sb + 4 * k);
 #pragma unroll
   for (int sp = 0; sp < kS; ++sp)
 #pragma unroll
@@ -508,8 +519,9 @@ __device__ inline void fir16_block(int c0, int sb, const float2* const (&tr)[kA]
 // acc = output tiles t0 .. t0 + kW - 1 (16 outputs each, out[16t + r]
 // reading chunks 2t .. 2t + S - 1 of the loader's plane) of kA filters
 // (tables, kernels/tiles.py::band_tiles16) on kB signals, S = steps;
-// blocks of kS steps, then the rest one at a time.
-template <int kW, int kS, int kA, int kB, class LoadB>
+// blocks of kS steps, then the rest one at a time; Tab: where the tables
+// lie.
+template <int kW, int kS, int kA, int kB, class Tab = GlobalTables, class LoadB>
 __device__ inline void fir16(int t0, const float2* const (&table)[kA], int steps,
                              const LoadB& ldb, float (&acc)[kA * kB][kW][4]) {
   const int lane = threadIdx.x & 31;
@@ -523,8 +535,8 @@ __device__ inline void fir16(int t0, const float2* const (&table)[kA], int steps
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[k][w][e] = 0.0f;
   int sb = 0;
-  for (; sb + kS <= steps; sb += kS) fir16_block<kW, kS, kA, kB>(2 * t0, sb, tr, ldb, acc);
-  for (; sb < steps; ++sb) fir16_block<kW, 1, kA, kB>(2 * t0, sb, tr, ldb, acc);
+  for (; sb + kS <= steps; sb += kS) fir16_block<kW, kS, kA, kB, Tab>(2 * t0, sb, tr, ldb, acc);
+  for (; sb < steps; ++sb) fir16_block<kW, 1, kA, kB, Tab>(2 * t0, sb, tr, ldb, acc);
 }
 
 // Output (0..15) within its tile, and plane row (0..7), of accumulator e.

@@ -193,8 +193,10 @@ ROWS = (
 )
 #: lines per frame (ragged last tiles of 16 lines), samples per line, frames
 LINES = (1, 63, 65, 481)
-SAMPLES = (720, 722, 1440)
+SAMPLES = (720, 722, 1440, 2160)
 FRAMES = (1, 3)
+#: samples at which only the SECAM rows run: the decoder's spans
+SECAM_ONLY_SAMPLES = (2160,)
 
 
 def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int = 0):
@@ -237,7 +239,8 @@ def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int =
 
 def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> list[dict]:
     """:func:`sanitize` every row of :data:`ROWS` at every (lines, samples,
-    frames) on ``dev``; ``report(result)`` after each.  Returns the results, each with
+    frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`;
+    ``report(result)`` after each.  Returns the results, each with
     ``row``, ``kernel``, ``standard`` and ``shape``."""
     from color_modem_tpu_torch import ALL_STANDARDS
     from color_modem_tpu_torch.modem.plan import make_plan, plan_on
@@ -245,6 +248,8 @@ def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> li
     plans, results = {}, []
     for n in samples:
         for row, kernel, std, decoder in ROWS:
+            if n in SECAM_ONLY_SAMPLES and std != "secam":
+                continue
             if (std, n) not in plans:
                 plans[std, n] = plan_on(make_plan(ALL_STANDARDS[std](), n), dev)
             for f in frames:

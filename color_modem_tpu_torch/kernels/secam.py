@@ -3,7 +3,11 @@ and their plain PyTorch versions.
 
 Both kernels run their FIRs on the tensor cores (``csrc/band_fir.cuh``'s
 ``fir16``: 8 lines x 16 outputs per ``mma.sync``, three TF32 passes) against
-the plan's 16x8 band tiles (``FmPlan.<filter>_tiles``).
+the plan's 16x8 band tiles (``FmPlan.<filter>_tiles``).  Where a line's
+planes fit one block (720 and 722 samples) each runs as a warp-specialised
+pipeline (bulk asynchronous stores, mbarrier handoffs,
+``csrc/async_pipe.cuh``); wider lines take the serial kernels.  The choice
+is the launch function's, from the line width: the arguments are the same.
 
 * ``encode_lines`` (``csrc/secam_encode.cu``) replaces
   ``color_modem_tpu/kernels/secam.py::encode``'s kernel: D'R/D'B select,

@@ -3,8 +3,8 @@ on one CUDA GPU, in turns, at the paths' shapes.
 
     python3 scripts/torch_kernel_ab.py [--family qam|secam] [--tree DIR ...] [--rounds 1]
 
-QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720 and
-4x576x1440, the plans of chip_smoke.py's phase 3b.  Each tree (default:
+QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720,
+4x576x1440 and 1x576x2160, the plans of chip_smoke.py's phase 3b.  Each tree (default:
 this one) runs in its own process, which imports that tree's
 ``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
 forward then backward (A, B, B, A for two trees).  Each process holds the
@@ -13,9 +13,9 @@ kernels against their plain versions (QAM 2e-5 encode, 5e-4 decode; SECAM
 the CUDA-event median ms of 10 windows of
 20 launches with their spread, the bound and the share of it reached, and
 the host-clock us per call of the wrapper while 100 calls are queued (the
-host's cost of a launch, checks and CUDA runtime calls included); for
-QAM also the library yardstick of ``chip_smoke.py``'s phase 5, one grouped
-``conv2d`` of the kernel's FIRs alone (TF32 off), timed the same way.  The
+host's cost of a launch, checks and CUDA runtime calls included), and the
+library yardstick of ``chip_smoke.py``'s phase 5, one grouped ``conv2d``
+of the kernel's FIRs alone (TF32 off), timed the same way.  The
 timer and the bound are this tree's ``color_modem_tpu_torch/kernels/measure.py``
 (loaded by its path, so every tree is timed and bounded alike).  The last
 line is a JSON object of every measurement.
@@ -37,7 +37,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = (("NTSC", 16, 480, 720, "comb3"), ("PAL", 16, 576, 720, "delayline"),
           ("PAL", 4, 576, 1440, "delayline"))
 #: SECAM: (frames, samples) at 576 lines
-SECAM_SHAPES = ((16, 720), (4, 1440))
+SECAM_SHAPES = ((16, 720), (4, 1440), (1, 2160))
 
 
 def _measure():
@@ -124,12 +124,14 @@ def secam_worker() -> dict:
                        - rgb_of(sk.demodulate_lines_plain(plan, comp, isr))).abs().max())
         if e_enc > 2e-4 or e_dec > 5e-4:
             raise AssertionError(f"SECAM {n}: kernel vs plain {e_enc}, {e_dec}")
+        yard = _smoke().secam_library_calls(plan, ycc_rand, comp, isr)
         for name, fn, err in (
                 ("secam_encode", lambda: sk.encode_lines(plan, ycc_rand, isr), e_enc),
                 ("secam_decode", lambda: sk.demodulate_lines(plan, comp, isr), e_dec)):
             w, host_us = _timed(measure, fn)
             res[f"{name} {frames}x576x{n}"] = _record(
-                w, host_us, measure.kernel_bound(plan, name, frames * 576), err)
+                w, host_us, measure.kernel_bound(plan, name, frames * 576), err,
+                measure.time_ms(yard[name], windows=10))
     return res
 
 

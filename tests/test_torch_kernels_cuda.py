@@ -227,6 +227,79 @@ def test_secam_kernels_match_plain_at_odd_line_counts(dev, frames, lines, n):
     assert float((v_k - v_p).abs().max()) <= DEC_ATOL
 
 
+_RAGGED_PLANS = {}
+
+
+@pytest.mark.parametrize("frames", [1, 3])
+@pytest.mark.parametrize("n", [720, 722, 1440, 2160])
+@pytest.mark.parametrize("lines", [1, 7, 9, 63, 65, 481])
+def test_secam_kernels_match_plain_at_ragged_shapes(dev, lines, n, frames):
+    """Both SECAM kernels against the plain versions where a tile of 8 lines
+    is ragged (1, 7, 9, 63, 65, 481 lines, one or three frames), at the
+    pipelined kernels' widths (720 with bulk stores, 722 with plain
+    stores) and the serial ones' (1440; 2160, where the decoder cuts the
+    line into spans): encode <= 2e-4, luma and the component <= 5e-4, the
+    decoded RGB <= 5e-4 where two lines pair; one launch each."""
+    if n not in _RAGGED_PLANS:
+        _RAGGED_PLANS[n] = make_plan(SECAM(), n).to(dev)
+    plan = _RAGGED_PLANS[n]
+    gline = frame_line_index(plan, 3, frames, lines, dev)
+    isr = sk.isr_col(gline)
+    rng = np.random.default_rng(lines * n + frames)
+    rgb = torch.tensor(np.stack([smooth_scene(max(lines, 2), n, seed=s)[:, :lines]
+                                 for s in range(frames)]), dtype=torch.float32, device=dev)
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
+                                                   dtype=torch.float32, device=dev)],
+                         dim=1).contiguous()
+    comp = sk.encode_lines_plain(plan, ycc, isr)
+    sk.reset_launches()
+    comp_k = sk.encode_lines(plan, ycc_rand, isr)
+    luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    assert float((comp_k - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max()) <= SECAM_ENC_ATOL
+    luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
+    assert float((luma_k - luma_p).abs().max()) <= DEC_ATOL
+    assert float((v_k - v_p).abs().max()) <= DEC_ATOL
+    if lines > 1:
+        e_rgb = float((_secam_rgb(plan, luma_k, v_k, gline)
+                       - _secam_rgb(plan, luma_p, v_p, gline)).abs().max())
+        assert e_rgb <= DEC_ATOL
+
+
+@pytest.mark.parametrize("n", [720, 722, 1440, 2160])
+def test_secam_pipelined_layouts_match_the_model(dev, n):
+    """The pipelined kernels' shared-memory layouts as the C sources compute
+    them (``secam_decode_pipe_layout``, ``secam_encode_pipe_layout``) equal
+    the model that ``tests/test_torch_secam_tiles.py`` checks on the CPU:
+    every pitch and offset, v's staging column, the total, and so which
+    widths take the pipelined kernels."""
+    import ctypes
+
+    from test_torch_secam_tiles import SMEM_MAX, decode_pipe_layout, encode_pipe_layout
+
+    from color_modem_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    plan = make_plan(SECAM(), n)
+    dec = (ctypes.c_int * 15)()
+    taps = [getattr(plan, f).numel() for f in ("bell_takeoff", "mix_lpf", "diff", "deemph",
+                                               "demod_lpf")]
+    assert lib.secam_decode_pipe_layout(n, plan.fm_margin, *taps, dec) == 0
+    d = decode_pipe_layout(plan)
+    assert list(dec[:6]) == [d["pitch"][k] for k in ("band", "mix", "diff", "de", "dm")] + [
+        -(-n // 4) * 4]
+    assert list(dec[6:13]) == [int(o) for o in d["offsets"][:7]]
+    assert dec[13] == d["c_v"] and 4 * dec[14] == d["bytes"]
+    enc = (ctypes.c_int * 5)()
+    assert lib.secam_encode_pipe_layout(n, *(getattr(plan, f).numel() for f in (
+        "comp_lpf", "preemph", "anticloche")), enc) == 0
+    e = encode_pipe_layout(plan)
+    assert list(enc[:3]) == [e["pitch"][f] for f in ("comp_lpf", "preemph", "anticloche")]
+    assert 4 * enc[4] == e["bytes"]
+    assert (d["bytes"] <= SMEM_MAX) == (e["bytes"] <= SMEM_MAX) == (n in (720, 722))
+
 def test_secam_roundtrip_one_launch_each(dev):
     plan = make_plan(SECAM(), 720)
     one = smooth_scene(576, 720, seed=0)

@@ -168,15 +168,26 @@ def test_poisoned_build_flags_and_names():
                                             ("secam_encode.cu", ()),
                                             ("secam_decode.cu", ("is_r",))])
 def test_every_kernel_poisons_its_shared_memory_first(source, static):
+    """Each kernel of the source (the SECAM sources hold a pipelined and a
+    serial kernel) opens with a poison block over all of its dynamic shared
+    memory (the planes, rings and staging rows) and its static arrays,
+    before its first staging or barrier."""
     text = (build.CSRC_DIR / source).read_text()
-    block = re.search(r"#ifdef CMT_POISON\n(.*?)#endif\n", text, re.S)
-    assert block, source
-    body = block.group(1)
-    assert "bf::poison_shared(smem4, bf::dynamic_smem_bytes());" in body
+    blocks = list(re.finditer(r"#ifdef CMT_POISON\n(.*?)#endif\n", text, re.S))
+    kernels = [m.start() for m in re.finditer(r"__global__ void", text)]
+    assert blocks, source
+    assert len(blocks) == len(kernels)
+    for kernel, block, after in zip(kernels, blocks, kernels[1:] + [len(text)]):
+        body = block.group(1)
+        assert "bf::poison_shared(smem4, bf::dynamic_smem_bytes());" in body
+        assert body.rstrip().endswith("__syncthreads();")
+        # inside its own kernel, right after the shared declarations: nothing
+        # stages, copies, initialises a barrier or syncs between the
+        # kernel's opening brace and the block
+        assert kernel < block.start() < after
+        head = text[text.index("{", kernel) + 1:block.start()]
+        for k in ("stage(", "load(", "ap::init(", "cp_async", "__syncthreads(", "group_sync("):
+            assert k not in head, (source, k)
     for name in static:
-        assert f"bf::poison_shared({name}, sizeof({name}));" in body
-    assert body.rstrip().endswith("__syncthreads();")
-    # before the kernel's first staging, right after its shared declarations
-    assert block.start() < min(text.index(k, block.end()) for k in ("stage(", "load(")
-                               if k in text[block.end():])
+        assert any(f"bf::poison_shared({name}, sizeof({name}));" in b.group(1) for b in blocks)
     assert "%dynamic_smem_size" in (build.CSRC_DIR / "band_fir.cuh").read_text()

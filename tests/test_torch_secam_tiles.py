@@ -23,8 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from color_modem_tpu.modem.plan import make_plan as jax_make_plan
-from color_modem_tpu.standards import SECAM as JAX_SECAM
 from color_modem_tpu_torch import SECAM
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
 from color_modem_tpu_torch.frame.pipeline import frame_line_index
@@ -241,9 +239,58 @@ def decode_geometry(plan, span: int) -> tuple[int, int]:
     return pitch, 3 * ROWS * pitch * 4
 
 
+def _pitch8(cols: int) -> int:
+    """``ap::pitch8``: the least multiple of 8 plus 4 that holds ``cols``."""
+    return -(-cols // 8) * 8 + 4
+
+
+def decode_pipe_layout(plan) -> dict:
+    """The pipelined decoder's shared memory (``secam_decode.cu::pipe_layout``):
+    six planes of 8 rows, each as wide as its reader reads and its writer
+    writes (ext, takeoff, i, q, v, v (*) deemph), the luma staging rows, the
+    six tap tables and the mix rows; pitches and offsets in floats."""
+    n, m = plan.n_samples, plan.fm_margin
+    r = decode_ranges(plan, 0, n)
+    h = {k: _half(getattr(plan, f)) for k, f in _DEC_TAPS.items()}
+    order = ("band", "mix", "diff", "de", "dm")
+    org = {k: r[k][0] - h[k] for k in order}
+    w_in = {k: _width(r[k][1] - r[k][0], getattr(plan, f).numel(), DEC_KW[k])
+            for k, f in _DEC_TAPS.items()}
+    # plane k holds the output of the stage before k, read by stage k
+    pitch = {"band": _pitch8(w_in["band"])}
+    for prev, k in zip(order, order[1:]):
+        pitch[k] = _pitch8(max(w_in[k], r[prev][1] - org[k]))
+    ps = -(-n // 4) * 4
+    planes = [pitch["band"], pitch["mix"], pitch["diff"], pitch["diff"], pitch["de"], pitch["dm"], ps]
+    offsets = np.concatenate([[0], np.cumsum([ROWS * p for p in planes])])
+    tables = [2 * band_steps16(getattr(plan, f).numel()) * BAND_TILE + 48
+              for f in ("bell_takeoff", "luma_notch", "mix_lpf", "diff", "deemph", "demod_lpf")]
+    n_ext4 = -(-(n + 2 * m) // 4) * 4
+    total = int(offsets[-1]) + sum(tables) + 2 * n_ext4
+    # v is staged in the v plane, inside the span the diff stage rewrites
+    c_v = -(-(r["diff"][0] - org["de"]) // 4) * 4
+    return {"pitch": pitch, "offsets": offsets, "bytes": 4 * total, "c_v": c_v, "org": org,
+            "ranges": r, "w_in": w_in}
+
+
+def encode_pipe_layout(plan) -> dict:
+    """The pipelined encoder's shared memory (``secam_encode.cu::enc_layout``):
+    the d, dl and two df/carrier planes of 8 rows, the Y staging rows, the
+    ramp and the three tap tables."""
+    n = plan.n_samples
+    taps = {f: getattr(plan, f).numel() for f in ("comp_lpf", "preemph", "anticloche")}
+    pitch = {f: _pitch8(max(_width(n, t, ENC_KW), _half(getattr(plan, f)) + n))
+             for f, t in taps.items()}
+    n4 = -(-n // 4) * 4
+    planes = ROWS * (pitch["comp_lpf"] + pitch["preemph"] + 2 * pitch["anticloche"] + n4)
+    tables = sum(2 * band_steps16(t) * BAND_TILE + 48 for t in taps.values())
+    return {"pitch": pitch, "bytes": 4 * (planes + n4 + tables)}
+
+
 def decode_span(plan) -> int:
-    """The decoder's span: the whole line where its planes fit a block, else
-    the widest of n / 2, n / 3, ... that fits (the wrapper's choice)."""
+    """The serial decoder's span: the whole line where its planes fit a
+    block, else the widest of n / 2, n / 3, ... that fits (the wrapper's
+    choice where the pipelined decoder's do not fit)."""
     n = plan.n_samples
     for parts in range(1, n + 1):
         span = -(-n // parts)
@@ -379,17 +426,20 @@ def test_model_decode_matches_plain(n, lines, spans):
     assert e_rgb <= DEC_ATOL / 2, e_rgb
 
 
-@pytest.mark.parametrize("n,spans", [(720, 1), (1440, 1), (2160, 14)])
-def test_decode_span_choice(n, spans):
-    """The whole line fits a block at 720 (two blocks per SM) and 1440 (one);
-    2160 needs spans, each a smaller share of shared memory."""
+@pytest.mark.parametrize("n,pipelined,spans", [(720, True, 1), (722, True, 1),
+                                               (1440, False, 1), (2160, False, 14)])
+def test_decode_span_choice(n, pipelined, spans):
+    """The pipelined decoder's six planes of a whole line fit a block at 720
+    and 722 samples; at 1440 the serial decoder's three planes hold the
+    whole line, and 2160 needs spans, each a smaller share of shared
+    memory.  The pipelined encoder fits at 720 and 722, the
+    serial one up to 2160."""
     plan = make_plan(SECAM(), n)
+    assert (decode_pipe_layout(plan)["bytes"] <= SMEM_MAX) == pipelined
+    assert (encode_pipe_layout(plan)["bytes"] <= SMEM_MAX) == pipelined
     span = decode_span(plan)
     assert -(-n // span) == spans
-    smem = decode_geometry(plan, span)[1]
-    assert smem <= SMEM_MAX
-    if n == 720:
-        assert smem <= 113 * 1024
+    assert decode_geometry(plan, span)[1] <= SMEM_MAX
     pitch, enc_smem = encode_geometry(plan)
     assert pitch % 32 == 4 and enc_smem <= SMEM_MAX
 
@@ -438,6 +488,11 @@ def test_band_tiles16_are_tf32():
 def test_secam_tiles_survive_plan_from_numpy(n):
     """The JAX plan's taps, carried across, give the same 16x8 tile buffers
     as the port's own plan, and those are band_tiles16 of the float64 taps."""
+    # imported here: the card tests import this module's layout model on a
+    # machine without JAX
+    from color_modem_tpu.modem.plan import make_plan as jax_make_plan
+    from color_modem_tpu.standards import SECAM as JAX_SECAM
+
     jp = jax_make_plan(JAX_SECAM(), n)
     carried, own = plan_from_numpy(jp), make_plan(SECAM(), n)
     for field in FM_TAPS:
@@ -446,3 +501,25 @@ def test_secam_tiles_survive_plan_from_numpy(n):
         assert tiles.shape == (BAND_TILE * band_steps16(len(getattr(jp, field))) + 24, 2)
         np.testing.assert_array_equal(tiles.numpy(), band_tiles16(getattr(jp, field)))
         np.testing.assert_array_equal(tiles.numpy(), getattr(own, field + "_tiles").numpy())
+
+
+@pytest.mark.parametrize("n", [720, 722])
+def test_pipelined_layouts(n):
+    """Every plane of the pipelined kernels is as wide as the columns its
+    reader's FIR reads (fir16's bound) and its writer writes, rows pad to
+    pitch % 8 == 4 (ldmatrix without bank conflicts) and start on 16 bytes
+    (bulk stores), and the v staging columns lie inside the span the diff
+    stage rewrites every tile, so the v plane's zero edges stay."""
+    plan = make_plan(SECAM(), n)
+    d = decode_pipe_layout(plan)
+    r, org = d["ranges"], d["org"]
+    for k in ("band", "mix", "diff", "de", "dm"):
+        assert d["pitch"][k] >= d["w_in"][k] and d["pitch"][k] % 8 == 4
+    assert d["pitch"]["band"] >= n + plan.fm_margin - org["band"]  # ext holds the composite
+    assert all(o % 4 == 0 for o in d["offsets"])
+    assert r["diff"][0] - org["de"] <= d["c_v"]
+    assert d["c_v"] + n <= r["diff"][1] - org["de"]
+    e = encode_pipe_layout(plan)
+    assert all(p % 8 == 4 for p in e["pitch"].values())
+    assert e["bytes"] <= SMEM_MAX
+
