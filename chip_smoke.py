@@ -15,10 +15,12 @@ Phases; any failure raises and exits nonzero:
    the tensor-core FIR in the QAM kernels' form (``csrc/band_fir.cuh``) the
    same way, zero edges, <= 2e-6, over 18 shapes (ragged last tiles of lines
    included); each SECAM kernel (the tensor-core form with the lines as
-   columns) against its plain version at 16x576x720, 4x576x1440 and
-   1x576x2160 (the pipelined kernels, then the serial ones, the decoder's
-   spans last): encode <= 2e-4, decoded RGB and luma <= 5e-4, and the raw
-   demodulated component's error printed;
+   columns) against its plain version at 16x576x720 (the pipelined
+   kernels: one block holds a line), 4x576x1440 (the serial kernels) and
+   1x576x2160 (the serial kernels, the decoder cutting the line into 14
+   spans), each width's kernel printed as the C sources choose it: encode
+   <= 2e-4, decoded RGB and luma <= 5e-4, and the raw demodulated
+   component's error printed;
 3c. the kernels' memory sanitizer (``kernels/sanitize.py``): the poisoned
    build (``-DCMT_POISON``: shared memory filled with a NaN before the
    first staging) and the normal one, every input in a NaN-guarded
@@ -34,7 +36,9 @@ Phases; any failure raises and exits nonzero:
    and with the plain backend on the CPU on a small input (:func:`check_path`);
 4b. the SECAM path, encode -> interp/avg/notch decode at 16x3x576x720, the
    same way: PSNR 38.8644/33.3755/35.3157 +- 0.02 dB, one launch of each
-   SECAM kernel per round trip;
+   SECAM kernel per round trip; and interp at 16x3x576x1440 (the chip
+   matrix's row: the serial kernels) against the JAX CPU value, one
+   launch of each, timed in phase 5;
 4c. the rest of the QAM family at full width (16 frames, 576 or 480 lines,
    720 samples): PAL/PAL-M/PAL-N/PAL-60, NIIR, NTSC-4.43 and the temporal
    and adaptive combs, each round trip's PSNR +- 0.02 dB, its launches
@@ -124,7 +128,8 @@ Phases; any failure raises and exits nonzero:
    (2x2 with 4 cards), printing which ran;
 5. CUDA-event times (median of 10 windows of 20 calls, with their spread)
    of each kernel and round trip against its plain version: NTSC comb3 and
-   SECAM interp, then 5c PAL delayline and NIIR avg (the shared-filter
+   SECAM interp (and SECAM interp at 16x3x576x1440, the serial kernels),
+   then 5c PAL delayline and NIIR avg (the shared-filter
    case); per kernel its bound (bytes or operations, ``kernels/measure.py``)
    and the share of it reached, and one grouped conv2d of each kernel's
    FIRs alone (TF32 off) as the library yardstick; 5e the frame layer's
@@ -226,6 +231,10 @@ SECAM_LINES = 576
 #: SECAM round-trip PSNR of smooth_scene(576, 720, seed=0) at frame 0, as the
 #: JAX xla path computes it on the CPU; numbers of the algorithm, not the chip
 SECAM_PSNR = {"interp": 38.8644, "avg": 33.3755, "notch": 35.3157}
+#: phase 4b at 1440 samples: SECAM interp of
+#: smooth_scene(576, 1440, seed=0) x 16 at frame 0, the JAX xla path on the
+#: CPU (scripts/jax_transmission_reference.py --only secam-interp-1440)
+SECAM_PSNR_1440 = 38.6482
 #: phase 4c: (standard, decoder) -> (round-trip PSNR, (encode, decode)
 #: launches); smooth_scene(L, 720, seed=0) broadcast to 16 frames, frame 0,
 #: as the JAX xla path computes it on the CPU
@@ -547,6 +556,31 @@ def check_band_fir(dev) -> float:
     return worst
 
 
+def secam_schedules(plan) -> dict:
+    """Which kernel each SECAM launch at the plan's width runs, as the C
+    sources choose it: the pipelined one where its layout
+    (``secam_*_pipe_layout``) fits a block, else the serial one."""
+    import ctypes
+
+    from color_modem_tpu_torch.kernels.build import load_library
+
+    lib, n = load_library(), plan.n_samples
+    taps = {"secam_encode": [plan.comp_lpf, plan.preemph, plan.anticloche],
+            "secam_decode": [plan.bell_takeoff, plan.mix_lpf, plan.diff, plan.deemph,
+                             plan.demod_lpf]}
+    lead = {"secam_encode": [n], "secam_decode": [n, plan.fm_margin]}
+    out = {}
+    for name, size in (("secam_encode", 5), ("secam_decode", 15)):
+        lay = (ctypes.c_int * size)()
+        _check(getattr(lib, name + "_pipe_layout")(
+            *lead[name], *(t.numel() for t in taps[name]), lay) == 0, f"{name}_pipe_layout")
+        pipelined = 4 * lay[size - 1] <= 227 * 1024
+        out[name] = ("the pipelined kernel (one block)" if pipelined else
+                     "the serial kernel" + (" (spans where its planes do not hold the line)"
+                                            if name == "secam_decode" else ""))
+    return out
+
+
 def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     """Both SECAM kernels against their plain versions at frames x 576 x n,
     first frame odd.  Returns (encode, decoded RGB) max abs errors."""
@@ -562,6 +596,9 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
 
     plan = make_plan(SECAM(), n).to(dev)
     lines = SECAM_LINES
+    kinds = secam_schedules(plan)
+    print(f"secam {frames}x{lines}x{n}: encode runs {kinds['secam_encode']}, decode runs "
+          f"{kinds['secam_decode']}")
     gline = frame_line_index(plan, 3, frames, lines, dev)
     isr = sk.isr_col(gline)
     scenes = np.stack([smooth_scene(lines, n, seed=s) for s in range(4)])
@@ -594,19 +631,19 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     return e_enc, e_rgb
 
 
-def full_scene(lines: int, dev, frames: int = BATCH):
-    """smooth_scene(lines, N, seed=0) broadcast to ``frames`` frames on ``dev``."""
+def full_scene(lines: int, dev, frames: int = BATCH, n: int = N):
+    """smooth_scene(lines, n, seed=0) broadcast to ``frames`` frames on ``dev``."""
     import numpy as np
     import torch
 
     from color_modem_tpu_torch.utils.testimages import smooth_scene
 
-    return torch.tensor(np.broadcast_to(smooth_scene(lines, N, seed=0), (frames, 3, lines, N)),
+    return torch.tensor(np.broadcast_to(smooth_scene(lines, n, seed=0), (frames, 3, lines, n)),
                         dtype=torch.float32, device=dev)
 
 
-def check_path(dev, name: str, decoder: str, expected: float, want: dict):
-    """One round trip at BATCH x 3 x L x N through the kernel backend (PSNR,
+def check_path(dev, name: str, decoder: str, expected: float, want: dict, n: int = N):
+    """One round trip at BATCH x 3 x L x n through the kernel backend (PSNR,
     launches of all four kernels, shape, finite values), against the plain
     backend on the card and on the CPU, stage by stage: the encodes on the
     same RGB (<= ENC_ATOL, SECAM <= SECAM_ENC_ATOL), the decodes on the same
@@ -629,9 +666,9 @@ def check_path(dev, name: str, decoder: str, expected: float, want: dict):
 
     cfg = ALL_STANDARDS[name]()
     lines = cfg.active_lines
-    rgb = full_scene(lines, dev)
-    label = f"{name} {decoder} {BATCH}x3x{lines}x{N}"
-    enc_k, dec_k, rt_k = make_pipeline(make_plan(cfg, N), decoder, "kernel", dev)
+    rgb = full_scene(lines, dev, n=n)
+    label = f"{name} {decoder} {BATCH}x3x{lines}x{n}"
+    enc_k, dec_k, rt_k = make_pipeline(make_plan(cfg, n), decoder, "kernel", dev)
     reset_counts()
     out = rt_k(rgb, 0)
     got = read_counts(label, want)
@@ -645,7 +682,7 @@ def check_path(dev, name: str, decoder: str, expected: float, want: dict):
     frames = 2 * temporal_comb_spacing(cfg) if decoder in ("comb3d", "comb3dA") else 2
     small = rgb[:frames, :, :64]
     for where, x, frame0, ref_dev in (("the card", rgb, 0, dev), ("the CPU", small, 7, "cpu")):
-        enc_p, dec_p, rt_p = make_pipeline(make_plan(cfg, N), decoder, "plain", ref_dev)
+        enc_p, dec_p, rt_p = make_pipeline(make_plan(cfg, n), decoder, "plain", ref_dev)
         comp = enc_k(x, frame0)
         first = comp.cpu(), enc_p(x.to(ref_dev), frame0).cpu()
         e_enc = _max_err(*first)
@@ -1023,9 +1060,10 @@ def secam_library_calls(plan, ycc, comp, isr) -> dict:
     return calls
 
 
-def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict:
-    """Phases 5/5c: the path's two kernels at its full shape against their
-    plain versions (held to the bounds here too), and its round trip."""
+def time_path(dev, card: str, name: str, decoder: str, roundtrip: tuple, n: int = N) -> dict:
+    """Phases 5/5c: the path's two kernels at its full shape (n samples)
+    against their plain versions (held to the bounds here too), and its
+    round trip ``(kernel, plain)``."""
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
@@ -1037,9 +1075,9 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
 
-    plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
+    plan = make_plan(ALL_STANDARDS[name](), n).to(dev)
     lines = plan.cfg.active_lines
-    rgb = full_scene(lines, dev)
+    rgb = full_scene(lines, dev, n=n)
     with torch.inference_mode():
         ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
         g = frame_line_index(plan, 0, BATCH, lines, dev)
@@ -1070,22 +1108,22 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrips: dict) -> dict
                 "qam_decode": (lambda: qk.decode_lines_plain(plan, sep, comp, cols),
                                lambda: qk.decode_lines(plan, sep, comp, cols)),
             }
-        print(f"kernel vs plain {name} {BATCH}x{lines}x{N} on the scene: encode max|err| "
+        print(f"kernel vs plain {name} {BATCH}x{lines}x{n} on the scene: encode max|err| "
               f"{e_enc:.3e} (<= {enc_atol}), decode {e_dec:.3e} (<= {DEC_ATOL})")
         _check(e_enc <= enc_atol and e_dec <= DEC_ATOL, f"{name} kernels disagree")
         library = (secam_library_calls(plan, ycc, comp, isr) if plan.cfg.is_fm
                    else qam_library_calls(plan, ycc, sep, comp, cols))
-        rt_k, rt_p = roundtrips[name, decoder]
+        rt_k, rt_p = roundtrip
         kernels[f"{decoder} roundtrip"] = (lambda: rt_p(rgb, 0), lambda: rt_k(rgb, 0))
         times = {key: time_pair(plain, kernel) for key, (plain, kernel) in kernels.items()}
         for kernel in [k for k in kernels if "roundtrip" not in k]:
             times[kernel]["bound"] = kernel_bound(plan, kernel, BATCH * lines)
             times[kernel]["library"] = (_stats(time_ms(library[kernel], windows=10))
                                         if kernel in library else None)
-    print_times(card, f"{name} {BATCH}x{lines}x{N}", BATCH * lines * N / 1e6, times)
+    print_times(card, f"{name} {BATCH}x{lines}x{n}", BATCH * lines * n / 1e6, times)
     for kernel in [k for k in kernels if "roundtrip" not in k]:
         t, (b, by), lib = times[kernel]["kernel"], times[kernel]["bound"], times[kernel]["library"]
-        print(f"bound {kernel} {name} {BATCH}x{lines}x{N} on {card}: {_fmt(t)}, bound {b:.4f} ms "
+        print(f"bound {kernel} {name} {BATCH}x{lines}x{n} on {card}: {_fmt(t)}, bound {b:.4f} ms "
               f"({by}), {100 * b / t[0]:.1f}% of it; " + (
                   f"library: one grouped conv2d of its FIRs alone {_fmt(lib)}" if lib else
                   "library: no single PyTorch call computes it"))
@@ -3424,6 +3462,8 @@ def main() -> None:
         if decoder == "interp":
             launches.update({k: got[k] for k in SECAM_1_1})
             paths["secam", decoder] = (rt_k, rt_p)
+    # the chip matrix's SECAM row, 1440 samples
+    wide = check_path(dev, "secam", "interp", SECAM_PSNR_1440, SECAM_1_1, n=2 * N)[:2]
 
     # --- 4c. the rest of the QAM family ---------------------------------------
     for (name, decoder), (expected, (n_enc, n_dec)) in QAM_FAMILY.items():
@@ -3465,7 +3505,8 @@ def main() -> None:
     times = {}
     for name, decoder in (("ntsc", "comb3"), ("secam", "interp"), ("pal", "delayline"),
                           ("niir", "avg")):
-        times[name] = time_path(dev, card, name, decoder, paths)
+        times[name] = time_path(dev, card, name, decoder, paths[name, decoder])
+    times["secam1440"] = time_path(dev, card, "secam", "interp", wide, n=2 * N)
     time_frame_layer(card, timed)
     time_transmission(card, hops)
     time_sound(card, sound)

@@ -74,14 +74,22 @@
 // composite rows copied by cp.async while the previous tile's last two
 // stages run; 212 KB at 1440, one block of 16 warps per SM.  A line too
 // wide even for that (2160 samples) is cut into spans that each recompute
-// the halo of the whole chain (the stage ranges below).
+// the halo of the whole chain (the stage ranges below).  Every plane row
+// holds at least a whole line, so above 2279 samples no span fits and the
+// launch raises.  A thread-block cluster schedule for such lines (each CTA
+// the pipelined kernel on a slice of the line, the halos written into the
+// neighbours' planes through distributed shared memory) was built and
+// measured: 0.36 ms in place of 1.25 at 1x576x2160, 1.75 in place of 1.38
+// at 16x576x1440 (PERF.md section 6); no workload sends 2160-sample lines,
+// so it is not kept.
 //
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (scripts/torch_kernel_ab.py,
 // median of 10 windows of 20 launches; PERF.md section 6): the pipelined
 // kernel 0.3936-0.3973 ms at 16x576x720, 24.7-24.9% of the bound, against
 // 0.4615-0.4728 ms for the serial schedule there with two blocks of 8
-// warps per SM (-15%); the serial kernel 0.47-0.48 ms at 4x576x1440 and
-// 1.25-1.26 ms at 1x576x2160 (14 spans, 4.4% of the bound).  Each FIR
+// warps per SM (-15%); the serial kernel 0.47-0.48 ms at 4x576x1440,
+// 1.3789-1.3864 ms at 16x576x1440 (28.4-28.6% of the bound) and 1.25-1.26
+// ms at 1x576x2160 (14 spans, 4.4% of the bound).  Each FIR
 // warp starts one product per about 30 cycles (three to an SM
 // sub-partition: one per 10 cycles, against about 6.4 at mma.sync's
 // measured ceiling); the second group alone takes 0.35 ms of the 0.40

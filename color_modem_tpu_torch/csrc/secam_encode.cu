@@ -62,13 +62,20 @@
 // of 8 rows (d, then df; dl, then the carrier), all warps on each FIR
 // stage between block-wide barriers, the row tasks on warps 0-7, one row
 // each, the next tile's rows copied by cp.async during the last stage.
+// Above 2514 samples its planes do not fit a block and the launch raises.
+// A thread-block cluster schedule (each CTA the pipelined kernel on a
+// slice of the line, the phase totals chained from slice to slice) was
+// built and measured: 0.12 ms in place of 0.15 at 1x576x2160, +2.5% at
+// 16x576x1440 (PERF.md section 6); no workload sends 2160-sample lines,
+// so it is not kept.
 //
 // On an NVIDIA H100 80GB HBM3 at 700.00 W (scripts/torch_kernel_ab.py,
 // median of 10 windows of 20 launches; PERF.md section 6): the pipelined
 // kernel 0.1806-0.1834 ms at 16x576x720, 25.4-25.8% of the bound, against
 // 0.2053-0.2066 ms for the serial schedule there with two blocks of 8
-// warps per SM (-12%); the serial kernel 0.21 ms at 4x576x1440 and 0.15 ms
-// at 1x576x2160.  Each FIR warp starts one product per about 30 cycles
+// warps per SM (-12%); the serial kernel 0.21 ms at 4x576x1440,
+// 0.6193-0.6211 ms at 16x576x1440 (30.1-30.2% of the bound) and 0.15 ms at
+// 1x576x2160.  Each FIR warp starts one product per about 30 cycles
 // (three to an SM sub-partition: one per 10 cycles, against about 6.4 at
 // mma.sync's measured ceiling); the tap tables in shared memory took about
 // 4% off the first pipelined version.  The scan, on its own warps, is

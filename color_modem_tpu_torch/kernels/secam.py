@@ -6,8 +6,15 @@ Both kernels run their FIRs on the tensor cores (``csrc/band_fir.cuh``'s
 the plan's 16x8 band tiles (``FmPlan.<filter>_tiles``).  Where a line's
 planes fit one block (720 and 722 samples) each runs as a warp-specialised
 pipeline (bulk asynchronous stores, mbarrier handoffs,
-``csrc/async_pipe.cuh``); wider lines take the serial kernels.  The choice
-is the launch function's, from the line width: the arguments are the same.
+``csrc/async_pipe.cuh``); wider lines take the serial kernels (one block
+holds the line, all warps on each stage in turn), the decoder cutting lines
+its planes cannot hold into spans that each recompute the chain's halo (14
+at 2160 samples).  The choice is the launch function's, from the line
+width: the arguments are the same.  Lines wider than 2279 samples
+(decode) or 2514 (encode) fit no kernel and raise.  On an NVIDIA H100 80GB
+HBM3 at 700.00 W (``scripts/torch_kernel_ab.py``, PERF.md section 6):
+encode / decode 0.18 / 0.40 ms at 16x576x720, 0.62 / 1.38 ms at
+16x576x1440, 0.15 / 1.25 ms at 1x576x2160.
 
 * ``encode_lines`` (``csrc/secam_encode.cu``) replaces
   ``color_modem_tpu/kernels/secam.py::encode``'s kernel: D'R/D'B select,

@@ -51,6 +51,11 @@ Prints one JSON object per row as it finishes.  Rows:
   sin 4 kHz: ``min_psnr_db`` and the audio SNR (8192 cropped at the
   track's ends).
 
+The SECAM round trip at the chip matrix's width (phase 4b):
+
+* ``secam-interp-1440``: SECAM ``interp`` of ``smooth_scene(576, 1440,
+  seed=0)`` x 16 at frame 0: the round-trip PSNR over the batch.
+
 The data services and instruments (phase 4i; every composite from the
 ``comb3`` pipeline of ``smooth_scene(L, N, seed=0)`` x 16 at frame 0):
 
@@ -479,6 +484,16 @@ def _frames(std, lines: int, n: int, decoder: str = "comb3"):
     return plan, rgb, enc, dec
 
 
+def row_secam_interp_1440():
+    import numpy as np
+
+    from color_modem_tpu.standards import SECAM
+    from color_modem_tpu.utils.metrics import psnr
+
+    _, rgb, enc, dec = _frames(SECAM(), 576, 2 * N, "interp")
+    return {"psnr_db": psnr(np.asarray(dec(enc(rgb, 0), 0)), np.asarray(rgb))}
+
+
 def row_caption():
     import jax.numpy as jnp
     import numpy as np
@@ -677,6 +692,7 @@ ROWS = {
     "mac-sound": row_mac_sound,
     "video-rf-audio": lambda: _video_audio(False),
     "video-rf-audio-interlaced": lambda: _video_audio(True),
+    "secam-interp-1440": row_secam_interp_1440,
     "caption": row_caption,
     "teletext-wss-vitc": row_teletext_wss_vitc,
     "scramble": row_scramble,

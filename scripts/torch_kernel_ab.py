@@ -4,7 +4,8 @@ on one CUDA GPU, in turns, at the paths' shapes.
     python3 scripts/torch_kernel_ab.py [--family qam|secam] [--tree DIR ...] [--rounds 1]
 
 QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720,
-4x576x1440 and 1x576x2160, the plans of chip_smoke.py's phase 3b.  Each tree (default:
+4x576x1440 and 1x576x2160, the plans of chip_smoke.py's phase 3b, and 16x576x1440, the
+chip matrix's SECAM row.  Each tree (default:
 this one) runs in its own process, which imports that tree's
 ``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
 forward then backward (A, B, B, A for two trees).  Each process holds the
@@ -37,7 +38,7 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = (("NTSC", 16, 480, 720, "comb3"), ("PAL", 16, 576, 720, "delayline"),
           ("PAL", 4, 576, 1440, "delayline"))
 #: SECAM: (frames, samples) at 576 lines
-SECAM_SHAPES = ((16, 720), (4, 1440), (1, 2160))
+SECAM_SHAPES = ((16, 720), (4, 1440), (16, 1440), (1, 2160))
 
 
 def _measure():

@@ -200,10 +200,12 @@ def test_secam_kernels_match_plain(dev, frames, lines, n):
 
 
 @pytest.mark.parametrize("frames,lines,n", [(1, 1, 720), (1, 17, 722), (3, 13, 1440),
-                                            (2, 33, 720)])
+                                            (2, 33, 720), (5, 101, 1440), (1, 13, 2160),
+                                            (3, 37, 1442)])
 def test_secam_kernels_match_plain_at_odd_line_counts(dev, frames, lines, n):
     """One line, 17 lines and odd counts leave a ragged last tile of 8 lines
-    in the tensor-core kernels; one launch each.  The demodulated luma and
+    in the tensor-core kernels (at 1440 and 1442 the serial kernels', at
+    2160 the decoder's spans'); one launch each.  The demodulated luma and
     component are held directly (the line pairing needs two lines)."""
     plan = make_plan(SECAM(), n).to(dev)
     isr = sk.isr_col(frame_line_index(plan, 3, frames, lines, dev))
@@ -225,6 +227,34 @@ def test_secam_kernels_match_plain_at_odd_line_counts(dev, frames, lines, n):
     luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
     assert float((luma_k - luma_p).abs().max()) <= DEC_ATOL
     assert float((v_k - v_p).abs().max()) <= DEC_ATOL
+
+
+@pytest.mark.parametrize("kernel", ["decode", "encode"])
+def test_secam_kernels_at_the_widest_lines(dev, kernel):
+    """At the widest line each SECAM kernel takes (``WIDEST`` of
+    ``tests/test_torch_secam_tiles.py``, where the CPU model of its shared
+    memory puts it) it launches and matches its plain version; one sample
+    wider it raises."""
+    from test_torch_secam_tiles import WIDEST
+
+    n = WIDEST[kernel]
+    if kernel == "decode":
+        _secam_kernel_vs_plain(dev, 1, 9, n)
+    for width in (n, n + 1):
+        plan = make_plan(SECAM(), width).to(dev)
+        isr = sk.isr_col(frame_line_index(plan, 3, 1, 9, dev))
+        ycc = torch.tensor(np.random.default_rng(width).uniform(-0.5, 0.5, (1, 3, 9, width)),
+                           dtype=torch.float32, device=dev)
+        comp = sk.encode_lines_plain(plan, ycc, isr)
+        if kernel == "encode" and width == n:
+            err = float((sk.encode_lines(plan, ycc, isr) - comp).abs().max())
+            assert err <= SECAM_ENC_ATOL, err
+        elif width > n:
+            with pytest.raises(RuntimeError, match=f"secam_{kernel}"):
+                if kernel == "encode":
+                    sk.encode_lines(plan, ycc, isr)
+                else:
+                    sk.demodulate_lines(plan, comp, isr)
 
 
 _RAGGED_PLANS = {}
@@ -299,6 +329,7 @@ def test_secam_pipelined_layouts_match_the_model(dev, n):
     assert list(enc[:3]) == [e["pitch"][f] for f in ("comp_lpf", "preemph", "anticloche")]
     assert 4 * enc[4] == e["bytes"]
     assert (d["bytes"] <= SMEM_MAX) == (e["bytes"] <= SMEM_MAX) == (n in (720, 722))
+
 
 def test_secam_roundtrip_one_launch_each(dev):
     plan = make_plan(SECAM(), 720)

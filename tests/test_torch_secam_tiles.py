@@ -396,7 +396,7 @@ def _rgb(plan, luma, v, gline):
     return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
 
 
-@pytest.mark.parametrize("n,lines", [(720, 9), (1440, 5), (722, 3)])
+@pytest.mark.parametrize("n,lines", [(720, 9), (1440, 5), (722, 3), (2160, 3)])
 def test_model_encode_matches_plain(n, lines):
     """Held staging, held halo of the intermediate, per-row D'R/D'B, the
     warp scan and the anti-cloche, against encode_lines_plain at the
@@ -409,11 +409,12 @@ def test_model_encode_matches_plain(n, lines):
 
 
 @pytest.mark.parametrize("n,lines,spans", [(720, 9, 1), (1440, 5, 1), (720, 3, 3),
-                                           (722, 3, 1)])
+                                           (722, 3, 1), (2160, 3, 14)])
 def test_model_decode_matches_plain(n, lines, spans):
     """The decoder's stages with their origins, zero edges and per-row
     constants, against demodulate_lines_plain on the decoded RGB and the
-    luma, to the kernel bound; three spans recompute their halos."""
+    luma, to the kernel bound; three spans recompute their halos, and at
+    2160 the kernel's 14."""
     plan = _plan(n)
     gline, isr, ycc, _ = _inputs(plan, 2, lines, seed=1)
     comp = sk.encode_lines_plain(plan, ycc, isr)
@@ -442,6 +443,26 @@ def test_decode_span_choice(n, pipelined, spans):
     assert decode_geometry(plan, span)[1] <= SMEM_MAX
     pitch, enc_smem = encode_geometry(plan)
     assert pitch % 32 == 4 and enc_smem <= SMEM_MAX
+
+
+#: the widest lines each serial kernel takes: the taps, and with them the
+#: halos, grow with the sampling rate, and every plane row holds at least a
+#: whole line (the decoder's three planes, whatever its span; the
+#: encoder's two)
+WIDEST = {"decode": 2279, "encode": 2514}
+
+
+@pytest.mark.parametrize("kernel", ["decode", "encode"])
+def test_widest_lines(kernel):
+    """The SECAM kernels take lines up to WIDEST samples and raise above
+    (the JAX package takes any width): at the widest the decoder's planes
+    of the least span (one sample) or the encoder's fit a block, one
+    sample more and they do not."""
+    n = WIDEST[kernel]
+    for width, fits in ((n, True), (n + 1, False)):
+        plan = make_plan(SECAM(), width)
+        smem = decode_geometry(plan, 1)[1] if kernel == "decode" else encode_geometry(plan)[1]
+        assert (smem <= SMEM_MAX) == fits, (width, smem)
 
 
 @pytest.mark.parametrize("ntaps,n", [(31, 61), (129, 720), (193, 816), (257, 816),
