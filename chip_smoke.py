@@ -29,7 +29,19 @@ Phases; any failure raises and exits nonzero:
    720/722/1440 samples (and 2160 on the SECAM pair) x 1/3 frames: poisoned
    bit-equal to normal, no NaN,
    sentinels and inputs intact, every output sample written, 20 launches
-   identical; per kernel and shape a line; no wrapper launch counted;
+   identical; per kernel and shape a line; no wrapper launch counted; the
+   threefry rows (the runner's per-item keys, one key, the normal alone,
+   the raw bits) at the QAM rows' shapes;
+3d. the threefry generator (``csrc/threefry.cu``, JAX's ``jax.random``
+   on the card): the bits against the plain version at 2^20 words exactly,
+   ``x + sigma * normal`` at 16 x 480 x 2880 (the runner's satellite noise
+   per chunk of 16 NTSC frames) with per-item ``fold_in`` from index 37
+   within 1e-6, the normal alone, ``bernoulli`` and ``randint`` at
+   ``rf_dropout``'s shape exactly; the card against the CPU (bits equal,
+   normals within 1e-6); the card against values taken from ``jax.random``
+   on the CPU (:data:`JAX_PINNED`); CUDA-event times of each entry point
+   against its plain version, with ``torch.randn`` at the same shape as a
+   yardstick (not the same function) and the bound;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel, agreement with the plain backend on the card
@@ -146,7 +158,9 @@ Phases; any failure raises and exits nonzero:
    noise with NR (progressive comb3 and interlaced comb3d), NR gaining >
    2.5 dB on a noisy static source, and Mpix/s on both backends; then the
    same run through the RF hop and through the satellite hop at 12 dB CNR
-   (PSNR +- 0.02 dB of the JAX CPU run), and chunk sizes 16 and 12 through
+   (PSNR +- 0.02 dB of the JAX CPU run: the noise is JAX's) and with
+   channel noise (the same), the noisy runs one ``threefry_add_normal``
+   launch per chunk, and chunk sizes 16 and 12 through
    the RF hop, the satellite hop, and the satellite hop at 12 dB CNR; the
    RF hop with a soundtrack (``rf_audio``), progressive and interlaced,
    against the JAX runner's PSNR and audio SNR, one synchronising operation
@@ -171,7 +185,9 @@ Phases; any failure raises and exits nonzero:
    clip beside phase 6's runner; (c) ``roundtrip --demo --pattern scene``
    at full height, NTSC comb3, PAL delayline, SECAM interp and NIIR avg,
    each PSNR +- 0.02 dB of the JAX CLI's CPU value and one launch per
-   kernel; (d) ``encode --raw`` then ``decode`` against ``roundtrip`` and
+   kernel, and NTSC comb3 with composite noise, RF noise, tape dropouts and
+   DOC (the threefry bits kernel's path: three launches, two of the normal
+   one); (d) ``encode --raw`` then ``decode`` against ``roundtrip`` and
    ``gallery``, where Pillow imports (a line says whether it did); (e) the
    per-line modems over 24 lines, 24 one-line encode launches each, against
    the batch pipeline (encode 2e-5 / 2e-4 SECAM, interior lines 5e-4), a
@@ -195,7 +211,8 @@ Phases; any failure raises and exits nonzero:
    each) and ``dryrun_multichip(4)`` on 4 gloo ranks on the card(s).
 
 The line before the last is ``{"kernels": [...]}``, one entry per Pallas
-kernel of the JAX package (the QAM pair's ``_shared`` forms run the same
+kernel of the JAX package and one per entry point of the threefry
+generator, which replaces ``jax.random`` (the QAM pair's ``_shared`` forms run the same
 CUDA kernels with equal tile arrays, on the PAL delayline path), with the
 QAM kernels' launches on phase 4i's paths beside (``launches_data_services``:
 the NTSC caption round trip, the PALplus round trip) and each rank's
@@ -308,10 +325,32 @@ AGC_FRAMES = 48             # 48 x 480 x 858 rastered samples > 2^24
 #: the hops on the card against the CPU on 2 x 32 lines: float32 FFT
 #: rounding; the FM phase carries it to ~1e-4 (tests/test_torch_satellite.py)
 HOP_CPU_ATOL = {"rf": 1e-5, "satellite": 5e-4, "d2mac": 1e-5}
-#: phase 6 through the hops: min_psnr_db of the JAX xla run on the CPU
-#: (scripts/jax_transmission_reference.py video-rf / video-satellite)
+#: phase 6 with channel noise 0.02: min_psnr_db of the JAX xla run on the
+#: CPU (scripts/jax_transmission_reference.py video-channel-noise)
+VIDEO_CHANNEL_NOISE_PSNR = 34.09  # the summary rounds to 0.01 dB
+#: phase 6 through the hops and the noisy channel: min_psnr_db of the JAX
+#: xla run on the CPU (scripts/jax_transmission_reference.py video-rf /
+#: video-satellite / video-channel-noise), the noise JAX's
 VIDEO_HOP = {"rf": ({"rf": True}, 47.28),
-             "satellite": ({"satellite": True, "sat_cnr": 12.0}, 27.92)}
+             "satellite": ({"satellite": True, "sat_cnr": 12.0}, 27.92),
+             "channel noise": ({"channel": {"noise_sigma": 0.02}}, VIDEO_CHANNEL_NOISE_PSNR)}
+#: phase 6's noise keying on the main path: the noisy runner on the card
+#: (chunk 16) and on the CPU (chunk 6) over 18 frames of 32 lines, so the
+#: card's second chunk keys its noise from frame 16 (field 32 interlaced)
+#: and the CPU's chunks from 6 and 12.  tests/test_torch_video.py holds the
+#: CPU run to the JAX runner; a noise drawn from any other key moves the
+#: frames by the noise's own size (sigma 0.02, 12 dB CNR), far above each
+#: bound: the decode bound, and near the FM threshold HOP_CHUNK's.  Each
+#: case: (options, bound, threefry launches per card chunk: the equalizer's
+#: noisy GCR record is one more)
+KEYING_FRAMES, KEYING_LINES, KEYING_CPU_CHUNK = 18, 32, 6
+KEYING_CASES = {
+    "channel noise interlaced": ({"channel": {"noise_sigma": 0.02}, "interlaced": True},
+                                 DEC_ATOL, 1),
+    "equalize noise": ({"channel": {"ghost_delay_us": 3.0, "ghost_gain": 0.3,
+                                    "noise_sigma": 0.02, "equalize": True}}, DEC_ATOL, 2),
+    "satellite cnr 12": ({"satellite": True, "sat_cnr": 12.0}, 2e-3, 1),
+}
 #: chunk sizes 16 and 12 through the hops: the FFTs' batch-dependent last
 #: bits; at 12 dB CNR, near the FM threshold, the discriminator carries
 #: them further on the noisiest samples
@@ -346,6 +385,41 @@ VIDEO_AUDIO = {"progressive": (47.24, 62.4085),
 AUDIO_CHUNK_ATOL = 1e-4    # tests/test_video.py::test_video_rf_audio_phase_continuous
 QAM_1_1 = {"qam_encode": 1, "qam_decode": 1}
 SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1}
+#: phase 3d: values taken from ``jax.random`` on the CPU (JAX 0.9.0, its
+#: default threefry2x32 in the partitionable form; the card's machine has no
+#: JAX), each under the call that made it, with PRNGKey, split and fold_in
+#: from ``jax.random`` too; tests/test_torch_prng.py holds them to JAX
+JAX_PINNED = {
+    "jax.random.bits(PRNGKey(0), (8,))":
+        [4070199207, 4202968722, 1427181096, 2012915765, 2447653815, 710830403, 1332275837,
+         2961296638],
+    "jax.random.key_data(jax.random.split(PRNGKey(7)))":
+        [[3625411723, 1954958720], [195045567, 4062205631]],
+    "jax.random.key_data(jax.random.fold_in(PRNGKey(0x5A7), 3))": [690700835, 2294474183],
+    "jax.random.normal(PRNGKey(0), (8,))":
+        [1.622642159461975, 2.0252647399902344, -0.4335944354534149, -0.07861734926700592,
+         0.17609089612960815, -0.9720892310142517, -0.49529874324798584, 0.49437859654426575],
+    "jax.random.normal(fold_in(PRNGKey(0x5A7), 37), (6,))":
+        [-0.9780805706977844, -0.3810826241970062, 1.5621904134750366, -1.4857182502746582,
+         -0.671713650226593, -0.24853402376174927],
+    "jax.random.uniform(PRNGKey(1), (4,))":
+        [0.4386324882507324, 0.5337529182434082, 0.44591832160949707, 0.4383963346481323],
+    "jax.random.bernoulli(split(PRNGKey(7))[0], 0.1, (1, 24))":
+        [[0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]],
+    "jax.random.randint(split(PRNGKey(7))[1], (1, 8), 0, 1649)":
+        [[354, 1045, 2, 1123, 398, 1275, 1628, 587]],
+}
+#: the threefry kernel's normals against the plain version, the CPU and JAX:
+#: the log1p of each library, an ulp or two of the draw (tests/test_torch_prng.py)
+NORMAL_ATOL = 1e-6
+#: phase 3d's shapes: the runner's satellite noise per chunk of 16 NTSC
+#: frames (480 lines of 720 samples at r = 4: 2880 RF samples), keyed per
+#: frame from index 37; rf_dropout's draws on the CLI's NTSC RF hop (1 x
+#: 480 lines, 2880 RF samples, a 10 us span of 1231); the card against the
+#: CPU on 2 of the 16 frames
+THREEFRY_SHAPE, THREEFRY_G0 = (16, 480, 2880), 37
+DROPOUT_SHAPE, DROPOUT_SPAN = (1, 480), 2880 - 1231
+THREEFRY_CPU_FRAMES = 2
 #: phase 4i: the data services' stimuli (scripts/jax_transmission_reference.py
 #: uses the same) and the JAX xla values on the CPU at the card's shapes
 #: (its rows caption, teletext-wss-vitc, scramble, vir, measure, palplus,
@@ -429,14 +503,14 @@ def _which_side_moved(label: str, what: str, where: str, first: tuple, again) ->
 
 
 def reset_counts() -> None:
-    """Zero the launch counters of all four CUDA kernels."""
+    """Zero the launch counters of every CUDA kernel's entry points."""
     from color_modem_tpu_torch.kernels import reset_launches
 
     reset_launches()
 
 
 def read_counts(label: str, want: dict) -> dict:
-    """Synchronise, read the four launch counters and require ``want`` (a
+    """Synchronise, read every launch counter and require ``want`` (a
     kernel it leaves out must not have launched)."""
     import torch
 
@@ -741,6 +815,127 @@ def check_tf32_on(dev, paths: dict) -> None:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
     _check(torch.get_float32_matmul_precision() == "highest"
            and not torch.backends.cuda.matmul.allow_tf32, "TF32 settings not restored")
+
+
+def check_jax_pinned(dev) -> float:
+    """Phase 3d: the threefry generator on ``dev`` against :data:`JAX_PINNED`:
+    keys, bits, uniforms, bernoulli and randint exactly, normals within
+    :data:`NORMAL_ATOL`.  Returns the normals' largest error."""
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.utils import prng
+
+    k7 = prng.split(prng.PRNGKey(7))
+    exact = {
+        "jax.random.bits(PRNGKey(0), (8,))":
+            prng.random_bits(prng.PRNGKey(0), (8,), dev).cpu().numpy().view(np.uint32).tolist(),
+        "jax.random.key_data(jax.random.split(PRNGKey(7)))": [list(k) for k in k7],
+        "jax.random.key_data(jax.random.fold_in(PRNGKey(0x5A7), 3))":
+            list(prng.fold_in(prng.PRNGKey(0x5A7), 3)),
+        "jax.random.uniform(PRNGKey(1), (4,))": prng.uniform(prng.PRNGKey(1), (4,), dev).tolist(),
+        "jax.random.bernoulli(split(PRNGKey(7))[0], 0.1, (1, 24))":
+            prng.bernoulli(k7[0], 0.1, (1, 24), dev).to(torch.int32).tolist(),
+        "jax.random.randint(split(PRNGKey(7))[1], (1, 8), 0, 1649)":
+            prng.randint(k7[1], (1, 8), 0, 1649, dev).tolist(),
+    }
+    for call, got in exact.items():
+        _check(got == JAX_PINNED[call], f"3d {call} on {dev}: {got}, JAX {JAX_PINNED[call]}")
+    normals = {
+        "jax.random.normal(PRNGKey(0), (8,))": prng.normal(prng.PRNGKey(0), (8,), dev),
+        "jax.random.normal(fold_in(PRNGKey(0x5A7), 37), (6,))":
+            prng.normal(prng.fold_in(prng.PRNGKey(0x5A7), 37), (6,), dev),
+    }
+    err = max(float(np.abs(np.asarray(v.tolist()) - np.asarray(JAX_PINNED[k])).max())
+              for k, v in normals.items())
+    _check(err <= NORMAL_ATOL, f"3d normals on {dev} against JAX: {err}")
+    print(f"3d against jax.random (pinned, {len(JAX_PINNED)} calls) on {dev}: keys, bits, "
+          f"uniform, bernoulli, randint equal; normals max|diff| {err:.3e} (<= {NORMAL_ATOL})")
+    return err
+
+
+def check_threefry(dev, card: str) -> dict:
+    """Phase 3d: the threefry generator's two entry points against their
+    plain versions on the card, the CPU and JAX, then timed.  Returns each
+    entry point's error and times."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from color_modem_tpu_torch.kernels import prng as pk
+    from color_modem_tpu_torch.kernels.measure import threefry_bound, time_ms
+    from color_modem_tpu_torch.utils import prng
+
+    # the bits: 2^20 words, and rf_dropout's draws, exact on the card and the CPU
+    key = prng.PRNGKey(0)
+    bits = pk.threefry_bits(key, (1 << 20,), dev)
+    _check(torch.equal(bits, prng.random_bits_plain(key, (1 << 20,), dev)),
+           "3d threefry_bits: kernel != plain")
+    _check(torch.equal(bits.cpu(), prng.random_bits_plain(key, (1 << 20,), "cpu")),
+           "3d threefry_bits: card != CPU")
+    k_hit, k_start = prng.split(prng.PRNGKey(7))
+    hit = prng.bernoulli(k_hit, 0.05, DROPOUT_SHAPE, dev).cpu()
+    for device in (dev, torch.device("cpu")):
+        plain_hit = prng.unit_float(prng.random_bits_plain(k_hit, DROPOUT_SHAPE, device))
+        _check(torch.equal(hit, plain_hit.cpu() < float(np.float32(0.05))),
+               f"3d bernoulli: kernel != plain on {device}")
+    _check(torch.equal(prng.randint(k_start, DROPOUT_SHAPE, 0, DROPOUT_SPAN, dev).cpu(),
+                       prng.randint(k_start, DROPOUT_SHAPE, 0, DROPOUT_SPAN, "cpu")),
+           "3d randint: card != CPU")
+    print(f"3d threefry_bits {1 << 20} words and rf_dropout's bernoulli / randint at "
+          f"{DROPOUT_SHAPE}: equal to the plain version on the card and on the CPU")
+
+    # the runner's noise: x + sigma * normal(fold_in(key, 37 + i)) per frame
+    x = torch.tensor(np.random.default_rng(0).uniform(-1.0, 1.0, THREEFRY_SHAPE)
+                     .astype(np.float32), device=dev)
+    sat, sigma = prng.PRNGKey(0x5A7), 0.2
+
+    def kernel():
+        return prng.add_normal(x, sigma, sat, THREEFRY_G0)
+
+    def plain():
+        return prng.add_normal_plain(x, sigma, sat, THREEFRY_SHAPE, dev, THREEFRY_G0)
+
+    got = kernel()
+    e_add = _max_err(got, plain())
+    alone = pk.threefry_add_normal(None, 1.0, sat, THREEFRY_SHAPE, dev, THREEFRY_G0)
+    e_alone = _max_err(alone, prng.add_normal_plain(None, 1.0, sat, THREEFRY_SHAPE, dev,
+                                                    THREEFRY_G0))
+    f = THREEFRY_CPU_FRAMES
+    e_cpu = _max_err(got[:f].cpu(), prng.add_normal_plain(
+        x[:f].cpu(), sigma, sat, (f, *THREEFRY_SHAPE[1:]), "cpu", THREEFRY_G0))
+    std = float(alone.double().std())
+    print(f"3d threefry_add_normal {THREEFRY_SHAPE} keyed per item from {THREEFRY_G0}: kernel vs "
+          f"plain max|diff| {e_add:.3e}, the normal alone {e_alone:.3e}, card vs CPU on {f} items "
+          f"{e_cpu:.3e} (<= {NORMAL_ATOL}); the normal's std {std:.6f}")
+    _check(max(e_add, e_alone, e_cpu) <= NORMAL_ATOL, "3d threefry_add_normal disagrees")
+    _check(abs(std - 1.0) < 1e-3, f"3d threefry normal std {std}")
+    e_jax = check_jax_pinned(dev)
+
+    # times: each entry point at its path's shape, against its plain version
+    words = math.prod(THREEFRY_SHAPE)
+    times = {"threefry_add_normal": time_pair(plain, kernel),
+             "threefry_bits": time_pair(
+                 lambda: prng.random_bits_plain(k_hit, DROPOUT_SHAPE, dev),
+                 lambda: pk.threefry_bits(k_hit, DROPOUT_SHAPE, dev))}
+    bounds = {"threefry_add_normal": threefry_bound("threefry_add_normal", words, 8),
+              "threefry_bits": threefry_bound("threefry_bits", math.prod(DROPOUT_SHAPE), 4)}
+    randn = _stats(time_ms(lambda: torch.randn(THREEFRY_SHAPE, device=dev)))
+    big = _stats(time_ms(lambda: pk.threefry_bits(key, THREEFRY_SHAPE, dev)))
+    big_bound = threefry_bound("threefry_bits", words, 4)
+    for name, shape in (("threefry_add_normal", THREEFRY_SHAPE),
+                        ("threefry_bits", DROPOUT_SHAPE)):
+        t, (b, by) = times[name], bounds[name]
+        print(f"time {name} {shape} on {card}: kernel {_fmt(t['kernel'])}, plain "
+              f"{_fmt(t['plain'])} (median [min, max] of 10 windows); bound {b:.4g} ms by {by}, "
+              f"{b / t['kernel'][0]:.3f} of it")
+    print(f"time threefry_bits {THREEFRY_SHAPE} on {card}: {_fmt(big)} (5 windows); bound "
+          f"{big_bound[0]:.4f} ms by {big_bound[1]}, {big_bound[0] / big[0]:.3f} of it")
+    print(f"time torch.randn {THREEFRY_SHAPE} (Philox, not the same function: a yardstick) on "
+          f"{card}: {_fmt(randn)} (5 windows)")
+    return {"err": {"threefry_bits": 0.0, "threefry_add_normal": max(e_add, e_alone, e_cpu)},
+            "err_jax": e_jax, "times": times, "bounds": bounds, "randn": randn}
 
 
 def check_channel(dev) -> None:
@@ -1149,6 +1344,7 @@ def check_transmission(dev, card: str) -> dict:
     from color_modem_tpu_torch.frame.timebase import impair_timebase, tbc_correct
     from color_modem_tpu_torch.modem import mac
     from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.utils import prng
     from color_modem_tpu_torch.utils.metrics import psnr
 
     def hold(key: str, q: float) -> None:
@@ -1266,7 +1462,7 @@ def check_transmission(dev, card: str) -> dict:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
     # no host-blocking operation in any hop (every constant is on the card)
-    noisy = partial(sat_mod.sat_roundtrip, sp, comp, None, gen, 12.0)
+    noisy = partial(sat_mod.sat_roundtrip, sp, comp, None, prng.PRNGKey(11), 12.0)
     data = partial(mac.decode_data, mplan, sig_data)
     blocking = {"rf": rf_rt, "satellite": sat_rt, "satellite+awgn": noisy, "d2mac": mac_rt,
                 "d2mac data": data, "equalizer": eq, "tbc": tbc}
@@ -1679,16 +1875,44 @@ def check_video(dev, card: str) -> dict:
                   f"max|diff| {e:.3e} (<= {CHUNK_ATOL})")
             _check(e <= CHUNK_ATOL, f"{name}: chunk-size dependent output: {e}")
 
-        # the transmission hops between encode and decode
+        # the transmission hops and the noisy channel between encode and
+        # decode; each noise is one threefry launch per chunk
         for hop, (kw, expected) in VIDEO_HOP.items():
             label = f"video ntsc comb3 {hop} hop {VIDEO_FRAMES}x3x480x{N} chunk {VIDEO_CHUNK}"
+            noisy = "sat_cnr" in kw or "channel" in kw
             reset_counts()
-            s_hop = run(f"hop_{hop}", src, VIDEO_FRAMES, **kw)
-            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+            s_hop = run(f"hop_{hop}".replace(" ", "_"), src, VIDEO_FRAMES, **kw)
+            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                      **({"threefry_add_normal": chunks} if noisy else {})})
             print(f"{label}: min_psnr_db {s_hop['min_psnr_db']} (expected {expected} +- "
                   f"{PSNR_TOL}), launches {got}, {s_hop['mpix_per_s']} Mpix/s on {card}")
             _check(abs(s_hop["min_psnr_db"] - expected) <= PSNR_TOL, f"{label}: {s_hop}")
-            summaries[hop] = s_hop
+            summaries[hop] = {**s_hop, "launches": got}
+        # the noise keying: the card's noisy runs against the CPU's on the
+        # same frames (one launch per card chunk), over a chunk edge
+        for case, (kw, atol, draws) in KEYING_CASES.items():
+            outs = {}
+            for where, chunk in ((dev, VIDEO_CHUNK), (torch.device("cpu"), KEYING_CPU_CHUNK)):
+                d = os.path.join(tmp, f"keying {case} {where.type}".replace(" ", "_"))
+                reset_counts()
+                process_video(make_plan(NTSC(), N), synthetic_device_source(
+                    KEYING_LINES, N, seed=0, device=where), KEYING_FRAMES, d,
+                    decoder="comb3", chunk=chunk, backend="kernel", save_outputs=True,
+                    device=where, **kw)
+                if where.type == "cuda":
+                    n_chunks = -(-KEYING_FRAMES // VIDEO_CHUNK)
+                    got = read_counts(f"keying {case}", {
+                        "qam_encode": n_chunks, "qam_decode": n_chunks,
+                        "threefry_add_normal": draws * n_chunks})
+                outs[where.type] = np.concatenate(
+                    [np.load(f) for f in sorted(glob.glob(os.path.join(d, "rgb_*.npy")))])
+            _check(outs["cuda"].shape == (KEYING_FRAMES, 3, KEYING_LINES, N),
+                   f"keying {case}: {outs['cuda'].shape}")
+            e = float(np.abs(outs["cuda"] - outs["cpu"]).max())
+            print(f"video ntsc comb3 {case} {KEYING_FRAMES}x3x{KEYING_LINES}x{N}: card (chunk "
+                  f"{VIDEO_CHUNK}, launches {got}) vs CPU (chunk {KEYING_CPU_CHUNK}) max|diff| "
+                  f"{e:.3e} (<= {atol})")
+            _check(e <= atol, f"keying {case}: the card's noisy frames differ from the CPU's: {e}")
         for hop, (kw, atol) in HOP_CHUNK.items():
             outs = {}
             for chunk in (16, 12):
@@ -2512,6 +2736,7 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
 
     from color_modem_tpu_torch import NTSC
     from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
+    from color_modem_tpu_torch.kernels import launch_counts
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.parallel import multihost as mh
 
@@ -2556,9 +2781,10 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     _check(e == 0.0, f"{label}: frames differ from the unsharded run by {e}")
     _check(s["mesh"] == {"frame": 2, "lineblk": 2}, f"{label}: {s}")
     _check(all(rr[0]["summary"] is None for rr in recs[1:]), f"{label}: ranks 1-3 reported")
-    want_counts = {"qam_encode": chunks, "qam_decode": chunks, "secam_encode": 0,
-                   "secam_decode": 0}
-    _check(all(c == want_counts for c in counts), f"{label}: launches {counts}")
+    want = {"qam_encode": chunks, "qam_decode": chunks}
+    want = {k: want.get(k, 0) for k in launch_counts()}
+    _check(all(c == want for c in counts),
+           f"{label}: launches {counts}")
     svc = recs[0][3]["summary"]
     svc_counts = [rr[3]["launches"] for rr in recs]
     label = f"video mesh 2x2 ntsc comb3 caption scramble rf {VIDEO_FRAMES}x3x480x{N}"
@@ -2569,7 +2795,8 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
           f"on {card}")
     _check(abs(svc["min_psnr_db"] - svc_psnr) <= PSNR_TOL, f"{label}: {svc}")
     _check(np.array_equal(cells, bits), f"{label}: caption cells")
-    _check(all(c == want_counts for c in svc_counts), f"{label}: launches {svc_counts}")
+    _check(all(c == want for c in svc_counts),
+           f"{label}: launches {svc_counts}")
 
 
 # --- phase 7: the surfaces (native codec, Y4M, CLI verbs, per-line API) -------------------
@@ -2585,6 +2812,13 @@ CLI_ROUNDTRIP = {
     ("secam", "interp"): (38.87, SECAM_1_1),
     ("niir", "avg"): (33.18, QAM_1_1),
 }
+#: phase 7c's noisy round trip (scripts/jax_transmission_reference.py
+#: cli-noisy-rf): NTSC comb3 with composite noise (PRNGKey(0)), RF noise
+#: (PRNGKey(2)) and tape dropouts (PRNGKey(7): one bernoulli, two randint
+#: halves) repaired by DOC, the JAX CLI's PSNR and the launches
+CLI_NOISY_ARGS = ("--noise", "0.02", "--rf", "--rf-noise", "0.01", "--rf-dropouts", "0.05",
+                  "--rf-doc")
+CLI_NOISY = (31.1, {**QAM_1_1, "threefry_bits": 3, "threefry_add_normal": 2})
 #: phase 7d: the rows of ``cli gallery`` at its defaults
 GALLERY_ROWS = 58
 LINE_API_LINES = 24
@@ -2722,19 +2956,24 @@ def check_cli_video(dev, card: str, video: dict) -> dict:
     return {"qam_encode": launches["qam_encode"], "qam_decode": launches["qam_decode"]}
 
 
-def check_cli_roundtrips(card: str) -> None:
+def check_cli_roundtrips(card: str) -> dict:
     """Phase 7c: ``cli roundtrip --demo --pattern scene`` at full height,
-    each flagship decoder, against the JAX CLI's CPU value."""
-    for (std, dec), (want, kernels) in CLI_ROUNDTRIP.items():
-        label = f"cli roundtrip {std} {dec} scene"
+    each flagship decoder, and NTSC comb3 with the noisy RF hop
+    (:data:`CLI_NOISY`), against the JAX CLI's CPU value.  Returns the
+    noisy run's launches."""
+    runs = {(std, dec, ()): v for (std, dec), v in CLI_ROUNDTRIP.items()}
+    runs["ntsc", "comb3", CLI_NOISY_ARGS] = CLI_NOISY
+    for (std, dec, extra), (want, kernels) in runs.items():
+        label = f"cli roundtrip {std} {dec} scene {' '.join(extra)}".rstrip()
         reset_counts()
         rep = run_cli(["roundtrip", "--demo", "--pattern", "scene", "--standard", std,
-                       "--decoder", dec])
+                       "--decoder", dec, *extra])
         got = read_counts(label, kernels)
         print(f"{label} {rep['lines']}x{N}: psnr_db {rep['psnr_db']} (JAX CPU {want} +- "
               f"{PSNR_TOL}), launches {got}, {rep['seconds']} s on {rep['device']} ({card})")
         _check(abs(rep["psnr_db"] - want) <= PSNR_TOL + 1e-9, f"{label}: {rep}")
         _check(rep["device"] == "cuda" and rep["backend"] == "kernel", f"{label}: {rep}")
+    return got
 
 
 def check_cli_png_verbs(card: str) -> None:
@@ -3125,8 +3364,7 @@ def check_kernel_sanitizer(dev, card: str) -> dict:
     t0 = time.perf_counter()
     load_library(poison=True)
     t_build = time.perf_counter() - t0
-    print(f"3c poisoned build (-DCMT_POISON, {len(sanitize.ROWS) // 2} sources' kernels): "
-          f"{t_build:.2f} s")
+    print(f"3c poisoned build (-DCMT_POISON): {t_build:.2f} s")
 
     def report(r):
         f, l, n = r["shape"]
@@ -3144,7 +3382,8 @@ def check_kernel_sanitizer(dev, card: str) -> dict:
     read_counts("3c sanitizer", {})
     t_run = time.perf_counter() - t0
     bad = [(r["row"], r["standard"], r["shape"]) for r in results if not r["ok"]]
-    print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows x "
+    print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows "
+          f"and {len(sanitize.PRNG_ROWS)} threefry rows x "
           f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}, "
           f"samples {sanitize.SECAM_ONLY_SAMPLES} on the SECAM rows only), "
           f"{len(bad)} faults, {t_run:.1f} s on {card}")
@@ -3453,6 +3692,9 @@ def main() -> None:
     # --- 3c. the kernels' memory sanitizer: poisoned build, guard bands, repeats --
     sanitized = check_kernel_sanitizer(dev, card)
 
+    # --- 3d. the threefry generator against its plain version, the CPU and JAX --
+    threefry = check_threefry(dev, card)
+
     # --- 4. main path; 4b. the SECAM path -------------------------------------
     paths = {}
     rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED, QAM_1_1)
@@ -3520,7 +3762,7 @@ def main() -> None:
     # --- 7. the surfaces: native codec, Y4M, the CLI verbs, per-line API -------
     check_native()
     launches_cli = check_cli_video(dev, card, video)
-    check_cli_roundtrips(card)
+    launches_cli_noisy = check_cli_roundtrips(card)
     check_cli_png_verbs(card)
     launches_line_api = check_line_api(dev, card)
     check_sanitizer(dev)
@@ -3559,6 +3801,23 @@ def main() -> None:
          "ms_spread": list(times[path][kernel]["kernel"][1:]),
          "plain_ms_spread": list(times[path][kernel]["plain"][1:])}
         for name, (kernel, path, where) in replaces.items()
+    ] + [
+        # the threefry generator: launches on the runner's noisy channel
+        # (one per chunk) and on the CLI's noisy RF round trip
+        {"name": name, "route": "cuda", "source": "color_modem_tpu_torch/csrc/threefry.cu",
+         "replaces": "jax.random (XLA threefry2x32, no Pallas kernel)",
+         "launches": launches, "max_abs_err": threefry["err"][name],
+         "ms": threefry["times"][name]["kernel"][0],
+         "plain_ms": threefry["times"][name]["plain"][0],
+         "bound_ms": threefry["bounds"][name][0], "bound_by": threefry["bounds"][name][1],
+         "library_ms": None, "path": path,
+         "ms_spread": list(threefry["times"][name]["kernel"][1:]),
+         "plain_ms_spread": list(threefry["times"][name]["plain"][1:])}
+        for name, launches, path in (
+            ("threefry_add_normal", video["channel noise"]["launches"]["threefry_add_normal"],
+             f"process_video channel noise, {VIDEO_FRAMES} frames in chunks of {VIDEO_CHUNK}"),
+            ("threefry_bits", launches_cli_noisy["threefry_bits"],
+             "cli roundtrip ntsc comb3 " + " ".join(CLI_NOISY_ARGS)))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

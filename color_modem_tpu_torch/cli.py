@@ -18,9 +18,8 @@ kernels (``kernel``, the default) or the plain PyTorch versions
 torch.distributed.run --nproc-per-node F*L``: NCCL on the card, gloo with
 ``--device cpu``; rank 0 alone prints the report and writes ``--output``.
 
-Noise is drawn from ``torch.Generator``s on the device, seeded with the
-constants the JAX CLI gives its ``PRNGKey``s, so a run repeats itself; the
-realisation differs from the JAX package's.  Results print as one JSON
+Noise is the JAX CLI's: each site draws from the ``PRNGKey`` the JAX CLI
+gives it (``utils/prng.py``), the same numbers on every device.  Results print as one JSON
 object (the ``mac`` verb prints lines of text, as the JAX one does).
 """
 
@@ -32,6 +31,7 @@ import sys
 import time
 
 from color_modem_tpu_torch.frame.pipeline import BACKENDS
+from color_modem_tpu_torch.utils.prng import PRNGKey, add_normal
 
 STANDARD_NAMES = ["ntsc", "pal", "secam", "niir", "ntsc443", "pal_m", "pal_n", "pal60"]
 
@@ -456,22 +456,6 @@ def build_parser() -> argparse.ArgumentParser:
 # --- shared helpers ----------------------------------------------------------------------
 
 
-def _generator(dev, seed: int):
-    """A ``torch.Generator`` on ``dev`` seeded with ``seed`` (the JAX CLI's
-    ``PRNGKey(seed)`` at the same call site)."""
-    import torch
-
-    return torch.Generator(device=dev).manual_seed(seed)
-
-
-def _normal(shape, dev, seed: int):
-    """Unit normal float32 noise of ``shape`` on ``dev``, from ``seed``."""
-    import torch
-
-    return torch.randn(tuple(shape), dtype=torch.float32, device=dev,
-                       generator=_generator(dev, seed))
-
-
 def _host(x):
     """A tensor (or array) as a host NumPy array."""
     import numpy as np
@@ -690,10 +674,10 @@ def _palplus(args, dev) -> int:
         g0 = args.frame * units
         rf_sig = rf_modulate(rfp, comp, g0)
         if args.rf_noise > 0.0:
-            rf_sig = rf_sig + args.rf_noise * _normal(rf_sig.shape, dev, 1)
+            rf_sig = add_normal(rf_sig, args.rf_noise, PRNGKey(1))
         comp = rf_demodulate(rfp, rf_sig, g0)
     if args.noise > 0.0:
-        comp = comp + args.noise * _normal(comp.shape, dev, 0)
+        comp = add_normal(comp, args.noise, PRNGKey(0))
     out = _host(dec(comp, args.frame, use_helper=True))[0]
     out_lb = _host(dec(comp, args.frame, use_helper=False))[0]
     result = {
@@ -775,7 +759,7 @@ def _mac(args, dev) -> int:
         sp = sat_mod.make_sat_plan(plan.cfg.fs, plan.cfg.samples_per_line, dispersal=0.1,
                                    total_lines=plan.cfg.total_lines)
         tx = sig[None]
-        rx = sat_mod.sat_roundtrip(sp, tx, gline=gline[None], generator=_generator(dev, 11),
+        rx = sat_mod.sat_roundtrip(sp, tx, gline=gline[None], key=PRNGKey(11),
                                    cnr_db=args.sat_cnr)
         # transparency measured clamp to clamp: the receiver clamp removes
         # the dispersal ramp, so compare both sides DC-restored
@@ -786,7 +770,7 @@ def _mac(args, dev) -> int:
               + (f" at CNR {args.sat_cnr} dB" if args.sat_cnr is not None else " (noise-free)"))
         sig = rx[0]
     if args.noise > 0.0:
-        sig = sig + args.noise * _normal(sig.shape, dev, 0)
+        sig = add_normal(sig, args.noise, PRNGKey(0))
     out = mac.decode(plan, sig, gline)
     print(f"{plan.cfg.name} roundtrip: {n_lines}x{args.width} "
           f"psnr {_psnr(out, np.clip(rgb, 0, 1)):.1f} dB"
@@ -856,9 +840,9 @@ def _measure(args, dev) -> int:
 
     def through(rgb):
         # each stimulus sees its own noise realisation
-        gen = _generator(dev, stim_counter[0]) if args.noise > 0.0 else None
+        key = PRNGKey(stim_counter[0]) if args.noise > 0.0 else None
         stim_counter[0] += 1
-        comp = impair(plan, enc(rgb[None], 0), generator=gen, **kw)
+        comp = impair(plan, enc(rgb[None], 0), key=key, **kw)
         return vhs_playback(plan, comp) if args.vhs else comp
 
     g = frame_line_index(plan, 0, 1, args.lines, dev)
@@ -911,8 +895,8 @@ def _measure(args, dev) -> int:
         enc_r, _, _ = make_pipeline(plan, "notch", raster=True, device=dev)
 
         def rastered(rgb):
-            gen = _generator(dev, 99) if args.noise > 0.0 else None
-            return impair(plan, enc_r(rgb[None], 0), generator=gen, **kw)
+            key = PRNGKey(99) if args.noise > 0.0 else None
+            return impair(plan, enc_r(rgb[None], 0), key=key, **kw)
 
     if args.waveform:
         from color_modem_tpu_torch.frame.measure import waveform_image
@@ -1059,7 +1043,7 @@ def _gallery(args, dev) -> int:
                 )
                 from color_modem_tpu_torch.frame.rf import rf_dropout, rf_ghost
 
-                hit = rf_dropout(rfp, rf_sig, _generator(dev, 7), rate=0.1)
+                hit = rf_dropout(rfp, rf_sig, 7, rate=0.1)
                 for tag, use_doc in (("ntsc_rf_dropouts", False), ("ntsc_rf_doc", True)):
                     row(tag, _host(dec_notch(rf_demodulate(rfp, hit, 0, doc=use_doc), 0))[0],
                         rgb)
@@ -1625,8 +1609,8 @@ def _roundtrip(args, dev, plan, rgb, encode, decode, result) -> None:
     )
     if any([args.noise > 0.0, args.chroma_gain != 1.0, args.chroma_phase != 0.0,
             args.diff_gain != 0.0, args.diff_phase != 0.0, args.ghost_gain != 0.0]):
-        gen = _generator(dev, 0) if args.noise > 0.0 else None
-        comp_b = impair(plan, comp_b, generator=gen, **impair_kw)
+        key = PRNGKey(0) if args.noise > 0.0 else None
+        comp_b = impair(plan, comp_b, key=key, **impair_kw)
         result["channel"] = channel
     if args.equalize:
         from color_modem_tpu_torch.frame.equalize import (
@@ -1638,7 +1622,7 @@ def _roundtrip(args, dev, plan, rgb, encode, decode, result) -> None:
 
         # the GCR record sees its own noise realisation
         rx = impair(plan, upload(gcr_record(plan), dev)[None],
-                    generator=_generator(dev, 1) if args.noise > 0.0 else None, **impair_kw)[0]
+                    key=PRNGKey(1) if args.noise > 0.0 else None, **impair_kw)[0]
         # reach the requested ghost's echoes, not just the default 64
         taps = design_equalizer(plan, rx, ntaps=ntaps_for_delay(plan, args.ghost_delay_us))
         comp_b = apply_equalizer(comp_b, taps)
@@ -1931,7 +1915,7 @@ def _satellite_hop(args, dev, plan, comp_b, sat_sound: bool, result):
         sp, comp_b,
         audio=upload(np.broadcast_to(sat_tx, (b_s, k_subs, n_tot)), dev) if k_subs else None)
     if args.sat_cnr is not None:
-        sat_rf = sat_mod.awgn(sp, sat_rf, _generator(dev, 11), args.sat_cnr)
+        sat_rf = sat_mod.awgn(sp, sat_rf, PRNGKey(11), args.sat_cnr)
     comp_b = sat_mod.fm_demodulate(sp, sat_rf)
     sat_transparency = _psnr(comp_b, comp_tx)
     result["satellite"] = {
@@ -2080,9 +2064,9 @@ def _rf_hop(args, dev, plan, comp_b, result):
     if args.rf_dropouts > 0.0:
         from color_modem_tpu_torch.frame.rf import rf_dropout
 
-        rf_sig = rf_dropout(rfp, rf_sig, _generator(dev, 7), rate=args.rf_dropouts)
+        rf_sig = rf_dropout(rfp, rf_sig, 7, rate=args.rf_dropouts)
     if args.rf_noise > 0.0:
-        rf_sig = rf_sig + args.rf_noise * _normal(rf_sig.shape, dev, 2)
+        rf_sig = add_normal(rf_sig, args.rf_noise, PRNGKey(2))
     pe = 0.0
     df_hat = None
     if args.rf_aft:
@@ -2117,7 +2101,7 @@ def _rf_hop(args, dev, plan, comp_b, result):
         if args.rf_ghost_gain != 0.0:
             g_rf = rf_ghost(rfp, g_rf, args.rf_ghost_delay_us, args.rf_ghost_gain)
         if args.rf_noise > 0.0:
-            g_rf = g_rf + args.rf_noise * _normal(g_rf.shape, dev, 3)
+            g_rf = add_normal(g_rf, args.rf_noise, PRNGKey(3))
         if args.rf_aft:
             g_rf = rf_retune(rfp, g_rf, df_hat, args.frame)
         rx_g = rf_demodulate(rfp, g_rf, args.frame, args.rf_detection, pe)[0][:3]

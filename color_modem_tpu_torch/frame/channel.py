@@ -2,7 +2,8 @@
 
 Port of ``color_modem_tpu/frame/channel.py``:
 
-* additive white noise, from an explicit ``torch.Generator``;
+* additive white noise, drawn from a JAX key (``utils/prng.py``): the
+  JAX package's noise on every device;
 * static chroma gain and phase errors (the errors NIIR's reference line
   and SECAM's FM are immune to, and that PAL's delay line averages away);
 * differential gain and phase: the chroma error scales with the local luma
@@ -27,6 +28,7 @@ from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import fir_same_taps as _fir
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.modem.plan import SECAM_TAKEOFF_HALFWIDTH, FmPlan, QamPlan
+from color_modem_tpu_torch.utils import prng
 
 #: tap counts of the channel's filters (the JAX package's)
 BAND_NTAPS, VHS_CHROMA_NTAPS, LUMA_EST_NTAPS = 129, 193, 63
@@ -96,14 +98,13 @@ def impair(
     diff_phase_deg: float = 0.0,
     ghost_delay_us: float = 0.0,
     ghost_gain: float = 0.0,
-    generator: torch.Generator | None = None,
+    key: prng.Key | None = None,
 ) -> torch.Tensor:
     """Apply channel impairments to a ``(..., L, N)`` composite block.
 
     In the physical order: multipath ghost, then the chroma-path gain and
     phase errors, static and luma-tracking (``diff_*`` is the full error at
-    100% luma), then additive noise drawn from ``generator`` (which must
-    live on ``comp``'s device).
+    100% luma), then additive noise, ``normal(key, comp.shape)``.
     """
     comp = comp.to(torch.float32)
     fs = plan.fs
@@ -137,9 +138,7 @@ def impair(
             cb = torch.cos(t) * cb + torch.sin(t) * _fir(cb, hil)
         comp = rest + g * cb
     if noise_sigma > 0.0:
-        if generator is None:
-            raise ValueError("noise_sigma > 0 requires a torch.Generator")
-        comp = comp + noise_sigma * torch.randn(
-            comp.shape, generator=generator, dtype=torch.float32, device=comp.device
-        )
+        if key is None:
+            raise ValueError("noise_sigma > 0 requires a PRNG key")
+        comp = prng.add_normal(comp, noise_sigma, key)
     return comp

@@ -41,6 +41,7 @@ from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import fir_same_fft
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.dsp.stream import plan_memo
+from color_modem_tpu_torch.utils import prng
 
 TWO_PI = 2.0 * np.pi
 
@@ -520,20 +521,19 @@ def nicam_from_rf(rfp, rf: torch.Tensor, n_frames: int):
 
 def nicam_roundtrip(plan, left, right, *, noise_sigma: float = 0.0,
                     carrier_phase: float = 0.0,
-                    generator: torch.Generator | None = None):
+                    key: prng.Key | None = None):
     """Encode, optionally impair, decode: ``(left, right, report, lock)``.
 
-    ``noise_sigma`` is relative to the transmitted signal's RMS and draws
-    from ``generator`` (on the audio's device; required when > 0);
+    ``noise_sigma`` is relative to the transmitted signal's RMS, the noise
+    ``normal(key, ...)`` (``key`` None: ``PRNGKey(0)``, as in JAX);
     ``carrier_phase`` rotates the transmitter's carrier."""
     nplan = make_nicam_plan(plan)
     frames = nicam_frames(left, right)
     x = nicam_modulate(nplan, frames, carrier_phase=carrier_phase)
     if noise_sigma > 0.0:
-        if generator is None:
-            raise ValueError("noise_sigma > 0 requires a torch.Generator")
+        if key is None:
+            key = prng.PRNGKey(0)
         rms = torch.sqrt(torch.mean(x * x))
-        x = x + noise_sigma * rms * torch.randn(x.shape, dtype=x.dtype, device=x.device,
-                                                generator=generator)
+        x = x + noise_sigma * rms * prng.normal(key, x.shape, x.device)
     rx_frames, lock = nicam_demodulate(nplan, x, n_frames=frames.shape[0])
     return parse_frames(rx_frames) + (lock,)

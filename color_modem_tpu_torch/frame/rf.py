@@ -30,7 +30,7 @@ with an intercarrier FM sound carrier above the video sideband
 
 The composed taps are built once per (plan, frequency offset) and their
 spectra uploaded once per device, as are the carrier tables; dropouts draw
-from an explicit ``torch.Generator``.
+from a JAX key (``utils/prng.py``), the JAX package's on every device.
 """
 
 from __future__ import annotations
@@ -58,6 +58,7 @@ from color_modem_tpu_torch.dsp.stream import (
     upconv_stream,
 )
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan
+from color_modem_tpu_torch.utils import prng
 
 TWO_PI = 2.0 * np.pi
 
@@ -505,16 +506,18 @@ def rf_ghost(rfp: RFPlan, rf: torch.Tensor, delay_us: float, gain: float) -> tor
     return (stream + gain * g).reshape(b, l, n_rf)
 
 
-def rf_dropout(rfp: RFPlan, rf: torch.Tensor, generator: torch.Generator,
+def rf_dropout(rfp: RFPlan, rf: torch.Tensor, key: prng.Key | int,
                rate: float = 0.05, len_us: float = 10.0) -> torch.Tensor:
     """Tape dropouts at RF: with probability ``rate`` per line the carrier
-    vanishes over a ``len_us`` span at a random position, drawn from
-    ``generator`` (on ``rf``'s device; not the JAX package's PRNG)."""
+    vanishes over a ``len_us`` span at a random position; ``key`` (or
+    ``PRNGKey(key)`` for an int) splits into the hits' key and the starts',
+    as in JAX."""
     b, l, n_rf = rf.shape
     dev = rf.device
     span = int(round(len_us * 1e-6 * rfp.fs_rf))
-    hit = torch.rand((b, l), device=dev, generator=generator) < rate
-    start = torch.randint(0, max(n_rf - span, 1), (b, l), device=dev, generator=generator)
+    k_hit, k_start = prng.split(prng.as_key(key))
+    hit = prng.bernoulli(k_hit, rate, (b, l), dev)
+    start = prng.randint(k_start, (b, l), 0, max(n_rf - span, 1), dev)
     idx = torch.arange(n_rf, device=dev)[None, None, :]
     mask = hit[:, :, None] & (idx >= start[:, :, None]) & (idx < start[:, :, None] + span)
     return torch.where(mask, 0.0, rf)

@@ -40,7 +40,8 @@ subcarrier ladder above the video.  The chain:
   AC-couples the result.
 
 The composed taps are built once per plan and their spectra uploaded once
-per device; noise comes from an explicit ``torch.Generator``.
+per device; noise is drawn from a JAX key (``utils/prng.py``), the JAX
+package's noise on every device.
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ from color_modem_tpu_torch.dsp.stream import (
     plan_memo,
     upsample_fir_stream,
 )
+from color_modem_tpu_torch.utils import prng
 
 TWO_PI = 2.0 * np.pi
 
@@ -513,19 +515,16 @@ def noise_sigma(sp: SatPlan, cnr_db: float) -> float:
     return float(np.sqrt(0.5 / cnr / max(bw_frac, 1e-6)))
 
 
-def awgn(sp: SatPlan, rf: torch.Tensor, generator: torch.Generator,
-         cnr_db: float) -> torch.Tensor:
-    """Add channel noise at a carrier-to-noise ratio, drawn from
-    ``generator`` (on ``rf``'s device)."""
-    sigma = noise_sigma(sp, cnr_db)
-    return rf + sigma * torch.randn(rf.shape, dtype=rf.dtype, device=rf.device,
-                                    generator=generator)
+def awgn(sp: SatPlan, rf: torch.Tensor, key: prng.Key, cnr_db: float) -> torch.Tensor:
+    """Add channel noise at a carrier-to-noise ratio, ``normal(key,
+    rf.shape)``."""
+    return prng.add_normal(rf, noise_sigma(sp, cnr_db), key)
 
 
 def sat_roundtrip(sp: SatPlan, base: torch.Tensor, gline=None,
-                  generator: torch.Generator | None = None,
+                  key: prng.Key | None = None,
                   cnr_db: float | None = None) -> torch.Tensor:
     rf = fm_modulate(sp, base, gline)
     if cnr_db is not None:
-        rf = awgn(sp, rf, generator, cnr_db)
+        rf = awgn(sp, rf, key, cnr_db)
     return fm_demodulate(sp, rf)

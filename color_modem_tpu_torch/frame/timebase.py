@@ -4,8 +4,8 @@ Port of ``color_modem_tpu/frame/timebase.py``, on the rastered signal
 (``frame/raster.py``), which carries the sync edge a TBC locks to:
 
 * :func:`impair_timebase`: per-line fractional-sample shifts, a vertical
-  wobble sine, exponential top flagging and optional random jitter (from
-  an explicit ``torch.Generator``);
+  wobble sine, exponential top flagging and optional random jitter (from a
+  JAX key, ``utils/prng.py``);
 * :func:`measure_line_shift`: per-line delay from the blanking interval,
   the cross-spectrum against the nominal sync + burst template, read off
   as the angle of the adjacent-bin product (no unwrap);
@@ -26,6 +26,7 @@ import torch
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.frame.pipeline import resolve_device
 from color_modem_tpu_torch.frame.raster import RasterPlan, add_raster
+from color_modem_tpu_torch.utils import prng
 
 
 def fractional_shift(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
@@ -44,12 +45,12 @@ def fractional_shift(x: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 def timebase_profile(plan, n_lines: int, *, wobble_us: float = 0.3,
                      wobble_cycles: float = 2.5, flagging_us: float = 0.0,
-                     jitter_us: float = 0.0, generator: torch.Generator | None = None,
+                     jitter_us: float = 0.0, key: prng.Key | None = None,
                      device: torch.device | str = "cuda") -> torch.Tensor:
     """(L,) per-line shift in samples on ``device`` (by default the card;
     without CUDA that raises, as the factories do): a wobble sine, the
     top-of-field flag (exponential decay over the first ~8% of lines) and
-    white jitter (``jitter_us`` > 0 needs ``generator``, on ``device``)."""
+    white jitter, ``normal(key, (L,))`` (``jitter_us`` != 0 needs ``key``)."""
     device = resolve_device(device)
     l = torch.arange(n_lines, dtype=torch.float32, device=device)
     per_us = np.float32(plan.fs * 1e-6)
@@ -59,10 +60,10 @@ def timebase_profile(plan, n_lines: int, *, wobble_us: float = 0.3,
         delta = delta + float(np.float32(flagging_us) * per_us) * torch.exp(
             -l / f32(max(1.0, 0.08 * n_lines)))
     if jitter_us != 0.0:
-        if generator is None:
-            raise ValueError("jitter_us > 0 requires a torch.Generator")
-        delta = delta + float(np.float32(jitter_us) * per_us) * torch.randn(
-            n_lines, dtype=torch.float32, device=device, generator=generator)
+        if key is None:
+            raise ValueError("jitter_us > 0 requires a PRNG key")
+        delta = delta + float(np.float32(jitter_us) * per_us) * prng.normal(
+            key, (n_lines,), device)
     return delta
 
 

@@ -31,16 +31,15 @@ by the absolute line index of each transmitted row (field-sequential when
 interlaced); the receiver descrambles it before the decoder and the data
 slicer, so the hop and the channel act on the scrambled signal.
 
-Noise is keyed on the absolute leading-axis index (frames, or fields when
-interlaced): each index draws from its own ``torch.Generator``, so chunk
-size and resume points cannot change the realisation.  Three seed
-families never meet: the channel noise seeds with the index itself, the
-satellite noise with :data:`SAT_NOISE_SEED` plus the index, and the noisy
-GCR record with the fixed :data:`GCR_NOISE_SEED`.  The realisation differs
-from the JAX package's PRNG, and between devices (a CUDA generator is
-Philox, a CPU one mt19937), and the manifest says so (``noise_keying``
-names the device type), so no noisy run resumes on another package or
-device type.
+Noise is the JAX runner's, on every device (``utils/prng.py``): keyed on
+the absolute leading-axis index ``g`` (frames, or fields when
+interlaced), so chunk size and resume points cannot change the
+realisation.  The channel noise of item ``g`` is ``normal(fold_in(
+PRNGKey(0), g))``, the satellite noise ``normal(fold_in(PRNGKey(0x5A7),
+g))``, the noisy GCR record's ``normal(PRNGKey(1))``; each chunk's noise is
+one kernel launch on the card.  A noisy run's manifest records JAX's
+keying, :data:`NOISE_KEYING`, so a run resumes across devices and across
+the two packages.
 """
 
 from __future__ import annotations
@@ -90,46 +89,21 @@ from color_modem_tpu_torch.parallel.sharded import (
     sound_from_rf_ring,
 )
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
+from color_modem_tpu_torch.utils import prng
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
 from color_modem_tpu_torch.utils.upload import upload
 
 #: (start, count) -> (count, 3, L, N) frames, a NumPy array or a tensor
 FrameSource = Callable[[int, int], object]
 
-#: Seed families of the runner's noise, disjoint in the low 32 bits (all a
-#: CPU generator keeps): the channel noise seeds with the absolute index
-#: itself, the satellite noise with SAT_NOISE_SEED plus it, the noisy GCR
-#: record with GCR_NOISE_SEED; indices stay below 2^30.
-SAT_NOISE_SEED = 1 << 30
-GCR_NOISE_SEED = 1 << 31
-_INDEX_LIMIT = 1 << 30
-
-
-def _index(first: int, count: int) -> int:
-    """``first``, after checking that ``first .. first + count`` stays in
-    its seed family."""
-    if first + count > _INDEX_LIMIT:
-        raise ValueError(f"noise index {first + count} beyond 2^30: the seed families "
-                         "would meet")
-    return first
-
-
-def _unit_noise(shape, seeds, device: torch.device) -> torch.Tensor:
-    """(len(seeds), *shape) float32 unit normal noise, one generator per
-    seed."""
-    return torch.stack([
-        torch.randn(shape, dtype=torch.float32, device=device,
-                    generator=torch.Generator(device=device).manual_seed(s))
-        for s in seeds
-    ])
-
-
-def noise_keying(device: torch.device) -> str:
-    """The channel-noise keying recorded in the manifest of a noisy run on
-    ``device``: ``"abs-frame-torch-cuda"`` or ``"abs-frame-torch-cpu"`` (the
-    same seed draws other numbers on each device type; the JAX package
-    records "abs-frame" for its own PRNG)."""
-    return f"abs-frame-torch-{torch.device(device).type}"
+#: the keying of the runner's noise that a noisy run's manifest records,
+#: the JAX runner's: per absolute frame (field) index, by ``fold_in``
+NOISE_KEYING = "abs-frame"
+#: the runner's base keys, the JAX runner's: channel noise, satellite noise,
+#: the noisy GCR record
+CHANNEL_NOISE_KEY = prng.PRNGKey(0)
+SAT_NOISE_KEY = prng.PRNGKey(0x5A7)
+GCR_NOISE_KEY = prng.PRNGKey(1)
 
 
 def synthetic_source(lines: int, samples: int) -> FrameSource:
@@ -298,8 +272,7 @@ def process_video(
     manifest = ChunkManifest(out_dir) if resume else None
     if lines is None:
         lines = int(source(0, 1).shape[2])
-    noisy = ((bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0)
-             or (satellite and sat_cnr is not None))
+    noisy = bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0
     config = {
         "standard": plan.cfg.name,
         "decoder": decoder,
@@ -313,7 +286,8 @@ def process_video(
         # manifest; the sigma is part of the config, since resuming with
         # another gate threshold would mix denoise levels
         **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
-        **({"noise_keying": noise_keying(device)} if noisy else {}),
+        # as the JAX runner: where channel noise is drawn
+        **({"noise_keying": NOISE_KEYING} if noisy else {}),
         **({"scramble": scramble[0], "scramble_key": scramble[1]} if scramble else {}),
         **({"rf": True} if rf else {}),
         **({"rf_audio": True} if want_sound else {}),
@@ -376,9 +350,7 @@ def process_video(
             # on each item's absolute leading-axis index
             rf_sig = sat_mod.fm_modulate(sp, comp)
             if sat_sigma:
-                g0 = SAT_NOISE_SEED + _index(frame0 * units, comp.shape[0])
-                seeds = range(g0, g0 + comp.shape[0])
-                rf_sig = rf_sig + sat_sigma * _unit_noise(rf_sig.shape[1:], seeds, device)
+                rf_sig = prng.add_normal(rf_sig, sat_sigma, SAT_NOISE_KEY, frame0 * units)
             return sat_mod.fm_demodulate(sp, rf_sig), None
 
     chan_noise_sigma = 0.0
@@ -395,9 +367,8 @@ def process_video(
         def _channel(comp: torch.Tensor, frame0: int) -> torch.Tensor:  # noqa: F811
             comp = impair(plan, comp, **channel)
             if chan_noise_sigma > 0.0:
-                first = _index(frame0 * units, comp.shape[0])
-                comp = comp + chan_noise_sigma * _unit_noise(
-                    comp.shape[1:], range(first, first + comp.shape[0]), device)
+                comp = prng.add_normal(comp, chan_noise_sigma, CHANNEL_NOISE_KEY,
+                                       frame0 * units)
             if vhs:
                 comp = vhs_playback(plan, comp)
             if equalize:
@@ -405,8 +376,7 @@ def process_video(
                 if chan_noise_sigma > 0.0:
                     # the record's own fixed realisation: the designed taps
                     # do not depend on the chunk
-                    rx = rx + chan_noise_sigma * _unit_noise(rx.shape, [GCR_NOISE_SEED],
-                                                             device)[0]
+                    rx = prng.add_normal(rx, chan_noise_sigma, GCR_NOISE_KEY)
                 comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
             return comp
 

@@ -40,6 +40,7 @@ NVCC_FLAGS = (
 POISON_FLAGS = ("-DCMT_POISON",)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_U32, _U64 = ctypes.c_uint32, ctypes.c_uint64
 #: C signatures of the launch functions; each returns its cudaError_t
 SIGNATURES = {
     # ycc, cols, ramp_cos, ramp_sin, tiles1, tiles2, out,
@@ -61,6 +62,10 @@ SIGNATURES = {
     "fir_check": (_P,) * 3 + (_I,) * 4 + (_P,),
     # x, tiles, out, n_lines, n, ntaps, stream
     "band_fir_check": (_P,) * 3 + (_I,) * 3 + (_P,),
+    # out, k0, k1, words, stream
+    "threefry_bits": (_P, _U32, _U32, _U64, _P),
+    # x (may be NULL), out, k0, k1, fold, g0, sigma, words per item, items, stream
+    "threefry_add_normal": (_P, _P, _U32, _U32, _I, _U32, _F, _U64, _I, _P),
 }
 
 
@@ -160,12 +165,14 @@ def launch(lib: ctypes.CDLL, name: str, dev, args) -> None:
 
 def launch_counted(launches: dict, name: str, dev, call: tuple, *outputs) -> None:
     """A wrapper's launch: launch ``name`` of the main library with the
-    arguments ``call`` (tensors, scalars), add one to ``launches[name]``,
+    arguments ``call`` (tensors, None for a null pointer, then scalars),
+    add one to ``launches[name]``,
     and hand its ``outputs`` to the float checks
     (``utils/debug.py::note_kernel``)."""
     from color_modem_tpu_torch.utils.debug import note_kernel
 
     tensors, scalars = call
-    launch(load_library(), name, dev, [*(t.data_ptr() for t in tensors), *scalars])
+    launch(load_library(), name, dev,
+           [*(None if t is None else t.data_ptr() for t in tensors), *scalars])
     launches[name] += 1
     note_kernel(name, *outputs)

@@ -55,6 +55,32 @@ def kernel_bound(plan, kernel: str, n_lines: int) -> tuple[float, str]:
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
+#: 32-bit integer operations per second of the INT32 lanes alone: 64 on
+#: each of 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
+#: architecture white paper)
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+#: operations per value of ``csrc/threefry.cu`` that only the INT32 lanes
+#: run, by entry point: the hash's 20 rotations (funnel shifts) and 20
+#: xors and the xor of its two words (the bits); the normal adds the shift
+#: and or that make the float's mantissa.  The hash's 32 adds (the rounds'
+#: and the key injections') the compiler may issue to the float lanes as
+#: integer multiply-adds, beside the ~45 float operations of the normal:
+#: 77 of the 128 float lanes' 2 x 64, under the INT32 lanes' time.
+THREEFRY_INT_OPS = {"threefry_bits": 41, "threefry_add_normal": 43}
+
+
+def threefry_bound(entry: str, words: int, bytes_per_word: int) -> tuple[float, str]:
+    """The least time in ms of one launch of the threefry entry point
+    ``entry`` over ``words`` values, and what sets it: ``bytes_per_word``
+    read and written once (4 for the bits, 8 for ``x + sigma * normal``, 4
+    for the normal alone) over the memory rate ("bytes"), or the operations
+    only the INT32 lanes run (:data:`THREEFRY_INT_OPS`) over their rate
+    ("operations"), whichever is larger."""
+    t_bytes = bytes_per_word * words / HBM_BYTES_PER_S
+    t_ops = THREEFRY_INT_OPS[entry] * words / INT32_OPS_PER_S
+    return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
+
+
 def time_ms(fn, iters: int = 20, windows: int = 5, warmup: int = 3) -> list[float]:
     """Milliseconds per call in each of ``windows`` CUDA-event windows of
     ``iters`` back-to-back calls."""

@@ -6,8 +6,9 @@ which its ``utils/debug.py`` calls the kernel memory sanitizer (and of
 ``compute-sanitizer``, which the card's machine does not run).  A kernel
 is launched from the same C arguments its wrapper assembles
 (``kernels/qam.py::encode_call``/``decode_call``,
-``kernels/secam.py::encode_call``/``demodulate_call``), with each tensor
-moved into the middle of a larger allocation:
+``kernels/secam.py::encode_call``/``demodulate_call``,
+``kernels/prng.py::bits_call``/``normal_call``), with each tensor moved
+into the middle of a larger allocation:
 
 * every input into a flat allocation filled with :data:`GUARD_BITS`, a NaN,
   at least one tile of lines (:data:`GUARD_LINES` x N samples) before and
@@ -55,7 +56,7 @@ def _guarded(t: torch.Tensor, bits: int, guard: int, copy: bool):
     """(flat allocation, view of its middle shaped like ``t``): ``guard``
     elements filled with ``bits`` on each side, the middle a copy of ``t``
     (``copy``) or filled with ``bits`` too."""
-    flat = torch.empty(2 * guard + t.numel(), dtype=torch.float32, device=t.device)
+    flat = torch.empty(2 * guard + t.numel(), dtype=t.dtype, device=t.device)
     _bits(flat).fill_(bits)
     view = flat[guard : guard + t.numel()].view(t.shape)
     if copy:
@@ -68,18 +69,24 @@ def guarded_call(launch, tensors: list, outputs: list, guard: int,
     """Run ``launch(views)`` on guarded copies of ``tensors``, ``repeats``
     times on the same buffers.
 
-    ``tensors``: float32 tensors, in the order ``launch`` takes them;
-    ``outputs``: the positions among them that ``launch`` writes (their
-    contents are not copied) and fills with ``sentinel``.  Returns
-    ``{"outputs": [copies of the output views], "nan": NaNs in the outputs,
+    ``tensors``: float32 or int32 tensors, in the order ``launch`` takes
+    them, None for a null pointer (its view is None); ``outputs``: the
+    positions among them that ``launch`` writes (their contents are not
+    copied) and fills with ``sentinel``.  Returns
+    ``{"outputs": [copies of the output views], "nan": NaNs in the float
+    outputs,
     "sentinels_intact": no guard changed, "sentinel_hits": output samples
     holding the sentinel after the launches, "inputs_intact": every input and its guards
     unchanged, "repeats_changed": output samples that differed from the
     first launch's in any later one}``, all fetched in one go."""
     allocs, views = [], []
     for i, t in enumerate(tensors):
-        if t.dtype != torch.float32:
-            raise TypeError(f"tensor {i}: expected float32, got {t.dtype}")
+        if t is None:
+            allocs.append(None)
+            views.append(None)
+            continue
+        if t.dtype not in (torch.float32, torch.int32):
+            raise TypeError(f"tensor {i}: expected float32 or int32, got {t.dtype}")
         out = i in outputs
         flat, view = _guarded(t.contiguous(), sentinel if out else GUARD_BITS, guard,
                               copy=not out)
@@ -99,6 +106,8 @@ def _report(tensors, outputs, guard, allocs, views, sentinel, changed) -> dict:
     launch: one stacked fetch."""
     outs, ins = [], []
     for i, (t, flat, view) in enumerate(zip(tensors, allocs, views)):
+        if t is None:
+            continue
         bits = _bits(flat)
         if i in outputs:
             outs += [torch.isnan(view).sum(),
@@ -141,14 +150,16 @@ def sanitize(name: str, call: tuple, outputs: list) -> dict:
 
     tensors, scalars = call
     pos = _order_outputs(tensors, outputs)
-    dev = tensors[0].device
+    first = next(t for t in tensors if t is not None)
+    dev = first.device
     if dev.type != "cuda":
         raise ValueError(f"{name}: the sanitizer launches CUDA kernels; tensors on {dev}")
-    guard = GUARD_LINES * tensors[0].shape[-1]
+    guard = GUARD_LINES * first.shape[-1]
 
     def runner(lib):
         def run(views):
-            launch(lib, name, dev, [*(v.data_ptr() for v in views), *scalars])
+            launch(lib, name, dev,
+                   [*(None if v is None else v.data_ptr() for v in views), *scalars])
         return run
 
     normal = guarded_call(runner(load_library()), tensors, pos, guard)
@@ -197,6 +208,11 @@ SAMPLES = (720, 722, 1440, 2160)
 FRAMES = (1, 3)
 #: samples at which only the SECAM rows run: the decoder's spans
 SECAM_ONLY_SAMPLES = (2160,)
+#: the threefry generator's rows (``csrc/threefry.cu``), on the QAM rows'
+#: grid: the runner's noise (item keys folded in the kernel, from index 37),
+#: one key over the block, the normal alone (no addend) and the raw bits
+PRNG_ROWS = ("threefry_add_normal", "threefry_add_normal_one_key", "threefry_normal",
+             "threefry_bits")
 
 
 def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int = 0):
@@ -237,9 +253,28 @@ def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int =
     return secam.demodulate_call(plan, comp, isr, luma, v), [luma, v]
 
 
+def prng_call(row: str, frames: int, lines: int, n: int, dev, seed: int = 0):
+    """(C entry point, call, outputs) of one threefry launch of
+    :data:`PRNG_ROWS` over ``frames`` x ``lines`` x ``n`` on ``dev``: the
+    addend uniform, the bits int32 words."""
+    from color_modem_tpu_torch.kernels import prng as pk
+    from color_modem_tpu_torch.utils.prng import PRNGKey
+
+    shape, key = (frames, lines, n), PRNGKey(0x5A7)
+    if row == "threefry_bits":
+        out = torch.empty(shape, dtype=torch.int32, device=dev)
+        return row, pk.bits_call(key, out), [out]
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = None if row == "threefry_normal" else torch.rand(shape, generator=gen, device=dev)
+    g0 = 37 if row == "threefry_add_normal" else None
+    return "threefry_add_normal", pk.normal_call(x, 0.05, key, g0, out), [out]
+
+
 def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> list[dict]:
     """:func:`sanitize` every row of :data:`ROWS` at every (lines, samples,
-    frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`;
+    frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`, and
+    every row of :data:`PRNG_ROWS` where the QAM rows run;
     ``report(result)`` after each.  Returns the results, each with
     ``row``, ``kernel``, ``standard`` and ``shape``."""
     from color_modem_tpu_torch import ALL_STANDARDS
@@ -258,6 +293,18 @@ def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> li
                     res = sanitize(kernel, call, outs)
                     del res["outputs"]
                     res.update(row=row, kernel=kernel, standard=std, shape=(f, l, n))
+                    results.append(res)
+                    if report is not None:
+                        report(res)
+        if n in SECAM_ONLY_SAMPLES:
+            continue
+        for row in PRNG_ROWS:
+            for f in frames:
+                for l in lines:
+                    kernel, call, outs = prng_call(row, f, l, n, dev)
+                    res = sanitize(kernel, call, outs)
+                    del res["outputs"]
+                    res.update(row=row, kernel=kernel, standard="threefry", shape=(f, l, n))
                     results.append(res)
                     if report is not None:
                         report(res)

@@ -21,9 +21,14 @@ Prints one JSON object per row as it finishes.  Rows:
   and after with the same design done in float64 NumPy;
 * ``tbc``: rastered NTSC comb3 of ``smooth_scene(480, 720, seed=0)`` x 16,
   0.3 us wobble, then ``tbc_correct``: RGB PSNR clean, wrecked, fixed;
-* ``video-rf`` / ``video-satellite``: ``process_video`` NTSC comb3 on
-  ``synthetic_device_source(480, 720, seed=0)``, 48 frames in chunks of 16,
-  with ``rf=True`` / ``satellite=True, sat_cnr=12.0``: ``min_psnr_db``;
+* ``video-rf`` / ``video-satellite`` / ``video-channel-noise``:
+  ``process_video`` NTSC comb3 on ``synthetic_device_source(480, 720,
+  seed=0)``, 48 frames in chunks of 16, with ``rf=True`` / ``satellite=True,
+  sat_cnr=12.0`` / ``channel={"noise_sigma": 0.02}``: ``min_psnr_db``;
+* ``cli-noisy-rf``: the JAX CLI's ``roundtrip --demo --pattern scene
+  --standard ntsc --decoder comb3 --noise 0.02 --rf --rf-noise 0.01
+  --rf-dropouts 0.05 --rf-doc`` at full height (composite noise, RF noise
+  and tape dropouts): ``psnr_db``;
 * ``rf-sound``: the rf-vsb-hop composite through ``rf_modulate`` ->
   ``sound_on_rf`` (1 kHz at 0.6 plus 7 kHz at 0.3 over the 16 frames'
   joined stream, phi0 0) -> ``nicam_on_rf`` (800 and 2300 Hz at 0.5 at
@@ -285,6 +290,20 @@ def _video(**kw):
         s = process_video(make_plan(NTSC(), N), synthetic_device_source(480, N, seed=0), 48, d,
                           decoder="comb3", chunk=16, backend="xla", **kw)
     return {"min_psnr_db": s["min_psnr_db"]}
+
+
+def row_cli_noisy_rf():
+    import contextlib
+    import io
+
+    from color_modem_tpu import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["roundtrip", "--demo", "--pattern", "scene", "--standard", "ntsc",
+                  "--decoder", "comb3", "--noise", "0.02", "--rf", "--rf-noise", "0.01",
+                  "--rf-dropouts", "0.05", "--rf-doc"])
+    return {"psnr_db": json.loads(out.getvalue().strip().splitlines()[-1])["psnr_db"]}
 
 
 def snr_db(ref, out) -> float:
@@ -685,6 +704,8 @@ ROWS = {
     "tbc": row_tbc,
     "video-rf": lambda: _video(rf=True),
     "video-satellite": lambda: _video(satellite=True, sat_cnr=12.0),
+    "video-channel-noise": lambda: _video(channel={"noise_sigma": 0.02}),
+    "cli-noisy-rf": row_cli_noisy_rf,
     "rf-sound": row_rf_sound,
     "sat-sound": row_sat_sound,
     "a2": row_a2,

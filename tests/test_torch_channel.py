@@ -2,15 +2,16 @@
 ``color_modem_tpu/frame/channel.py``, on the CPU.
 
 Without noise the port must equal JAX to the composite bound, 2e-5.  Noise
-comes from a ``torch.Generator`` where JAX takes a PRNG key, so its bits
-differ by design: the port's noise must be reproducible from one seed, have
-the asked-for sigma (within 2%), and be refused without a generator.
+is drawn from the same JAX key (``utils/prng.py``): the noisy composite is
+held to JAX's at that bound too (the draws agree to 1e-6 of a unit
+normal), and noise is refused without a key.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import jax.numpy as jnp
 
 from conftest import TEST_SAMPLES, get_plan
 from color_modem_tpu.frame import channel as jc
@@ -22,6 +23,7 @@ from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame import channel
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from color_modem_tpu_torch.utils import prng
 from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL = 2e-5
@@ -101,22 +103,25 @@ def test_band_edges_and_stream_delay_match_jax():
 
 
 def test_noise_is_reproducible_with_the_asked_sigma():
-    _, tp, comp = _composite("pal")
+    """The noise is JAX's from the same key, with the other impairments
+    before it, and has the asked-for sigma (within 2%)."""
+    jp, tp, comp = _composite("pal")
     sigma = 0.05
-    a = channel.impair(tp, t(comp), noise_sigma=sigma,
-                       generator=torch.Generator().manual_seed(7))
-    b = channel.impair(tp, t(comp), noise_sigma=sigma,
-                       generator=torch.Generator().manual_seed(7))
-    c = channel.impair(tp, t(comp), noise_sigma=sigma,
-                       generator=torch.Generator().manual_seed(8))
+    kw = dict(noise_sigma=sigma, chroma_gain=0.8, ghost_delay_us=1.0, ghost_gain=0.2)
+    a = channel.impair(tp, t(comp), key=prng.PRNGKey(7), **kw)
+    want = np.asarray(jc.impair(jp, jnp.asarray(comp), key=jax.random.PRNGKey(7), **kw))
+    np.testing.assert_allclose(a.numpy(), want, rtol=0, atol=ENC_ATOL)
+    b = channel.impair(tp, t(comp), key=prng.PRNGKey(7), **kw)
+    c = channel.impair(tp, t(comp), key=prng.PRNGKey(8), **kw)
     assert torch.equal(a, b) and not torch.equal(a, c)
-    std = float((a - t(comp)).std())
+    std = float((a - channel.impair(tp, t(comp), **{**kw, "noise_sigma": 0.0})).std())
     assert abs(std - sigma) <= 0.02 * sigma, std
 
 
 def test_noise_requires_a_generator():
+    """Noise without a key raises, in both packages."""
     jp, tp, comp = _composite("ntsc", frames=1)
-    with pytest.raises(ValueError, match="torch.Generator"):
+    with pytest.raises(ValueError, match="PRNG key"):
         channel.impair(tp, t(comp), noise_sigma=0.1)
     with pytest.raises(ValueError, match="PRNG key"):
         jc.impair(jp, jnp.asarray(comp), noise_sigma=0.1)

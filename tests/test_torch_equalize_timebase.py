@@ -9,10 +9,11 @@ and tests/test_timebase.py's, and the designed taps agree with JAX's to
 1e-4.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import jax.numpy as jnp
 
 from conftest import get_plan
 from color_modem_tpu.frame import equalize as jeq
@@ -27,6 +28,7 @@ from color_modem_tpu_torch.frame.channel import impair
 from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
 from color_modem_tpu_torch.frame.raster import make_raster
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from color_modem_tpu_torch.utils import prng
 from color_modem_tpu_torch.utils.metrics import psnr
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -173,11 +175,17 @@ def test_profile_matches_jax(plan):
     got = ttb.timebase_profile(plan, L, wobble_us=0.4, flagging_us=0.3, device="cpu")
     want = np.asarray(jtb.timebase_profile(jplan, L, wobble_us=0.4, flagging_us=0.3))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="Generator"):
+    with pytest.raises(ValueError, match="PRNG key"):
         ttb.timebase_profile(plan, 16, jitter_us=0.1, device="cpu")
-    jit = ttb.timebase_profile(plan, 4096, wobble_us=0.0, jitter_us=0.1,
-                               generator=torch.Generator().manual_seed(3), device="cpu")
-    assert abs(float(jit.std()) / (0.1 * plan.fs * 1e-6) - 1.0) < 0.05
+    # the jitter is JAX's from the same key
+    jit = ttb.timebase_profile(plan, 4096, wobble_us=0.2, jitter_us=0.1,
+                               key=prng.PRNGKey(3), device="cpu")
+    want = np.asarray(jtb.timebase_profile(jplan, 4096, wobble_us=0.2, jitter_us=0.1,
+                                           key=jax.random.PRNGKey(3)))
+    np.testing.assert_allclose(jit.numpy(), want, rtol=0, atol=1e-5)
+    flat = ttb.timebase_profile(plan, 4096, wobble_us=0.0, jitter_us=0.1,
+                                key=prng.PRNGKey(3), device="cpu")
+    assert abs(float(flat.std()) / (0.1 * plan.fs * 1e-6) - 1.0) < 0.05
 
 
 def test_profile_defaults_to_the_card(plan):
@@ -200,8 +208,7 @@ def test_delay_estimator_recovers_the_injected_profile(plan, rastered):
     _, _, _, ras, g = rastered
     rp = make_raster(plan)
     shifted, true_delta = ttb.impair_timebase(
-        plan, ras, wobble_us=0.4, flagging_us=0.3, jitter_us=0.05,
-        generator=torch.Generator().manual_seed(3))
+        plan, ras, wobble_us=0.4, flagging_us=0.3, jitter_us=0.05, key=prng.PRNGKey(3))
     est = ttb.measure_line_shift(plan, rp, shifted, g)
     assert float((est - true_delta).abs().max()) < 0.05
     jplan = get_plan("ntsc")

@@ -7,10 +7,13 @@
   computes.  A round trip under "medium" (bf16 products on this CPU) or
   with TF32 allowed is bit-identical to one under "highest", and the
   caller's setting is back afterwards.
-* Resume across devices: a CUDA ``torch.Generator`` is Philox and a CPU one
-  mt19937, so the same noise key draws other numbers on each.  The noisy
-  manifest names the device type, and a run on the other one refuses to
-  resume it.
+* Resume across devices: the port once drew its noise from
+  ``torch.Generator``s (Philox on the card, mt19937 on the CPU), other
+  numbers on each device, and named the device type in a noisy manifest.
+  It now draws the JAX package's threefry2x32 noise on every device
+  (``utils/prng.py``): a noisy manifest records JAX's ``"abs-frame"``, a
+  run resumes it on either device, and a manifest of another keying (the
+  old per-device one) refuses.
 * Shared plans: a factory works on a copy of the plan on its own device and
   never moves the caller's plan (``plan.to`` is in place), so any number of
   pipelines on any devices share one plan, as they share a JAX
@@ -31,7 +34,7 @@ from color_modem_tpu_torch.frame.interlace import make_interlaced_pipeline
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
 from color_modem_tpu_torch.frame.transcode import make_transcoder
-from color_modem_tpu_torch.frame.video import noise_keying, process_video
+from color_modem_tpu_torch.frame.video import NOISE_KEYING, process_video
 from color_modem_tpu_torch.modem.plan import make_plan, plan_on
 from color_modem_tpu_torch.utils.testimages import smooth_scene
 from torch_threads import one_torch_thread  # noqa: F401
@@ -140,25 +143,25 @@ def _noisy_run(d, **kw):
 
 
 def test_noisy_manifest_names_the_device(tmp_path):
+    """The keying a noisy manifest records is JAX's, whatever the device."""
     d = str(tmp_path / "run")
     s = _noisy_run(d)
-    assert s["noise_keying"] == noise_keying(torch.device("cpu")) == "abs-frame-torch-cpu"
+    assert s["noise_keying"] == NOISE_KEYING == "abs-frame"
     with open(os.path.join(d, "manifest.json")) as f:
-        assert json.load(f)["config"]["noise_keying"] == "abs-frame-torch-cpu"
-    assert noise_keying("cuda") == "abs-frame-torch-cuda"
-    # the same run on the same device type resumes
+        assert json.load(f)["config"]["noise_keying"] == "abs-frame"
+    # the same run resumes
     assert _noisy_run(d)["frames_processed_this_run"] == 0
 
 
 def test_manifest_of_the_other_device_is_refused(tmp_path):
-    """A noisy manifest written under the CUDA keying does not resume on the
-    CPU (the card test resumes a CPU-written one on the card)."""
+    """A noisy manifest written under the port's old per-device keying does
+    not resume (the card test resumes a CPU-written one on the card)."""
     d = str(tmp_path / "run")
     _noisy_run(d)
     path = os.path.join(d, "manifest.json")
     with open(path) as f:
         m = json.load(f)
-    m["config"]["noise_keying"] = noise_keying("cuda")
+    m["config"]["noise_keying"] = "abs-frame-torch-cuda"
     with open(path, "w") as f:
         json.dump(m, f)
     with pytest.raises(ValueError, match="refusing to resume"):

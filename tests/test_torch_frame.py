@@ -43,6 +43,7 @@ from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
 from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from color_modem_tpu_torch.utils import prng
 from torch_threads import one_torch_thread  # noqa: F401
 
 ENC_ATOL, SECAM_ENC_ATOL, DEC_ATOL = 2e-5, 2e-4, 5e-4
@@ -387,8 +388,7 @@ def test_nr_end_to_end_noisy_channel(name, decoder, gain):
     plan = tplan(name)
     rgb = np.ascontiguousarray(np.broadcast_to(_scene(33), (6, 3, NR_LINES, N)))
     enc, dec, _ = make_pipeline(plan, decoder, device="cpu")
-    comp = impair(plan, enc(rgb, 0), noise_sigma=0.02,
-                  generator=torch.Generator().manual_seed(2))
+    comp = impair(plan, enc(rgb, 0), noise_sigma=0.02, key=prng.PRNGKey(2))
     out = dec(comp, 0)
     p_raw = psnr(out.numpy(), rgb)
     assert psnr(nr.temporal_nr(out).numpy(), rgb) - p_raw > gain

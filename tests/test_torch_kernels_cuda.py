@@ -12,6 +12,8 @@ phase scan sums in another order than ``torch.cumsum``), 5e-4 on decode
 takeoff's amplitude and the raw component error depends on the input).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -520,18 +522,33 @@ def test_global_tf32_changes_nothing(dev):
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
 
 
-def test_cpu_noisy_manifest_is_refused_on_the_card(dev, tmp_path):
-    """A noisy run begun on the CPU (mt19937 noise) does not resume on the
-    card (Philox noise): its manifest's keying names the device."""
+def test_cpu_noisy_manifest_resumes_on_the_card(dev, tmp_path):
+    """A noisy run begun on the CPU resumes on the card: both draw JAX's
+    noise and record its keying, and the card's own run saves the CPU's
+    frames (to the decode bound); a manifest of the old per-device keying
+    is refused."""
     from color_modem_tpu_torch.frame.video import process_video
 
     one = smooth_scene(16, 720, seed=1).astype(np.float32)
     src = lambda start, count: np.broadcast_to(one, (count,) + one.shape)  # noqa: E731
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720)
-    kw = dict(decoder="notch", chunk=1, channel={"noise_sigma": 0.02})
-    process_video(plan, src, 2, str(tmp_path), device="cpu", **kw)
+    kw = dict(decoder="notch", chunk=1, channel={"noise_sigma": 0.02}, save_outputs=True)
+    d_cpu, d_card = str(tmp_path / "cpu"), str(tmp_path / "card")
+    s = process_video(plan, src, 2, d_cpu, device="cpu", **kw)
+    assert s["noise_keying"] == "abs-frame"
+    assert process_video(plan, src, 2, d_cpu, device=dev, **kw)["frames_processed_this_run"] == 0
+    process_video(plan, src, 2, d_card, device=dev, **kw)
+    for i in range(2):
+        a, b = (np.load(f"{d}/rgb_{i:06d}.npy") for d in (d_cpu, d_card))
+        assert float(np.abs(a - b).max()) <= DEC_ATOL
+    path = f"{d_cpu}/manifest.json"
+    with open(path) as f:
+        m = json.load(f)
+    m["config"]["noise_keying"] = "abs-frame-torch-cpu"
+    with open(path, "w") as f:
+        json.dump(m, f)
     with pytest.raises(ValueError, match="refusing to resume"):
-        process_video(plan, src, 2, str(tmp_path), device=dev, **kw)
+        process_video(plan, src, 2, d_cpu, device=dev, **kw)
 
 
 @pytest.mark.parametrize("first", ["cpu", "cuda"])
@@ -567,6 +584,7 @@ def _hops(dev):
     from color_modem_tpu_torch.frame.raster import make_raster
     from color_modem_tpu_torch.frame.timebase import impair_timebase, tbc_correct
     from color_modem_tpu_torch.modem import mac
+    from color_modem_tpu_torch.utils import prng
 
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
     comp = make_pipeline(plan, "notch", "kernel", dev)[0](_scene(480, dev), 0)
@@ -575,7 +593,6 @@ def _hops(dev):
     mplan = mac.make_mac_plan(720)
     g = frame_line_index(plan, 0, 16, 576, dev)
     mrgb = _scene(576, dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
     rx = torch.tensor(gcr_record(plan), device=dev)
     ras = make_pipeline(plan, "comb3", "kernel", dev, raster=True)[0](_scene(480, dev), 0)
     shifted, _ = impair_timebase(plan, ras, wobble_us=0.3)
@@ -583,7 +600,7 @@ def _hops(dev):
     return {
         "rf": lambda: rf_mod.rf_roundtrip(rfp, comp, 3),
         "satellite": lambda: sat_mod.sat_roundtrip(sp, comp),
-        "satellite-awgn": lambda: sat_mod.sat_roundtrip(sp, comp, None, gen, 12.0),
+        "satellite-awgn": lambda: sat_mod.sat_roundtrip(sp, comp, None, prng.PRNGKey(11), 12.0),
         "d2mac": lambda: mac.decode_data(mplan, mac.encode(mplan, mrgb, g))[1],
         "equalizer": lambda: apply_equalizer(comp, design_equalizer(plan, rx, ntaps=411)),
         "tbc": lambda: tbc_correct(plan, make_raster(plan), shifted, g_r),
@@ -661,14 +678,15 @@ def test_agc_quantile_above_2_pow_24(dev):
 def test_video_hops_on_the_card(dev, tmp_path):
     """process_video through the RF hop and the satellite hop (clean and
     at 12 dB CNR, where the discriminator carries the FFTs' batch-dependent
-    last bits further) on the card: chunk sizes 2 and 3 agree, and the
-    noisy manifest names the card's keying."""
+    last bits further), and the noisy channel, on the card: chunk sizes 2
+    and 3 agree, and the noisy manifest records JAX's keying."""
     from color_modem_tpu_torch.frame.video import process_video, synthetic_device_source
 
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
     src = synthetic_device_source(64, 720, seed=2, device=dev)
     for i, (kw, atol) in enumerate((({"rf": True}, 1e-5), ({"satellite": True}, 1e-5),
-                                    ({"satellite": True, "sat_cnr": 12.0}, 2e-3))):
+                                    ({"satellite": True, "sat_cnr": 12.0}, 2e-3),
+                                    ({"channel": {"noise_sigma": 0.02}}, 1e-6))):
         outs = []
         for chunk in (2, 3):
             d = str(tmp_path / f"{i}_{chunk}")
@@ -678,7 +696,7 @@ def test_video_hops_on_the_card(dev, tmp_path):
             outs.append(np.concatenate([np.load(f"{d}/rgb_{i:06d}.npy")
                                         for i in range(0, 6, chunk)]))
         assert float(np.abs(outs[0] - outs[1]).max()) <= atol
-    assert s["noise_keying"] == "abs-frame-torch-cuda"
+    assert s["noise_keying"] == "abs-frame"
 
 
 def _sound_chains(dev):
@@ -987,7 +1005,8 @@ def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
         for rr in two_gloo_ranks:
             assert rr[k]["device"] == "cuda:0"
             assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
-                                         "secam_decode": 0}
+                                         "secam_decode": 0, "threefry_bits": 0,
+                                         "threefry_add_normal": 0}
 
 
 def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
@@ -1019,7 +1038,8 @@ def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert rec["shape"] == [16, 480, 720] and rec["device"] == "cuda"
     assert abs(rec["roundtrip_psnr_db"] - 46.62) <= 0.02
     assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
-                                      "secam_decode": 0}
+                                      "secam_decode": 0, "threefry_bits": 0,
+                                      "threefry_add_normal": 0}
     for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
         assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
 
@@ -1044,7 +1064,7 @@ def test_sanitizer_on_every_kernel(dev, shape):
     frames, lines, n = shape
     reset_launches()
     results = sanitize.run_all(dev, lines=(lines,), samples=(n,), frames=(frames,))
-    assert len(results) == len(sanitize.ROWS)
+    assert len(results) == len(sanitize.ROWS) + len(sanitize.PRNG_ROWS)
     bad = [(r["row"], r["standard"], r["shape"], {k: v for k, v in r.items() if k != "poison"},
             r["poison"]) for r in results if not r["ok"]]
     assert not bad, bad
@@ -1067,3 +1087,110 @@ def test_checked_names_a_kernel_nan_on_the_card(dev):
 
     with pytest.raises(FloatingPointError, match="the CUDA kernel qam_encode made a NaN"):
         checked(encode)(ycc)
+
+
+# --- the threefry generator (csrc/threefry.cu) ---------------------------------------------
+
+#: normals of the kernel against the plain version (and the CPU's): the
+#: ``log1p`` of each library, an ulp or two of the draw
+NORMAL_ATOL = 1e-6
+
+
+def _threefry_cases():
+    """(label, key, shape, g0) of the kernel's normal: the runner's
+    satellite noise on 16 NTSC frames at r = 4 keyed per frame from index
+    37, one key over a block, odd shapes and an index range that wraps."""
+    from color_modem_tpu_torch.utils.prng import PRNGKey
+
+    return (("runner 16x480x2880", PRNGKey(0x5A7), (16, 480, 2880), 37),
+            ("one key 2x481x722", PRNGKey(1), (2, 481, 722), None),
+            ("odd 3x7x5", PRNGKey(0), (3, 7, 5), 2**32 - 2),
+            ("one item 1x1", PRNGKey(11), (1, 1), 5))
+
+
+@pytest.mark.parametrize("case", range(4))
+def test_threefry_add_normal_matches_plain(dev, case):
+    """x + sigma * normal on the card against the plain version on the card
+    (and on the CPU at the small shapes), per-item ``fold_in`` included;
+    one launch each; the normal alone equals it with x = 0, sigma = 1."""
+    from color_modem_tpu_torch.kernels import prng as pk
+    from color_modem_tpu_torch.utils import prng
+
+    label, key, shape, g0 = _threefry_cases()[case]
+    x = torch.tensor(np.random.default_rng(case).uniform(-1, 1, shape).astype(np.float32),
+                     device=dev)
+    pk.reset_launches()
+    got = prng.add_normal(x, 0.05, key, g0)
+    assert pk.LAUNCHES == {"threefry_bits": 0, "threefry_add_normal": 1}
+    want = prng.add_normal_plain(x, 0.05, key, shape, dev, g0)
+    assert float((got - want).abs().max()) <= NORMAL_ATOL, label
+    n = pk.threefry_add_normal(None, 1.0, key, shape, dev, g0)
+    n_plain = prng.add_normal_plain(None, 1.0, key, shape, dev, g0)
+    assert float((n - n_plain).abs().max()) <= NORMAL_ATOL, label
+    assert bool(torch.isfinite(n).all())
+    if n.numel() >= 2**20:
+        assert abs(float(n.double().std()) - 1.0) < 1e-3, label
+    if got.numel() <= 2**22:
+        cpu = prng.add_normal_plain(x.cpu(), 0.05, key, shape, "cpu", g0)
+        assert float((got.cpu() - cpu).abs().max()) <= NORMAL_ATOL, label
+
+
+@pytest.mark.parametrize("shape", [(1 << 20,), (3, 17, 41), (1,)])
+def test_threefry_bits_match_plain_and_the_cpu(dev, shape):
+    from color_modem_tpu_torch.kernels import prng as pk
+    from color_modem_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.PRNGKey(0x5A7), 3)
+    pk.reset_launches()
+    got = prng.random_bits(key, shape, dev)
+    assert pk.LAUNCHES == {"threefry_bits": 1, "threefry_add_normal": 0}
+    assert got.dtype == torch.int32 and tuple(got.shape) == shape
+    assert torch.equal(got, prng.random_bits_plain(key, shape, dev))
+    assert torch.equal(got.cpu(), prng.random_bits_plain(key, shape, "cpu"))
+
+
+def test_threefry_on_the_card_gives_jax_numbers(dev):
+    """The card against values taken from ``jax.random`` on the CPU
+    (chip_smoke.py's JAX_PINNED, which tests/test_torch_prng.py holds to
+    ``jax.random`` where JAX is installed)."""
+    import chip_smoke
+
+    chip_smoke.check_jax_pinned(dev)
+
+
+def test_rf_dropout_draws_on_the_card(dev):
+    """bernoulli and randint at rf_dropout's shape from the bits kernel:
+    the card equals the CPU, three launches (one bernoulli, two randint
+    halves)."""
+    from color_modem_tpu_torch.kernels import prng as pk
+    from color_modem_tpu_torch.utils import prng
+
+    k1, k2 = prng.split(prng.PRNGKey(7))
+    pk.reset_launches()
+    hit = prng.bernoulli(k1, 0.05, (2, 480), dev)
+    start = prng.randint(k2, (2, 480), 0, 2880 - 1231, dev)
+    assert pk.LAUNCHES == {"threefry_bits": 3, "threefry_add_normal": 0}
+    assert torch.equal(hit.cpu(), prng.bernoulli(k1, 0.05, (2, 480), "cpu"))
+    assert torch.equal(start.cpu(), prng.randint(k2, (2, 480), 0, 2880 - 1231, "cpu"))
+
+
+def test_noise_never_blocks_the_host(dev):
+    """Keys are host ints: drawing noise on the card takes no synchronising
+    operation."""
+    from color_modem_tpu_torch.frame import rf as rf_mod
+    from color_modem_tpu_torch.utils import prng
+
+    x = torch.zeros((4, 64, 720), device=dev)
+    rfp = rf_mod.make_rf_plan(make_plan(ALL_STANDARDS["ntsc"](), 720))
+    rf = torch.ones((1, 64, rfp.n_rf), device=dev)
+    calls = (lambda: prng.add_normal(x, 0.1, prng.PRNGKey(0), 12),
+             lambda: rf_mod.rf_dropout(rfp, rf, 7, rate=0.2))
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls:
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)

@@ -198,6 +198,7 @@ def test_packet_sound_survives_satellite():
     """Picture and packet sound through the FM satellite hop at CNR 20 with
     energy dispersal: zero parity errors, audio >= 50 dB."""
     from color_modem_tpu_torch.frame import satellite as tsat
+    from color_modem_tpu_torch.utils import prng
 
     tp = tmac.make_mac_plan(W)
     n_lines = 64
@@ -207,8 +208,8 @@ def test_packet_sound_survives_satellite():
     img = torch.tensor(smooth_scene(n_lines, W, seed=4).astype(np.float32))
     sig = tmac.encode(tp, img, g, payload)
     sp = tsat.make_sat_plan(tp.cfg.fs, tp.cfg.samples_per_line, dispersal=0.1)
-    rx = tsat.sat_roundtrip(sp, sig[None], gline=g[None],
-                            generator=torch.Generator().manual_seed(9), cnr_db=20.0)[0]
+    rx = tsat.sat_roundtrip(sp, sig[None], gline=g[None], key=prng.PRNGKey(9),
+                            cnr_db=20.0)[0]
     ok, bits = tmac.decode_data(tp, rx)
     assert bool(ok.all())
     gl, _, rep = tmac.unpack_sound(tp, bits, n_f)

@@ -54,3 +54,32 @@ def test_secam_encode_bound():
 def test_unknown_kernel_raises():
     with pytest.raises(ValueError):
         measure.kernel_flops(make_plan(NTSC(), 720), "fir_check", 1)
+
+
+@pytest.mark.parametrize("entry,bytes_per_word", [("threefry_bits", 4),
+                                                  ("threefry_add_normal", 8)])
+def test_threefry_bound_counts_the_kernels_integer_operations(entry, bytes_per_word):
+    """``THREEFRY_INT_OPS`` read from ``csrc/threefry.cu``: each four-round
+    block's rotations and xors times the hash's blocks, the xor of its two
+    words, and for the normal the mantissa's shift and or.  At the
+    runner's 16 x 480 x 2880 the operations set both bounds."""
+    import re
+
+    from color_modem_tpu_torch.kernels.build import CSRC_DIR
+
+    text = (CSRC_DIR / "threefry.cu").read_text()
+
+    def body(signature):
+        return re.search(re.escape(signature) + r".*?\n}\n", text, re.S).group(0)
+
+    block = body("void rounds(")
+    bits = ((block.count("__funnelshift_l(") + block.count("^="))
+            * body("void threefry(").count("rounds(") + 1)
+    assert "const uint32_t bits = x0 ^ x1;" in text
+    assert "(bits >> 9) | 0x3F800000u" in body("float unit_normal(")
+    want = bits + 2 if entry == "threefry_add_normal" else bits
+    assert measure.THREEFRY_INT_OPS[entry] == want
+    words = 16 * 480 * 2880
+    ms, by = measure.threefry_bound(entry, words, bytes_per_word)
+    assert by == "operations"
+    assert ms == pytest.approx(1e3 * want * words / measure.INT32_OPS_PER_S)

@@ -11,13 +11,16 @@ frames and the FAW offset equal; the behaviour tests of
 tests/test_nicam.py at their bounds (companding > 50 dB, audio > 55 dB,
 parity errors 0 on a clean or mildly noisy channel and counted under heavy
 noise, the picture under the RF burst within 0.2 dB).  Channel noise draws
-from a ``torch.Generator``, so the noise cases are held by their effect.
+from JAX's key (``utils/prng.py``), so the noise cases decode JAX's bits:
+the decoded audio and every parity count equal to JAX's, mild noise and
+heavy.
 """
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-import jax.numpy as jnp
 
 from conftest import get_plan
 from color_modem_tpu.frame import nicam as jn
@@ -27,6 +30,7 @@ from color_modem_tpu_torch.frame import nicam as tn
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.frame.rf import make_rf_plan, rf_demodulate, rf_modulate
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from color_modem_tpu_torch.utils import prng
 from color_modem_tpu_torch.utils.metrics import psnr
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -231,15 +235,24 @@ def test_carrier_phase_immunity(plan, phase_deg):
 
 
 def test_noise_performance(plan):
+    """Under noise from the same key the port decodes JAX's bits: mild noise
+    leaves no parity error, heavy noise the same errors as JAX's; no key is
+    ``PRNGKey(0)``, as in JAX."""
     left, right = _tones(4)
-    l2, _, rep, _ = tn.nicam_roundtrip(plan, _t(left), _t(right), noise_sigma=0.05,
-                                       generator=torch.Generator().manual_seed(1))
-    assert int(rep["parity_errors"].sum()) == 0 and _snr(left, l2) > 55.0
-    rep3 = tn.nicam_roundtrip(plan, _t(left), _t(right), noise_sigma=2.0,
-                              generator=torch.Generator().manual_seed(2))[2]
-    assert int(rep3["parity_errors"].sum()) > 0
-    with pytest.raises(ValueError, match="Generator"):
-        tn.nicam_roundtrip(plan, _t(left), _t(right), noise_sigma=0.05)
+    jp = get_plan("pal")
+    for sigma, seed in ((0.05, 1), (2.0, 2), (0.05, None)):
+        kt, kj = (None, None) if seed is None else (prng.PRNGKey(seed), jax.random.PRNGKey(seed))
+        l2, r2, rep, _ = tn.nicam_roundtrip(plan, _t(left), _t(right), noise_sigma=sigma,
+                                            key=kt)
+        jl, jr, jrep, _ = jn.nicam_roundtrip(jp, jnp.asarray(left), jnp.asarray(right),
+                                             noise_sigma=sigma, key=kj)
+        assert torch.equal(l2, _t(jl)) and torch.equal(r2, _t(jr)), (sigma, seed)
+        for k in ("faw_ok", "parity_errors"):
+            assert np.array_equal(rep[k].numpy(), np.asarray(jrep[k])), (sigma, seed, k)
+        if sigma < 1.0:
+            assert int(rep["parity_errors"].sum()) == 0 and _snr(left, l2) > 55.0
+        else:
+            assert int(rep["parity_errors"].sum()) > 0
 
 
 def test_nicam_rides_the_rf_channel(plan):

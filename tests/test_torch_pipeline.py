@@ -326,6 +326,13 @@ def test_port_never_imports_jax():
             raise AssertionError("checked let a NaN made inside through")
         except FloatingPointError:
             pass
+        # JAX's keys and samplers: the plain threefry on the CPU
+        from color_modem_tpu_torch.kernels import prng as prng_k
+        from color_modem_tpu_torch.utils import prng
+        assert prng.split(prng.PRNGKey(7))[0] == (3625411723, 1954958720)
+        assert prng_k.threefry_bits(prng.PRNGKey(0), (8,), "cpu").shape == (8,)
+        noisy = channel.impair(plan, enc(rgb, 0), noise_sigma=0.02, key=prng.PRNGKey(0))
+        assert psnr(dec(noisy, 0), rgb) > 20.0
         # every module of the port, found by walking the package
         import importlib, pkgutil
         import color_modem_tpu_torch as port
@@ -336,7 +343,7 @@ def test_port_never_imports_jax():
                     "frame.image_io", "utils.debug", "utils.testimages", "benchmark",
                     "entry", "utils.profiling", "golden", "golden.frame", "golden.mac",
                     "golden.modems", "golden.palplus", "golden.sound", "golden.transmission",
-                    "kernels.sanitize"}
+                    "kernels.sanitize", "kernels.prng", "utils.prng"}
         assert {"color_modem_tpu_torch." + n for n in surfaces} <= walked, sorted(walked)
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         ref = sorted(m for m in sys.modules if m.split(".")[0] == "color_modem_tpu")

@@ -7,7 +7,8 @@ Bounds: the plan's arrays bit-identical (sound filters included);
 same input, > 54 / > 42 dB against golden
 (tests/test_golden_transmission.py); transparency, detectors, carrier
 recovery, AGC, DOC and co-channel at tests/test_rf.py's bounds.  Dropouts
-draw from a ``torch.Generator``, so DOC is held by its effect.
+draw from JAX's key (``utils/prng.py``): the damaged RF equals JAX's bit
+for bit, and DOC's decode is held to JAX's at the 60 dB parity bound.
 """
 
 import dataclasses
@@ -25,6 +26,7 @@ from color_modem_tpu_torch.frame import rf as trf
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
 from color_modem_tpu_torch.frame.raster import make_raster
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
+from color_modem_tpu_torch.utils import prng
 from color_modem_tpu_torch.utils.metrics import psnr
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -228,12 +230,18 @@ def test_row_quantile_matches_jnp_quantile():
 def test_dropouts_and_doc(ntsc):
     _, dec, x, _, rfp, rf = ntsc
     assert torch.equal(trf.rf_demodulate(rfp, rf, 0, doc=True), trf.rf_demodulate(rfp, rf, 0))
-    hit = trf.rf_dropout(rfp, rf, torch.Generator().manual_seed(7), rate=0.15, len_us=8.0)
+    hit = trf.rf_dropout(rfp, rf, 7, rate=0.15, len_us=8.0)
     lost = (hit == 0) & (rf != 0)
     lines_hit = lost.any(dim=-1).float().mean()
     assert 0.08 < float(lines_hit) < 0.22
-    again = trf.rf_dropout(rfp, rf, torch.Generator().manual_seed(7), rate=0.15, len_us=8.0)
+    again = trf.rf_dropout(rfp, rf, prng.PRNGKey(7), rate=0.15, len_us=8.0)
     assert torch.equal(hit, again)
+    # JAX's dropouts from the same key, and its compensator on them
+    jrfp = jrf.make_rf_plan(get_plan("ntsc"))
+    j_hit = jrf.rf_dropout(jrfp, jnp.asarray(rf.numpy()), 7, rate=0.15, len_us=8.0)
+    assert np.array_equal(hit.numpy(), np.asarray(j_hit))
+    doc = trf.rf_demodulate(rfp, hit, 0, doc=True)
+    assert _parity_db(doc, jrf.rf_demodulate(jrfp, j_hit, 0, doc=True)) >= 60.0
 
     def rgb_psnr(sig, use_doc):
         return psnr(dec(trf.rf_demodulate(rfp, sig, 0, doc=use_doc), 0)[:, :, 2:-2],

@@ -191,3 +191,59 @@ def test_every_kernel_poisons_its_shared_memory_first(source, static):
     for name in static:
         assert any(f"bf::poison_shared({name}, sizeof({name}));" in b.group(1) for b in blocks)
     assert "%dynamic_smem_size" in (build.CSRC_DIR / "band_fir.cuh").read_text()
+
+
+def _prng_plain(kernel, call, views):
+    """The plain version of a threefry entry point, from its C arguments,
+    into the guarded output view."""
+    from color_modem_tpu_torch.utils import prng
+
+    _, scalars = call
+    out = views[-1]
+    if kernel == "threefry_bits":
+        k0, k1, _ = scalars
+        out.copy_(prng.random_bits_plain(prng.Key(k0, k1), out.shape, out.device))
+        return
+    k0, k1, fold, g0, sigma, _, _ = scalars
+    out.copy_(prng.add_normal_plain(views[0], sigma, prng.Key(k0, k1), out.shape, out.device,
+                                    g0 if fold else None))
+
+
+@pytest.mark.parametrize("row", sanitize.PRNG_ROWS)
+def test_prng_rows_pass_the_guards(row):
+    """The threefry rows' C arguments (``kernels/prng.py::bits_call`` and
+    ``normal_call``, a null addend for the normal alone) through the guard
+    plumbing around the plain versions; the bits' words are not counted as
+    NaNs, and one written past the output is caught."""
+    kernel, call, outs = sanitize.prng_call(row, 2, 17, N, torch.device("cpu"))
+    tensors = call[0]
+    assert (tensors[0] is None) == (row == "threefry_normal")
+    pos = sanitize._order_outputs(tensors, outs)
+    rep = sanitize.guarded_call(lambda v: _prng_plain(kernel, call, v), tensors, pos, GUARD)
+    assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
+    assert rep["sentinels_intact"] and rep["inputs_intact"]
+
+    def past(views):
+        _prng_plain(kernel, call, views)
+        out = views[-1]
+        torch.as_strided(out, (out.numel() + 1,), (1,), out.storage_offset())[-1] = 0.5
+
+    assert not sanitize.guarded_call(past, tensors, pos, GUARD)["sentinels_intact"]
+
+
+def test_threefry_kernel_poisons_its_key_first():
+    """The threefry kernel (one template for both entry points) opens with
+    a poison block over its one shared array, the item's key that thread 0
+    hashes, before that thread writes it: a block that read the key before
+    the barrier would hash with the poison and differ from the normal
+    build."""
+    text = (build.CSRC_DIR / "threefry.cu").read_text()
+    blocks = list(re.finditer(r"#ifdef CMT_POISON\n(.*?)#endif\n", text, re.S))
+    kernels = [m.start() for m in re.finditer(r"__global__ void", text)]
+    assert len(blocks) == len(kernels) == 1
+    body = blocks[0].group(1)
+    assert "bf::poison_shared(key_s, sizeof(key_s));" in body
+    assert body.rstrip().endswith("__syncthreads();")
+    head = text[text.index("{", kernels[0]) + 1:blocks[0].start()]
+    assert head.strip() == "__shared__ uint32_t key_s[2];"
+    assert text.index("key_s[0] = a;") > blocks[0].end()

@@ -10,9 +10,11 @@ the device source 1e-6; the transmission hops and the equalizer against
 the JAX runner's noise-free runs to 0.02 dB and 1e-4 (5e-4 through the
 satellite hop's float32 FM phase).  The data services (``caption_bits``,
 ``scramble``) against the JAX runner to 0.02 dB and 1e-4, the caption bits
-exactly; chunk sizes 1e-6 apart (1e-5 through the RF hop).  Noisy runs are compared by chunk independence
-and dB gains only: the port's per-index ``torch.Generator`` noise is not
-the JAX package's PRNG.
+exactly; chunk sizes 1e-6 apart (1e-5 through the RF hop).  Noise is the
+JAX runner's, drawn from the same keys (``utils/prng.py``): the noisy runs
+(channel noise, with NR, through the RF hop, the noisy GCR record, the
+satellite hop at 12 dB CNR) are held to the JAX runner's at the noise-free
+bounds, and their manifests record JAX's ``"abs-frame"``.
 """
 
 import json
@@ -29,6 +31,7 @@ from color_modem_tpu.utils import manifest as jmanifest
 from color_modem_tpu.utils.metrics import fingerprint_jnp
 from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame.video import (
+    NOISE_KEYING,
     process_video,
     synthetic_device_source,
     synthetic_source,
@@ -91,9 +94,10 @@ def test_resume_rejects_config_change(tmp_path):
 
 
 def test_jax_manifests_resume_clean_and_refuse_noisy(tmp_path):
-    """The manifest layouts are the same: a clean JAX-written manifest,
-    with only its backend name changed, resumes in the port.  A noisy one
-    refuses even then, because its noise keying is the JAX PRNG's."""
+    """The manifest layouts are the same: a JAX-written manifest, with only
+    its backend name changed, resumes in the port, a noisy one too, since
+    the port draws JAX's noise and records JAX's keying; another keying
+    refuses."""
     src = synthetic_source(L, N)
     for name, chan in (("clean", None), ("noisy", {"noise_sigma": 0.02})):
         d = str(tmp_path / name)
@@ -105,11 +109,14 @@ def test_jax_manifests_resume_clean_and_refuse_noisy(tmp_path):
         m["config"]["backend"] = "kernel"
         with open(path, "w") as f:
             json.dump(m, f)
-        if chan is None:
-            s = process_video(tplan(), src, 2, d, decoder="notch", chunk=2, device="cpu")
-            assert s["frames_processed_this_run"] == 0
-        else:
-            assert m["config"]["noise_keying"] == "abs-frame"
+        s = process_video(tplan(), src, 2, d, decoder="notch", chunk=2, channel=chan,
+                          device="cpu")
+        assert s["frames_processed_this_run"] == 0
+        if chan is not None:
+            assert m["config"]["noise_keying"] == NOISE_KEYING == "abs-frame"
+            m["config"]["noise_keying"] = "abs-frame-torch-cpu"
+            with open(path, "w") as f:
+                json.dump(m, f)
             with pytest.raises(ValueError, match="refusing to resume"):
                 process_video(tplan(), src, 2, d, decoder="notch", chunk=2, channel=chan,
                               device="cpu")
@@ -162,13 +169,23 @@ def test_video_interlaced(tmp_path):
 
 
 def test_video_nr_and_tail_padding(tmp_path):
+    """The noisy channel with and without NR against the JAX runner on the
+    same keys (0.01 dB, frames to 5e-4), NR's gain, JAX's keying."""
     noise = {"noise_sigma": 0.02}
-    raw = process_video(tplan(), static_source(3), 4, str(tmp_path / "raw"),
-                        decoder="comb3", chunk=4, channel=dict(noise), device="cpu")
-    den = process_video(tplan(), static_source(3), 4, str(tmp_path / "den"),
-                        decoder="comb3", chunk=4, channel=dict(noise), nr=True, device="cpu")
+    runs = {}
+    for name, nr in (("raw", False), ("den", True)):
+        d, dj = str(tmp_path / name), str(tmp_path / f"{name}_jax")
+        runs[name] = process_video(tplan(), static_source(3), 4, d, decoder="comb3", chunk=4,
+                                   channel=dict(noise), nr=nr, save_outputs=True,
+                                   device="cpu")
+        s_j = jvideo.process_video(get_plan("ntsc"), static_source(3), 4, dj,
+                                   decoder="comb3", chunk=4, channel=dict(noise), nr=nr,
+                                   save_outputs=True)
+        assert abs(runs[name]["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.01, (name, s_j)
+        np.testing.assert_allclose(saved(d, 4, 4), saved(dj, 4, 4), rtol=0, atol=DEC_ATOL)
+    raw, den = runs["raw"], runs["den"]
     assert den["min_psnr_db"] - raw["min_psnr_db"] > 2.5, (raw, den)
-    assert den["noise_keying"] == "abs-frame-torch-cpu"
+    assert den["noise_keying"] == "abs-frame"
     # a one-frame tail chunk pads with repeats of its last frame
     d = str(tmp_path / "tail")
     s = process_video(tplan(), static_source(3), 5, d, decoder="comb3", chunk=4,
@@ -207,21 +224,28 @@ def test_chunk_independent(case, tmp_path):
 #: the JAX runner's).  Satellite: the reference's float32 FM phase integral
 #: (its cumsum) is off the float64 one by up to ~2e-4 rad per sample, which
 #: moves the decoded RGB by ~1.5e-4 (tests/test_torch_satellite.py), hence
-#: 5e-4 there.
+#: 5e-4 there, at 12 dB CNR too.  The noisy cases draw JAX's noise from the
+#: same keys and keep their noise-free bounds.
 HOP_CASES = {
     "rf": (dict(rf=True), 1e-4),
     "rf-interlaced": (dict(rf=True, interlaced=True), 1e-4),
     "satellite": (dict(satellite=True), 5e-4),
     "equalize": (dict(channel={"ghost_delay_us": 3.0, "ghost_gain": 0.3, "equalize": True}),
                  1e-4),
+    "channel-noise": (dict(channel={"noise_sigma": 0.02}), 1e-4),
+    "channel-noise-interlaced": (dict(channel={"noise_sigma": 0.02}, interlaced=True), 1e-4),
+    "rf-noise": (dict(rf=True, channel={"noise_sigma": 0.02}), 1e-4),
+    "equalize-noise": (dict(channel={"ghost_delay_us": 3.0, "ghost_gain": 0.3,
+                                     "noise_sigma": 0.02, "equalize": True}), 1e-4),
+    "satellite-cnr": (dict(satellite=True, sat_cnr=12.0), 5e-4),
 }
 
 
 @pytest.mark.parametrize("case", list(HOP_CASES))
 def test_hop_runs_match_jax(case, tmp_path):
-    """The transmission hops and the GCR equalizer between encode and decode,
-    noise-free, against the JAX runner: PSNR to 0.02 dB, frames to the
-    case's bound."""
+    """The transmission hops, the GCR equalizer and the noisy channel
+    between encode and decode against the JAX runner: PSNR to 0.02 dB,
+    frames to the case's bound, the same manifest keys."""
     kw, atol = HOP_CASES[case]
     s_j = jvideo.process_video(get_plan("ntsc"), synthetic_source(L, N), 4,
                                str(tmp_path / "j"), decoder="comb3", chunk=2,
@@ -236,7 +260,7 @@ def test_hop_runs_match_jax(case, tmp_path):
         config = json.load(f)["config"]
     with open(os.path.join(str(tmp_path / "j"), "manifest.json")) as f:
         config_j = json.load(f)["config"]
-    for key in ("rf", "satellite", "sat_cnr", "channel"):
+    for key in ("rf", "satellite", "sat_cnr", "channel", "noise_keying", "interlaced"):
         assert config.get(key) == config_j.get(key), key
 
 
@@ -255,35 +279,45 @@ CHUNK_HOP_CASES = {
 @pytest.mark.parametrize("case", list(CHUNK_HOP_CASES))
 def test_hop_runs_are_chunk_independent(case, tmp_path):
     """The hops are frame-local, and satellite noise, channel noise and the
-    noisy GCR record draw from generators keyed on absolute indices (or a
-    fixed seed), so the chunk size cannot change the output."""
+    noisy GCR record draw from keys folded with absolute indices (or a
+    fixed key), so the chunk size cannot change the output."""
     kw, n, chunks, atol = CHUNK_HOP_CASES[case]
     outs = {}
     for chunk in chunks:
         d = str(tmp_path / f"c{chunk}")
         s = process_video(tplan(), synthetic_source(L, N), n, d, decoder="comb3",
                           chunk=chunk, save_outputs=True, device="cpu", **kw)
-        assert ("noise_keying" in s) == (case != "satellite")
+        # as the JAX runner's manifest: where channel noise is drawn
+        assert ("noise_keying" in s) == ("noise_sigma" in kw.get("channel", {}))
         outs[chunk] = saved(d, n, chunk)
     np.testing.assert_allclose(outs[chunks[0]], outs[chunks[1]], rtol=0, atol=atol)
 
 
 def test_noise_families_do_not_collide(tmp_path):
     """The satellite noise differs from the channel noise of the same frame:
-    its seeds start at SAT_NOISE_SEED, the GCR record's at GCR_NOISE_SEED."""
+    its base key is ``PRNGKey(0x5A7)``, the channel's ``PRNGKey(0)``, the
+    GCR record's ``PRNGKey(1)``, as in the JAX runner; indices past 2^32
+    wrap as JAX's int32 arithmetic does.  A noisy satellite run equals the
+    JAX runner's."""
     from color_modem_tpu_torch.frame import video as tvideo
+    from color_modem_tpu_torch.utils import prng
 
-    assert tvideo.SAT_NOISE_SEED == 2**30 and tvideo.GCR_NOISE_SEED == 2**31
-    a = tvideo._unit_noise((8,), [0, 1], torch.device("cpu"))
-    b = tvideo._unit_noise((8,), [tvideo.SAT_NOISE_SEED, tvideo.SAT_NOISE_SEED + 1],
-                           torch.device("cpu"))
+    keys = (tvideo.CHANNEL_NOISE_KEY, tvideo.SAT_NOISE_KEY, tvideo.GCR_NOISE_KEY)
+    assert keys == (prng.PRNGKey(0), prng.PRNGKey(0x5A7), prng.PRNGKey(1))
+    x = torch.zeros(2, 8)
+    a, b = (prng.add_normal(x, 1.0, k, 0) for k in keys[:2])
     assert not torch.equal(a, b)
-    assert torch.equal(a[1], torch.randn(8, generator=torch.Generator().manual_seed(1)))
-    s = process_video(tplan(), synthetic_source(L, N), 2, str(tmp_path / "s"),
-                      decoder="notch", chunk=2, satellite=True, sat_cnr=14.0, device="cpu")
+    assert torch.equal(a[1], prng.normal(prng.fold_in(keys[0], 1), (8,), "cpu"))
+    assert torch.equal(prng.add_normal(x, 1.0, keys[1], 2**32 - 1)[1], b[0])
+    d, dj = str(tmp_path / "s"), str(tmp_path / "j")
+    s = process_video(tplan(), synthetic_source(L, N), 2, d, decoder="notch", chunk=2,
+                      satellite=True, sat_cnr=14.0, save_outputs=True, device="cpu")
+    s_j = jvideo.process_video(get_plan("ntsc"), synthetic_source(L, N), 2, dj,
+                               decoder="notch", chunk=2, satellite=True, sat_cnr=14.0,
+                               save_outputs=True)
     assert s["sat_cnr"] == 14.0 and s["satellite"] is True and s["min_psnr_db"] > 25.0
-    with pytest.raises(ValueError, match="2\\^30"):
-        tvideo._index(2**30 - 1, 2)
+    assert abs(s["min_psnr_db"] - s_j["min_psnr_db"]) <= 0.02, (s, s_j)
+    np.testing.assert_allclose(saved(d, 2, 2), saved(dj, 2, 2), rtol=0, atol=5e-4)
 
 
 def test_satellite_and_rf_together_raise(tmp_path):
