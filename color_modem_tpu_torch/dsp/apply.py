@@ -19,6 +19,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from color_modem_tpu_torch.utils.tracing import span
+
 
 def _frozen_f32(mat: np.ndarray) -> np.ndarray:
     mat = mat.astype(np.float32)
@@ -140,12 +142,13 @@ def fir_same_held(x: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
 @lru_cache(maxsize=128)
 def _spectrum_cached(taps_bytes: bytes, dtype: str, n: int, real: bool,
                      device: torch.device) -> torch.Tensor:
-    taps = np.frombuffer(taps_bytes, dtype=dtype)
-    if real:
-        spec = np.fft.rfft(np.pad(taps.astype(np.float64), (0, n - len(taps))))
-    else:
-        spec = np.fft.fft(np.pad(taps.astype(np.complex128), (0, n - len(taps))))
-    return torch.tensor(spec.astype(np.complex64), device=device)
+    with span("cm.build.spectrum"):
+        taps = np.frombuffer(taps_bytes, dtype=dtype)
+        if real:
+            spec = np.fft.rfft(np.pad(taps.astype(np.float64), (0, n - len(taps))))
+        else:
+            spec = np.fft.fft(np.pad(taps.astype(np.complex128), (0, n - len(taps))))
+        return torch.tensor(spec.astype(np.complex64), device=device)
 
 
 def kernel_spectrum(taps, n: int, real: bool, device: torch.device) -> torch.Tensor:

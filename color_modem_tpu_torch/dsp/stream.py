@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from color_modem_tpu_torch.dsp.apply import fir_same_fft, kernel_spectrum
+from color_modem_tpu_torch.utils.tracing import span
 
 #: the block size floor of the JAX package (chosen there for the TPU)
 _NBLK_FLOOR = 32768
@@ -316,5 +317,6 @@ def plan_memo(plan, key, build):
     instance's ``__dict__`` beside the fields."""
     memo = plan.__dict__.setdefault("_memo", {})
     if key not in memo:
-        memo[key] = build()
+        with span("cm.build.memo"):
+            memo[key] = build()
     return memo[key]

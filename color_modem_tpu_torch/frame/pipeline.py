@@ -31,6 +31,7 @@ from color_modem_tpu_torch.modem import niir, qam, secam
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan, plan_on
 from color_modem_tpu_torch.separate.comb import ADAPTIVE, separate, stencil_signal
 from color_modem_tpu_torch.separate.delayline import average_with_neighbor
+from color_modem_tpu_torch.utils.tracing import span
 
 BACKENDS = ("kernel", "plain")
 #: QAM decoders that average the demodulated chroma over adjacent lines
@@ -199,26 +200,29 @@ def make_pipeline(plan: Plan, decoder: str = "notch", backend: str = "kernel",
 
     @torch.inference_mode()
     def encode(rgb, frame0=0):
-        rgb = _input(rgb)
-        b, _, l, _ = rgb.shape
-        g = frame_line_index(plan, frame0, b, l, device)
-        comp = encode_block(plan, rgb, g, backend)
-        return comp if rp is None else add_raster(plan, rp, comp, g)
+        with span("cm.pipeline.encode"):
+            rgb = _input(rgb)
+            b, _, l, _ = rgb.shape
+            g = frame_line_index(plan, frame0, b, l, device)
+            comp = encode_block(plan, rgb, g, backend)
+            return comp if rp is None else add_raster(plan, rp, comp, g)
 
     @torch.inference_mode()
     def decode(comp, frame0=0):
-        comp = _input(comp)
-        b, l = comp.shape[0], comp.shape[1]
-        g = frame_line_index(plan, frame0, b, l, device)
-        if rp is not None:
-            comp = strip_raster(rp, comp)
-        return decode_block(plan, comp, g, decoder, backend)
+        with span("cm.pipeline.decode"):
+            comp = _input(comp)
+            b, l = comp.shape[0], comp.shape[1]
+            g = frame_line_index(plan, frame0, b, l, device)
+            if rp is not None:
+                comp = strip_raster(rp, comp)
+            return decode_block(plan, comp, g, decoder, backend)
 
     @torch.inference_mode()
     def roundtrip(rgb, frame0=0):
-        rgb = _input(rgb)
-        b, _, l, _ = rgb.shape
-        g = frame_line_index(plan, frame0, b, l, device)
-        return roundtrip_block(plan, rgb, g, decoder, backend)
+        with span("cm.pipeline.roundtrip"):
+            rgb = _input(rgb)
+            b, _, l, _ = rgb.shape
+            g = frame_line_index(plan, frame0, b, l, device)
+            return roundtrip_block(plan, rgb, g, decoder, backend)
 
     return encode, decode, roundtrip

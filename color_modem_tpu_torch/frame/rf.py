@@ -59,6 +59,7 @@ from color_modem_tpu_torch.dsp.stream import (
 )
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan
 from color_modem_tpu_torch.utils import prng
+from color_modem_tpu_torch.utils.tracing import span
 
 TWO_PI = 2.0 * np.pi
 
@@ -206,88 +207,90 @@ def make_rf_plan(
     the row length when it is not ``plan.n_samples`` (``raster.n_total``
     for rastered lines).
     """
-    if r < 1 or r & (r - 1):
-        raise ValueError(
-            f"make_rf_plan: oversampling r={r} must be a power of two — "
-            "the stream engine's rate changes partition power-of-two FFT "
-            "blocks into r dense sub-blocks (dsp/stream._check_rate)"
-        )
-    fs = plan.fs
-    fs_rf = r * fs
-    n = plan.n_samples if row_samples is None else int(row_samples)
-    if f_video is None:
-        f_video = (0.49 if plan.cfg.is_fm else 0.46) * fs
-    # vestige per BT.470: 0.75 MHz for System M (525), 1.25 MHz for 625-line
-    f_vestige = 0.75e6 if plan.cfg.total_lines == 525 else 1.25e6
-    if fc is None:
-        fc = f_video + 2.0e6
-    cpl_num = 2 * int(round(fc * n / fs - 0.5)) + 1
-    fc = cpl_num / 2 * fs / n
-    if 2 * fc - f_vestige < f_video + transition + _GUARD:
-        raise ValueError(
-            f"fc={fc/1e6:.2f} MHz too low: the 2fc detection image "
-            f"(down to {(2*fc - f_vestige)/1e6:.2f} MHz) overlaps the "
-            f"{f_video/1e6:.2f} MHz video band — raise fc"
-        )
-    if fc + f_video + transition > fs_rf / 2 - _GUARD:
-        raise ValueError(
-            f"fc+f_video={(fc+f_video)/1e6:.2f} MHz exceeds RF Nyquist "
-            f"{fs_rf/2e6:.2f} MHz — raise r (r={r})"
-        )
-    if fc - f_vestige < _GUARD:
-        raise ValueError(f"fc={fc/1e6:.2f} MHz leaves no room for the vestige")
+    with span("cm.build.rf_plan"):
+        if r < 1 or r & (r - 1):
+            raise ValueError(
+                f"make_rf_plan: oversampling r={r} must be a power of two — "
+                "the stream engine's rate changes partition power-of-two FFT "
+                "blocks into r dense sub-blocks (dsp/stream._check_rate)"
+            )
+        fs = plan.fs
+        fs_rf = r * fs
+        n = plan.n_samples if row_samples is None else int(row_samples)
+        if f_video is None:
+            f_video = (0.49 if plan.cfg.is_fm else 0.46) * fs
+        # vestige per BT.470: 0.75 MHz for System M (525), 1.25 MHz for 625-line
+        f_vestige = 0.75e6 if plan.cfg.total_lines == 525 else 1.25e6
+        if fc is None:
+            fc = f_video + 2.0e6
+        cpl_num = 2 * int(round(fc * n / fs - 0.5)) + 1
+        fc = cpl_num / 2 * fs / n
+        if 2 * fc - f_vestige < f_video + transition + _GUARD:
+            raise ValueError(
+                f"fc={fc/1e6:.2f} MHz too low: the 2fc detection image "
+                f"(down to {(2*fc - f_vestige)/1e6:.2f} MHz) overlaps the "
+                f"{f_video/1e6:.2f} MHz video band — raise fc"
+            )
+        if fc + f_video + transition > fs_rf / 2 - _GUARD:
+            raise ValueError(
+                f"fc+f_video={(fc+f_video)/1e6:.2f} MHz exceeds RF Nyquist "
+                f"{fs_rf/2e6:.2f} MHz — raise r (r={r})"
+            )
+        if fc - f_vestige < _GUARD:
+            raise ValueError(f"fc={fc/1e6:.2f} MHz leaves no room for the vestige")
 
-    tx_taps = design.freq_sampled_taps(
-        fs_rf,
-        lambda f: design.raised_cosine_bandpass_response(
-            f, fc - f_vestige, fc + f_video, transition
-        ),
-        ntaps,
-    )
-    rx_taps = design.freq_sampled_taps(
-        fs_rf, lambda f: _nyquist_flank(f, fc, f_vestige, f_video, transition), ntaps)
-    det_taps = design.lowpass_taps(fs_rf, f_video + transition, ntaps)
+        tx_taps = design.freq_sampled_taps(
+            fs_rf,
+            lambda f: design.raised_cosine_bandpass_response(
+                f, fc - f_vestige, fc + f_video, transition
+            ),
+            ntaps,
+        )
+        rx_taps = design.freq_sampled_taps(
+            fs_rf, lambda f: _nyquist_flank(f, fc, f_vestige, f_video, transition), ntaps)
+        det_taps = design.lowpass_taps(fs_rf, f_video + transition, ntaps)
 
-    if intercarrier is None:
-        intercarrier = f_video + 0.75e6
-    if snd_dev is None:
-        snd_dev = 25e3 if plan.cfg.total_lines == 525 else 50e3
-    snd_num = 2 * int(round((fc + intercarrier) * n / fs - 0.5)) + 1
-    f_snd = snd_num / 2 * fs / n
-    snd_half = 2.0 * (snd_dev + audio_bw)
-    if f_snd - snd_half < fc + f_video + transition:
-        raise ValueError(
-            f"sound carrier {f_snd/1e6:.2f} MHz overlaps the video "
-            f"sideband top {(fc + f_video)/1e6:.2f} MHz — raise intercarrier"
+        if intercarrier is None:
+            intercarrier = f_video + 0.75e6
+        if snd_dev is None:
+            snd_dev = 25e3 if plan.cfg.total_lines == 525 else 50e3
+        snd_num = 2 * int(round((fc + intercarrier) * n / fs - 0.5)) + 1
+        f_snd = snd_num / 2 * fs / n
+        snd_half = 2.0 * (snd_dev + audio_bw)
+        if f_snd - snd_half < fc + f_video + transition:
+            raise ValueError(
+                f"sound carrier {f_snd/1e6:.2f} MHz overlaps the video "
+                f"sideband top {(fc + f_video)/1e6:.2f} MHz — raise intercarrier"
+            )
+        if f_snd + snd_half > fs_rf / 2 - _GUARD:
+            raise ValueError(
+                f"sound carrier {f_snd/1e6:.2f} MHz too close to RF Nyquist "
+                f"{fs_rf/2e6:.2f} MHz — raise r"
+            )
+        snd_bpf = design.freq_sampled_taps(
+            fs_rf,
+            lambda f: design.raised_cosine_bandpass_response(
+                f, f_snd - snd_half, f_snd + snd_half, snd_half
+            ),
+            snd_ntaps,
         )
-    if f_snd + snd_half > fs_rf / 2 - _GUARD:
-        raise ValueError(
-            f"sound carrier {f_snd/1e6:.2f} MHz too close to RF Nyquist "
-            f"{fs_rf/2e6:.2f} MHz — raise r"
+        snd_lpf = design.lowpass_taps(fs_rf, snd_half, snd_ntaps)
+        aud_lpf = design.lowpass_taps(fs, audio_bw + 3e3, 8192 * max(1, round(fs / 13.5e6)) + 1)
+        return RFPlan(
+            plan=plan, r=r, row_samples=n, fc=fc, cpl_num=cpl_num,
+            f_vestige=f_vestige, f_video=f_video,
+            tx_taps=tx_taps, rx_taps=rx_taps, det_taps=det_taps,
+            ramp=sample_phase_ramp(fc, fs_rf, n * r),
+            f_snd=f_snd, snd_num=snd_num, snd_dev=snd_dev, snd_amp=snd_amp,
+            snd_bpf=snd_bpf, snd_lpf=snd_lpf, aud_lpf=aud_lpf,
+            snd_ramp=sample_phase_ramp(f_snd, fs_rf, n * r),
         )
-    snd_bpf = design.freq_sampled_taps(
-        fs_rf,
-        lambda f: design.raised_cosine_bandpass_response(
-            f, f_snd - snd_half, f_snd + snd_half, snd_half
-        ),
-        snd_ntaps,
-    )
-    snd_lpf = design.lowpass_taps(fs_rf, snd_half, snd_ntaps)
-    aud_lpf = design.lowpass_taps(fs, audio_bw + 3e3, 8192 * max(1, round(fs / 13.5e6)) + 1)
-    return RFPlan(
-        plan=plan, r=r, row_samples=n, fc=fc, cpl_num=cpl_num,
-        f_vestige=f_vestige, f_video=f_video,
-        tx_taps=tx_taps, rx_taps=rx_taps, det_taps=det_taps,
-        ramp=sample_phase_ramp(fc, fs_rf, n * r),
-        f_snd=f_snd, snd_num=snd_num, snd_dev=snd_dev, snd_amp=snd_amp,
-        snd_bpf=snd_bpf, snd_lpf=snd_lpf, aud_lpf=aud_lpf,
-        snd_ramp=sample_phase_ramp(f_snd, fs_rf, n * r),
-    )
 
 
 @lru_cache(maxsize=64)
 def _table(values: bytes, device: torch.device) -> torch.Tensor:
-    return torch.tensor(np.frombuffer(values, np.float32), device=device)
+    with span("cm.build.table"):
+        return torch.tensor(np.frombuffer(values, np.float32), device=device)
 
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:

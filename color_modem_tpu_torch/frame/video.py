@@ -91,6 +91,7 @@ from color_modem_tpu_torch.parallel.sharded import (
 from color_modem_tpu_torch.utils.manifest import ChunkManifest
 from color_modem_tpu_torch.utils import prng
 from color_modem_tpu_torch.utils.metrics import fingerprint, fingerprint_hex
+from color_modem_tpu_torch.utils.tracing import span
 from color_modem_tpu_torch.utils.upload import upload
 
 #: (start, count) -> (count, 3, L, N) frames, a NumPy array or a tensor
@@ -241,334 +242,339 @@ def process_video(
     other ranks write nothing and return None.  The manifest records the
     mesh, so a run resumed with another mesh is refused.
     """
-    want_sound = rf_audio is not None
-    if want_sound and not rf:
-        raise ValueError("rf_audio rides the RF sound carrier — pass rf=True")
-    if satellite and rf:
-        raise ValueError(
-            "satellite (FM) and rf (VSB-AM) are different transmission "
-            "layers; pick one"
-        )
-    if scramble is not None:
-        if scramble[0] not in SCRAMBLE_MODES:
-            raise ValueError(f"scramble mode must be one of {SCRAMBLE_MODES}, "
-                             f"got {scramble[0]!r}")
-        if channel and channel.get("equalize"):
-            raise ValueError("scramble breaks the stream continuity the GCR equalizer "
-                             "needs; descramble before equalizing instead")
-    if mesh is None:
-        device = resolve_device(device)
-    else:
-        want = torch.device(device)
-        if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
-            raise ValueError(f"device {want} is not the mesh's device {mesh.device}: "
-                             "every rank computes on its mesh's device")
-        device = mesh.device
-    # with a mesh, rank 0 alone writes; every rank reads the manifest here,
-    # before rank 0 can mark a chunk (its first mark follows a gather)
-    rank0 = mesh is None or dist.get_rank() == 0
-    if rank0:
-        os.makedirs(out_dir, exist_ok=True)
-    manifest = ChunkManifest(out_dir) if resume else None
-    if lines is None:
-        lines = int(source(0, 1).shape[2])
-    noisy = bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0
-    config = {
-        "standard": plan.cfg.name,
-        "decoder": decoder,
-        "samples": plan.n_samples,
-        "lines": lines,
-        "chunk": chunk,
-        "backend": backend,
-        "channel": channel,
-        "interlaced": interlaced,
-        # sparse keys: an always-present new key would refuse every older
-        # manifest; the sigma is part of the config, since resuming with
-        # another gate threshold would mix denoise levels
-        **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
-        # as the JAX runner: where channel noise is drawn
-        **({"noise_keying": NOISE_KEYING} if noisy else {}),
-        **({"scramble": scramble[0], "scramble_key": scramble[1]} if scramble else {}),
-        **({"rf": True} if rf else {}),
-        **({"rf_audio": True} if want_sound else {}),
-        **({"rf_audio_bw": rf_audio_bw} if rf_audio_bw != 15e3 else {}),
-        **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
-        **({"caption": True} if caption_bits is not None else {}),
-        "mesh": mesh.shape if mesh is not None else None,
-    }
-    if manifest:
-        manifest.check_config(config)
-
-    if mesh is None:
-        make = make_interlaced_pipeline if interlaced else make_pipeline
-        enc_f, dec_f, rt_f = make(plan, decoder, backend, device)
-    else:
-        make = make_sharded_interlaced_pipeline if interlaced else make_sharded_pipeline
-        enc_f, dec_f, rt_f = make(plan, mesh, decoder, backend)
-
-    # interlaced encode puts fields (2 per frame) on the leading axis
-    units = 2 if interlaced else 1
-
-    def _lines(comp: torch.Tensor, frame0: int) -> torch.Tensor:
-        """The transmitted blocks' absolute line indices (field-sequential
-        when interlaced): the keying of the scrambler."""
-        if interlaced:
-            return field_line_index(plan, frame0, comp.shape[0] // 2, comp.shape[-2], device)
-        return frame_line_index(plan, frame0, comp.shape[0], comp.shape[-2], device)
-
-    cap_spec = None
-    if caption_bits is not None:
-        cap_spec = cc_spec(plan)
-        cap_bits = upload(caption_bits, device, np.int64)
-
-    hop = None
-    if rf:
-        rfp = rf_mod.make_rf_plan(plan, audio_bw=rf_audio_bw)
-
-        def hop(comp, frame0, aud=None):
-            # the carrier's row law keys on the absolute leading-axis index
-            g0 = frame0 * units
-            rf_sig = rf_mod.rf_modulate(rfp, comp, g0)
-            aud_rx = None
-            if aud is not None:
-                # the chunk's frames (fields when interlaced: consecutive
-                # halves of each frame's block) are one broadcast stream,
-                # over the rank ring's order with a mesh
-                aud = aud.reshape(rf_sig.shape[0], -1)
-                phi0 = float(phi0_all[min(frame0, n_frames)])
-                rf_sig = rf_mod.sound_on_rf(rfp, rf_sig, g0, aud, phi0)
-                aud_rx = (rf_mod.sound_from_rf(rfp, rf_sig, g0) if mesh is None
-                          else sound_from_rf_ring(mesh, rfp, rf_sig, g0))
-            return rf_mod.rf_demodulate(rfp, rf_sig, g0), aud_rx
-
-    elif satellite:
-        sp = sat_mod.make_sat_plan(plan.fs, plan.n_samples)
-        sat_sigma = sat_mod.noise_sigma(sp, sat_cnr) if sat_cnr is not None else 0.0
-
-        def hop(comp, frame0, aud=None):
-            # frame-local by design (per-frame circular FM); the noise keys
-            # on each item's absolute leading-axis index
-            rf_sig = sat_mod.fm_modulate(sp, comp)
-            if sat_sigma:
-                rf_sig = prng.add_normal(rf_sig, sat_sigma, SAT_NOISE_KEY, frame0 * units)
-            return sat_mod.fm_demodulate(sp, rf_sig), None
-
-    chan_noise_sigma = 0.0
-    _channel = None
-    if channel:
-        channel = dict(channel)
-        equalize = bool(channel.pop("equalize", False))
-        vhs = bool(channel.pop("vhs", False))
-        chan_noise_sigma = float(channel.pop("noise_sigma", 0.0) or 0.0)
-        if equalize:
-            gcr = torch.tensor(gcr_record(plan)[None], device=device)
-            eq_ntaps = ntaps_for_delay(plan, float(channel.get("ghost_delay_us", 0.0)))
-
-        def _channel(comp: torch.Tensor, frame0: int) -> torch.Tensor:  # noqa: F811
-            comp = impair(plan, comp, **channel)
-            if chan_noise_sigma > 0.0:
-                comp = prng.add_normal(comp, chan_noise_sigma, CHANNEL_NOISE_KEY,
-                                       frame0 * units)
-            if vhs:
-                comp = vhs_playback(plan, comp)
-            if equalize:
-                rx = impair(plan, gcr, **channel)[0]
-                if chan_noise_sigma > 0.0:
-                    # the record's own fixed realisation: the designed taps
-                    # do not depend on the chunk
-                    rx = prng.add_normal(rx, chan_noise_sigma, GCR_NOISE_KEY)
-                comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
-            return comp
-
-    direct = hop is None and _channel is None and cap_spec is None and scramble is None
-
-    def link(comp: torch.Tensor, frame0: int, aud=None) -> tuple:
-        """The transmission between encoder and decoder, on whole frames
-        (fields when interlaced) from ``frame0`` on: the caption cell on
-        row 0 of each frame (of each frame's first field), keyed by the
-        absolute frame index, the scrambler over the finished composite,
-        the hop, the composite channel (the receiver side), then the
-        subscriber's keyed descrambler (the services descramble
-        bit-exactly) and the data slicer.  Returns the received composite as
-        the decoder sees it, the received audio and the caption cells
-        (float32), each None where there is none."""
-        if cap_spec is not None:
-            idx = torch.clamp(frame_indices(frame0, comp.shape[0] // units, device), 0,
-                              cap_bits.shape[0] - 1).to(torch.int64)
-            comp[::units, 0, :] = encode_data_line(plan, cap_spec, cap_bits[idx])
+    with span("cm.video.setup"):
+        want_sound = rf_audio is not None
+        if want_sound and not rf:
+            raise ValueError("rf_audio rides the RF sound carrier — pass rf=True")
+        if satellite and rf:
+            raise ValueError(
+                "satellite (FM) and rf (VSB-AM) are different transmission "
+                "layers; pick one"
+            )
         if scramble is not None:
-            comp = scramble_block(plan, comp, _lines(comp, frame0), *scramble)
-        aud_rx = None
-        if hop is not None:
-            comp, aud_rx = hop(comp, frame0, aud)
-        if _channel is not None:
-            comp = _channel(comp, frame0)
-        if scramble is not None:
-            comp = descramble_block(plan, comp, _lines(comp, frame0), *scramble)
-        cells = None
-        if cap_spec is not None:
-            cells = decode_data_line(plan, cap_spec, comp[::units, 0, :])[0].to(torch.float32)
-        return comp, aud_rx, cells
-
-    def _link_stage(comp, *args):
-        """:func:`link` as ``sharded.hop_stage`` calls a hop."""
-        return link(comp, args[-1], *args[:-1])
-
-    def _to_rank0(t):
-        return None if t is None else gather_blocks(mesh, t, "frames")
-
-    def roundtrip(rgb, frame0, aud=None) -> tuple:
-        """(decoded frames, received audio, caption cells).  With a mesh,
-        ``rgb`` and ``aud`` are this rank's blocks and the results arrive
-        on rank 0 (None on the others)."""
+            if scramble[0] not in SCRAMBLE_MODES:
+                raise ValueError(f"scramble mode must be one of {SCRAMBLE_MODES}, "
+                                 f"got {scramble[0]!r}")
+            if channel and channel.get("equalize"):
+                raise ValueError("scramble breaks the stream continuity the GCR equalizer "
+                                 "needs; descramble before equalizing instead")
         if mesh is None:
-            if direct:
-                return rt_f(rgb, frame0), None, None
-            comp, aud_rx, cells = link(enc_f(rgb, frame0), frame0, aud)
-            return dec_f(comp, frame0), aud_rx, cells
-        if direct:
-            return gather_blocks(mesh, rt_f(rgb, frame0)), None, None
-        streams = () if aud is None else (aud,)
-        comp, aud_rx, cells = hop_stage(mesh, enc_f(rgb, frame0), frame0, _link_stage,
-                                        *streams, units=units)
-        out = gather_blocks(mesh, dec_f(line_block(mesh, comp), frame0))
-        return out, _to_rank0(aud_rx), _to_rank0(cells)
+            device = resolve_device(device)
+        else:
+            want = torch.device(device)
+            if want.type != mesh.device.type or want.index not in (None, mesh.device.index):
+                raise ValueError(f"device {want} is not the mesh's device {mesh.device}: "
+                                 "every rank computes on its mesh's device")
+            device = mesh.device
+        # with a mesh, rank 0 alone writes; every rank reads the manifest here,
+        # before rank 0 can mark a chunk (its first mark follows a gather)
+        rank0 = mesh is None or dist.get_rank() == 0
+        if rank0:
+            os.makedirs(out_dir, exist_ok=True)
+        manifest = ChunkManifest(out_dir) if resume else None
+        if lines is None:
+            lines = int(source(0, 1).shape[2])
+        noisy = bool(channel) and float(channel.get("noise_sigma", 0.0) or 0.0) > 0.0
+        config = {
+            "standard": plan.cfg.name,
+            "decoder": decoder,
+            "samples": plan.n_samples,
+            "lines": lines,
+            "chunk": chunk,
+            "backend": backend,
+            "channel": channel,
+            "interlaced": interlaced,
+            # sparse keys: an always-present new key would refuse every older
+            # manifest; the sigma is part of the config, since resuming with
+            # another gate threshold would mix denoise levels
+            **({"nr": True, "nr_sigma": nr_sigma} if nr else {}),
+            # as the JAX runner: where channel noise is drawn
+            **({"noise_keying": NOISE_KEYING} if noisy else {}),
+            **({"scramble": scramble[0], "scramble_key": scramble[1]} if scramble else {}),
+            **({"rf": True} if rf else {}),
+            **({"rf_audio": True} if want_sound else {}),
+            **({"rf_audio_bw": rf_audio_bw} if rf_audio_bw != 15e3 else {}),
+            **({"satellite": True, "sat_cnr": sat_cnr} if satellite else {}),
+            **({"caption": True} if caption_bits is not None else {}),
+            "mesh": mesh.shape if mesh is not None else None,
+        }
+        if manifest:
+            manifest.check_config(config)
 
-    if nr and nr_sigma is None and chan_noise_sigma > 0.0:
-        nr_sigma = chan_noise_sigma
+        if mesh is None:
+            make = make_interlaced_pipeline if interlaced else make_pipeline
+            enc_f, dec_f, rt_f = make(plan, decoder, backend, device)
+        else:
+            make = make_sharded_interlaced_pipeline if interlaced else make_sharded_pipeline
+            enc_f, dec_f, rt_f = make(plan, mesh, decoder, backend)
 
-    min_frames, overlap, per_rank = 1, 0, 1
-    frame_axis = mesh.size(FRAME_AXIS) if mesh is not None else 1
-    # the link spreads whole frames over every rank, one share each
-    multiple = mesh.n_ranks if mesh is not None and not direct else frame_axis
-    if decoder in ("comb3d", "comb3dA"):
-        # true temporal neighbours at chunk edges: `pt` extra frames per side
-        pt = temporal_comb_spacing(plan.cfg) or 1
-        min_frames, overlap, per_rank = 2 * pt, pt, 2 * pt
-    if nr:
-        # the 3-frame stencil needs >= 2 frames and its true neighbours,
-        # decoded from THEIR true neighbours: one frame per side on top of
-        # the temporal comb's (the JAX runner takes max(pt, 1) here, which
-        # leaves comb3d + NR output chunk-size dependent)
-        min_frames, overlap = max(min_frames, 2), overlap + 1
-    if want_sound:
-        # the sound filters (the 8193-tap audio low-pass) warm up over ~6
-        # lines: one frame of overlap hides the chunk-edge transients
-        overlap = max(overlap, 1)
-        aud_frames, phi0_all = _sound_track(rf_audio, n_frames, rfp.snd_dev, plan.fs)
-        aud_item = aud_frames.shape[1]
+        # interlaced encode puts fields (2 per frame) on the leading axis
+        units = 2 if interlaced else 1
 
-        def _chunk_sound(lo: int, b: int) -> torch.Tensor:
-            """The soundtrack of frames lo .. lo + b on the device (silence
-            past the end), copied to the card without synchronising it."""
-            idx = np.arange(lo, lo + b)
-            blk = aud_frames[np.clip(idx, 0, n_frames - 1)]
-            blk[idx >= n_frames] = 0.0
-            return upload(blk, device)
+        def _lines(comp: torch.Tensor, frame0: int) -> torch.Tensor:
+            """The transmitted blocks' absolute line indices (field-sequential
+            when interlaced): the keying of the scrambler."""
+            if interlaced:
+                return field_line_index(plan, frame0, comp.shape[0] // 2, comp.shape[-2], device)
+            return frame_line_index(plan, frame0, comp.shape[0], comp.shape[-2], device)
 
-    def _input(x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(device=device, dtype=torch.float32)
-        # a copy of its own: the source may hand out read-only or shared memory
-        return upload(x, device, np.float32)
+        cap_spec = None
+        if caption_bits is not None:
+            cap_spec = cc_spec(plan)
+            cap_bits = upload(caption_bits, device, np.int64)
 
-    def _target(b: int) -> int:
-        """Frames a chunk of ``b`` frames goes through the pipeline as: at
-        least ``min_frames``, ``per_rank`` frames on each rank of the frame
-        axis, and a multiple of ``multiple``."""
-        t = max(b, min_frames, frame_axis * per_rank)
-        return t + -t % multiple
+        hop = None
+        if rf:
+            rfp = rf_mod.make_rf_plan(plan, audio_bw=rf_audio_bw)
 
-    def _widen(lo: int, hi: int) -> tuple[int, int]:
-        """With a mesh, the frames the mesh needs beyond the chunk and its
-        overlap are true frames, earlier ones first: they lie beyond the
-        stencils' reach from the chunk's own frames, so the output matches
-        the unsharded run's (repeats only for a video shorter than that)."""
-        need = _target(hi - lo) - (hi - lo)
-        k = min(need, lo)
-        return lo - k, min(n_frames, hi + need - k)
+            def hop(comp, frame0, aud=None):
+                # the carrier's row law keys on the absolute leading-axis index
+                g0 = frame0 * units
+                rf_sig = rf_mod.rf_modulate(rfp, comp, g0)
+                aud_rx = None
+                if aud is not None:
+                    # the chunk's frames (fields when interlaced: consecutive
+                    # halves of each frame's block) are one broadcast stream,
+                    # over the rank ring's order with a mesh
+                    aud = aud.reshape(rf_sig.shape[0], -1)
+                    phi0 = float(phi0_all[min(frame0, n_frames)])
+                    rf_sig = rf_mod.sound_on_rf(rfp, rf_sig, g0, aud, phi0)
+                    aud_rx = (rf_mod.sound_from_rf(rfp, rf_sig, g0) if mesh is None
+                              else sound_from_rf_ring(mesh, rfp, rf_sig, g0))
+                return rf_mod.rf_demodulate(rfp, rf_sig, g0), aud_rx
 
-    def _read(first: int, count: int, end: int) -> torch.Tensor:
-        """Frames ``first .. first + count`` of a chunk that ends at ``end``,
-        on the device; those past ``end`` repeat its last frame (a short
-        tail chunk's padding)."""
-        have = max(0, min(count, end - first))
-        x = _input(source(min(first, end - 1), max(have, 1)))
-        if have == count:
-            return x
-        return torch.cat([x[:have], x[-1:].expand(count - have, *x.shape[1:])])
+        elif satellite:
+            sp = sat_mod.make_sat_plan(plan.fs, plan.n_samples)
+            sat_sigma = sat_mod.noise_sigma(sp, sat_cnr) if sat_cnr is not None else 0.0
 
-    @torch.inference_mode()
-    def step(blk: torch.Tensor, rgb, frame0: int, off: int, n_real: int, skip: int,
-             aud=None):
-        """Round trip (+ NR) of ``blk`` (with a mesh, this rank's block of
-        the chunk ``rgb``), then PSNR and fingerprint over the chunk's own
-        frames, on the device: no host sync.  The fingerprint leaves out the
-        first ``skip`` frames (those a mesh run took in before the unsharded
-        run's first), so the own frames sit where the unsharded run has
-        them.  Returns the frames, the metrics, the received audio (an empty
-        tensor without sound) and the decoded caption bits (None without
-        captions); None on a rank other than 0 of a mesh."""
-        out, aud_rx, cc = roundtrip(blk, frame0, aud)
-        if out is None:
-            return None
-        if nr:
-            out = temporal_nr(out, nr_sigma)
-        e = torch.arange(out.shape[0], device=device)
-        mask = ((e >= off) & (e < off + n_real)).to(torch.float32)
-        pic, ref = out, rgb
-        if cap_spec is not None:
-            # row 0 carries data, not picture
-            pic, ref = out[:, :, 1:, :], rgb[:, :, 1:, :]
-        err = ((pic - ref) ** 2).mean(dim=(1, 2, 3))
-        mse = (err * mask).sum() / float(max(n_real, 1))
-        q = 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-20))
-        metrics = torch.cat([q.reshape(1), fingerprint((pic * mask[:, None, None, None])[skip:])])
-        if aud_rx is None:
-            aud_rx = metrics.new_zeros(0)
-        if cc is not None:
-            cc = cc.reshape(-1)
-        return out, metrics, aud_rx.reshape(-1), cc
+            def hop(comp, frame0, aud=None):
+                # frame-local by design (per-frame circular FM); the noise keys
+                # on each item's absolute leading-axis index
+                rf_sig = sat_mod.fm_modulate(sp, comp)
+                if sat_sigma:
+                    rf_sig = prng.add_normal(rf_sig, sat_sigma, SAT_NOISE_KEY, frame0 * units)
+                return sat_mod.fm_demodulate(sp, rf_sig), None
 
-    t_start = time.perf_counter()
-    pixels = 0
-    frames_done = 0
-    psnrs = []
+        chan_noise_sigma = 0.0
+        _channel = None
+        if channel:
+            channel = dict(channel)
+            equalize = bool(channel.pop("equalize", False))
+            vhs = bool(channel.pop("vhs", False))
+            chan_noise_sigma = float(channel.pop("noise_sigma", 0.0) or 0.0)
+            if equalize:
+                gcr = torch.tensor(gcr_record(plan)[None], device=device)
+                eq_ntaps = ntaps_for_delay(plan, float(channel.get("ghost_delay_us", 0.0)))
 
-    def _resolve(pending) -> None:
-        """One stacked device->host fetch of the wave's metrics, received
-        audio and caption bits, then the saved frames, the audio and caption
-        files and the manifest."""
-        nonlocal frames_done
-        metrics = torch.stack([p[4] for p in pending])
-        flat = torch.cat([metrics.reshape(-1)] + [p[5] for p in pending]
-                         + [p[6] for p in pending if p[6] is not None]).cpu().numpy()
-        vals = flat[: metrics.numel()].reshape(metrics.shape)
-        aud_at = metrics.numel()
-        cc_at = aud_at + sum(p[5].numel() for p in pending)
-        for (start, end, off, out, _, aud_rx, cc), v in zip(pending, vals):
-            q = float(v[0])
-            psnrs.append(q)
-            frames_done += end - start
-            if out is not None:
-                np.save(os.path.join(out_dir, f"rgb_{start:06d}.npy"),
-                        out[off : off + (end - start)].cpu().numpy())
-            if want_sound:
-                a0 = aud_at + off * aud_item
-                np.save(os.path.join(out_dir, f"aud_{start:06d}.npy"),
-                        flat[a0 : a0 + (end - start) * aud_item])
-                aud_at += aud_rx.numel()
+            def _channel(comp: torch.Tensor, frame0: int) -> torch.Tensor:  # noqa: F811
+                comp = impair(plan, comp, **channel)
+                if chan_noise_sigma > 0.0:
+                    comp = prng.add_normal(comp, chan_noise_sigma, CHANNEL_NOISE_KEY,
+                                           frame0 * units)
+                if vhs:
+                    comp = vhs_playback(plan, comp)
+                if equalize:
+                    rx = impair(plan, gcr, **channel)[0]
+                    if chan_noise_sigma > 0.0:
+                        # the record's own fixed realisation: the designed taps
+                        # do not depend on the chunk
+                        rx = prng.add_normal(rx, chan_noise_sigma, GCR_NOISE_KEY)
+                    comp = apply_equalizer(comp, design_equalizer(plan, rx, ntaps=eq_ntaps))
+                return comp
+
+        direct = hop is None and _channel is None and cap_spec is None and scramble is None
+
+        def link(comp: torch.Tensor, frame0: int, aud=None) -> tuple:
+            """The transmission between encoder and decoder, on whole frames
+            (fields when interlaced) from ``frame0`` on: the caption cell on
+            row 0 of each frame (of each frame's first field), keyed by the
+            absolute frame index, the scrambler over the finished composite,
+            the hop, the composite channel (the receiver side), then the
+            subscriber's keyed descrambler (the services descramble
+            bit-exactly) and the data slicer.  Returns the received composite as
+            the decoder sees it, the received audio and the caption cells
+            (float32), each None where there is none."""
             if cap_spec is not None:
-                cells = flat[cc_at : cc_at + cc.numel()].reshape(-1, cap_spec.n_bits)
-                np.save(os.path.join(out_dir, f"cc_{start:06d}.npy"),
-                        cells[off : off + (end - start)].astype(np.int32))
-                cc_at += cc.numel()
-            if manifest:
-                manifest.mark_done(start, end, fp=fingerprint_hex(v[1:]), psnr=round(q, 2))
+                idx = torch.clamp(frame_indices(frame0, comp.shape[0] // units, device), 0,
+                                  cap_bits.shape[0] - 1).to(torch.int64)
+                comp[::units, 0, :] = encode_data_line(plan, cap_spec, cap_bits[idx])
+            if scramble is not None:
+                comp = scramble_block(plan, comp, _lines(comp, frame0), *scramble)
+            aud_rx = None
+            if hop is not None:
+                with span("cm.hop"):
+                    comp, aud_rx = hop(comp, frame0, aud)
+            if _channel is not None:
+                comp = _channel(comp, frame0)
+            if scramble is not None:
+                comp = descramble_block(plan, comp, _lines(comp, frame0), *scramble)
+            cells = None
+            if cap_spec is not None:
+                cells = decode_data_line(plan, cap_spec, comp[::units, 0, :])[0].to(torch.float32)
+            return comp, aud_rx, cells
 
-    # saving keeps each wave's decoded frames alive: keep those waves short
-    wave = 2 if save_outputs else 16
-    pending = []
+        def _link_stage(comp, *args):
+            """:func:`link` as ``sharded.hop_stage`` calls a hop."""
+            return link(comp, args[-1], *args[:-1])
+
+        def _to_rank0(t):
+            return None if t is None else gather_blocks(mesh, t, "frames")
+
+        def roundtrip(rgb, frame0, aud=None) -> tuple:
+            """(decoded frames, received audio, caption cells).  With a mesh,
+            ``rgb`` and ``aud`` are this rank's blocks and the results arrive
+            on rank 0 (None on the others)."""
+            if mesh is None:
+                if direct:
+                    return rt_f(rgb, frame0), None, None
+                comp, aud_rx, cells = link(enc_f(rgb, frame0), frame0, aud)
+                return dec_f(comp, frame0), aud_rx, cells
+            if direct:
+                return gather_blocks(mesh, rt_f(rgb, frame0)), None, None
+            streams = () if aud is None else (aud,)
+            comp, aud_rx, cells = hop_stage(mesh, enc_f(rgb, frame0), frame0, _link_stage,
+                                            *streams, units=units)
+            out = gather_blocks(mesh, dec_f(line_block(mesh, comp), frame0))
+            return out, _to_rank0(aud_rx), _to_rank0(cells)
+
+        if nr and nr_sigma is None and chan_noise_sigma > 0.0:
+            nr_sigma = chan_noise_sigma
+
+        min_frames, overlap, per_rank = 1, 0, 1
+        frame_axis = mesh.size(FRAME_AXIS) if mesh is not None else 1
+        # the link spreads whole frames over every rank, one share each
+        multiple = mesh.n_ranks if mesh is not None and not direct else frame_axis
+        if decoder in ("comb3d", "comb3dA"):
+            # true temporal neighbours at chunk edges: `pt` extra frames per side
+            pt = temporal_comb_spacing(plan.cfg) or 1
+            min_frames, overlap, per_rank = 2 * pt, pt, 2 * pt
+        if nr:
+            # the 3-frame stencil needs >= 2 frames and its true neighbours,
+            # decoded from THEIR true neighbours: one frame per side on top of
+            # the temporal comb's (the JAX runner takes max(pt, 1) here, which
+            # leaves comb3d + NR output chunk-size dependent)
+            min_frames, overlap = max(min_frames, 2), overlap + 1
+        if want_sound:
+            # the sound filters (the 8193-tap audio low-pass) warm up over ~6
+            # lines: one frame of overlap hides the chunk-edge transients
+            overlap = max(overlap, 1)
+            aud_frames, phi0_all = _sound_track(rf_audio, n_frames, rfp.snd_dev, plan.fs)
+            aud_item = aud_frames.shape[1]
+
+            def _chunk_sound(lo: int, b: int) -> torch.Tensor:
+                """The soundtrack of frames lo .. lo + b on the device (silence
+                past the end), copied to the card without synchronising it."""
+                idx = np.arange(lo, lo + b)
+                blk = aud_frames[np.clip(idx, 0, n_frames - 1)]
+                blk[idx >= n_frames] = 0.0
+                return upload(blk, device)
+
+        def _input(x) -> torch.Tensor:
+            if isinstance(x, torch.Tensor):
+                return x.to(device=device, dtype=torch.float32)
+            # a copy of its own: the source may hand out read-only or shared memory
+            return upload(x, device, np.float32)
+
+        def _target(b: int) -> int:
+            """Frames a chunk of ``b`` frames goes through the pipeline as: at
+            least ``min_frames``, ``per_rank`` frames on each rank of the frame
+            axis, and a multiple of ``multiple``."""
+            t = max(b, min_frames, frame_axis * per_rank)
+            return t + -t % multiple
+
+        def _widen(lo: int, hi: int) -> tuple[int, int]:
+            """With a mesh, the frames the mesh needs beyond the chunk and its
+            overlap are true frames, earlier ones first: they lie beyond the
+            stencils' reach from the chunk's own frames, so the output matches
+            the unsharded run's (repeats only for a video shorter than that)."""
+            need = _target(hi - lo) - (hi - lo)
+            k = min(need, lo)
+            return lo - k, min(n_frames, hi + need - k)
+
+        def _read(first: int, count: int, end: int) -> torch.Tensor:
+            """Frames ``first .. first + count`` of a chunk that ends at ``end``,
+            on the device; those past ``end`` repeat its last frame (a short
+            tail chunk's padding)."""
+            have = max(0, min(count, end - first))
+            x = _input(source(min(first, end - 1), max(have, 1)))
+            if have == count:
+                return x
+            return torch.cat([x[:have], x[-1:].expand(count - have, *x.shape[1:])])
+
+        @torch.inference_mode()
+        def step(blk: torch.Tensor, rgb, frame0: int, off: int, n_real: int, skip: int,
+                 aud=None):
+            """Round trip (+ NR) of ``blk`` (with a mesh, this rank's block of
+            the chunk ``rgb``), then PSNR and fingerprint over the chunk's own
+            frames, on the device: no host sync.  The fingerprint leaves out the
+            first ``skip`` frames (those a mesh run took in before the unsharded
+            run's first), so the own frames sit where the unsharded run has
+            them.  Returns the frames, the metrics, the received audio (an empty
+            tensor without sound) and the decoded caption bits (None without
+            captions); None on a rank other than 0 of a mesh."""
+            out, aud_rx, cc = roundtrip(blk, frame0, aud)
+            if out is None:
+                return None
+            if nr:
+                out = temporal_nr(out, nr_sigma)
+            e = torch.arange(out.shape[0], device=device)
+            mask = ((e >= off) & (e < off + n_real)).to(torch.float32)
+            pic, ref = out, rgb
+            if cap_spec is not None:
+                # row 0 carries data, not picture
+                pic, ref = out[:, :, 1:, :], rgb[:, :, 1:, :]
+            err = ((pic - ref) ** 2).mean(dim=(1, 2, 3))
+            mse = (err * mask).sum() / float(max(n_real, 1))
+            q = 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-20))
+            metrics = torch.cat([q.reshape(1),
+                                 fingerprint((pic * mask[:, None, None, None])[skip:])])
+            if aud_rx is None:
+                aud_rx = metrics.new_zeros(0)
+            if cc is not None:
+                cc = cc.reshape(-1)
+            return out, metrics, aud_rx.reshape(-1), cc
+
+        t_start = time.perf_counter()
+        pixels = 0
+        frames_done = 0
+        psnrs = []
+
+        def _resolve(pending) -> None:
+            """One stacked device->host fetch of the wave's metrics, received
+            audio and caption bits, then the saved frames, the audio and caption
+            files and the manifest."""
+            nonlocal frames_done
+            with span("cm.video.fetch"):
+                metrics = torch.stack([p[4] for p in pending])
+                flat = torch.cat([metrics.reshape(-1)] + [p[5] for p in pending]
+                                 + [p[6] for p in pending if p[6] is not None]).cpu().numpy()
+            with span("cm.video.record"):
+                vals = flat[: metrics.numel()].reshape(metrics.shape)
+                aud_at = metrics.numel()
+                cc_at = aud_at + sum(p[5].numel() for p in pending)
+                for (start, end, off, out, _, aud_rx, cc), v in zip(pending, vals):
+                    q = float(v[0])
+                    psnrs.append(q)
+                    frames_done += end - start
+                    if out is not None:
+                        np.save(os.path.join(out_dir, f"rgb_{start:06d}.npy"),
+                                out[off : off + (end - start)].cpu().numpy())
+                    if want_sound:
+                        a0 = aud_at + off * aud_item
+                        np.save(os.path.join(out_dir, f"aud_{start:06d}.npy"),
+                                flat[a0 : a0 + (end - start) * aud_item])
+                        aud_at += aud_rx.numel()
+                    if cap_spec is not None:
+                        cells = flat[cc_at : cc_at + cc.numel()].reshape(-1, cap_spec.n_bits)
+                        np.save(os.path.join(out_dir, f"cc_{start:06d}.npy"),
+                                cells[off : off + (end - start)].astype(np.int32))
+                        cc_at += cc.numel()
+                    if manifest:
+                        manifest.mark_done(start, end, fp=fingerprint_hex(v[1:]), psnr=round(q, 2))
+
+        # saving keeps each wave's decoded frames alive: keep those waves short
+        wave = 2 if save_outputs else 16
+        pending = []
     for start in range(0, n_frames, chunk):
         end = min(start + chunk, n_frames)
         if manifest and manifest.is_done(start, end):
@@ -578,15 +584,17 @@ def process_video(
         if mesh is not None:
             lo, hi = _widen(lo, hi)
         first, count = lo, _target(hi - lo)
-        rgb = _read(lo, count, hi) if rank0 else None
-        blk = rgb
-        if mesh is not None:
-            count //= frame_axis
-            first += mesh.index(FRAME_AXIS) * count
-            blk = local_block(mesh, rgb, "rgb") if rank0 else \
-                line_block(mesh, _read(first, count, hi))
-        sound = (_chunk_sound(first, count),) if want_sound else ()
-        res = step(blk, rgb, lo, start - lo, end - start, lo_u - lo, *sound)
+        with span("cm.video.read"):
+            rgb = _read(lo, count, hi) if rank0 else None
+            blk = rgb
+            if mesh is not None:
+                count //= frame_axis
+                first += mesh.index(FRAME_AXIS) * count
+                blk = local_block(mesh, rgb, "rgb") if rank0 else \
+                    line_block(mesh, _read(first, count, hi))
+            sound = (_chunk_sound(first, count),) if want_sound else ()
+        with span("cm.video.step"):
+            res = step(blk, rgb, lo, start - lo, end - start, lo_u - lo, *sound)
         if res is None:
             continue
         pixels += (end - start) * rgb.shape[2] * rgb.shape[3]
@@ -598,25 +606,26 @@ def process_video(
             pending = []
     if pending:
         _resolve(pending)
-    wall = time.perf_counter() - t_start
-    if not rank0:
-        # return once rank 0 has written the run: a next call on this
-        # directory reads its manifest
-        dist.barrier()
-        return None
+    with span("cm.video.summary"):
+        wall = time.perf_counter() - t_start
+        if not rank0:
+            # return once rank 0 has written the run: a next call on this
+            # directory reads its manifest
+            dist.barrier()
+            return None
 
-    summary = {
-        **config,
-        "n_frames": n_frames,
-        "frames_processed_this_run": frames_done,
-        "mpix_per_s": round(pixels / wall / 1e6, 3) if pixels else 0.0,
-        "min_psnr_db": round(min(psnrs), 2) if psnrs else None,
-        "seconds": round(wall, 2),
-    }
-    results_dir = os.path.join(out_dir, "results")
-    os.makedirs(results_dir, exist_ok=True)
-    with open(os.path.join(results_dir, f"run_{time.time_ns()}.json"), "w") as f:
-        json.dump(summary, f, indent=1)
-    if mesh is not None:
-        dist.barrier()
-    return summary
+        summary = {
+            **config,
+            "n_frames": n_frames,
+            "frames_processed_this_run": frames_done,
+            "mpix_per_s": round(pixels / wall / 1e6, 3) if pixels else 0.0,
+            "min_psnr_db": round(min(psnrs), 2) if psnrs else None,
+            "seconds": round(wall, 2),
+        }
+        results_dir = os.path.join(out_dir, "results")
+        os.makedirs(results_dir, exist_ok=True)
+        with open(os.path.join(results_dir, f"run_{time.time_ns()}.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        if mesh is not None:
+            dist.barrier()
+        return summary

@@ -142,12 +142,15 @@ def build(poison: bool = False) -> Path:
 def load_library(poison: bool = False) -> ctypes.CDLL:
     """Build if needed, load, and declare every launch function's C types;
     ``poison``: the sanitizer's build (module docstring)."""
-    lib = ctypes.CDLL(str(build(poison)))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-    return lib
+    from color_modem_tpu_torch.utils.tracing import span
+
+    with span("cm.build.library"):
+        lib = ctypes.CDLL(str(build(poison)))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        return lib
 
 
 def launch(lib: ctypes.CDLL, name: str, dev, args) -> None:

@@ -26,6 +26,7 @@ from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import toeplitz_same, toeplitz_same_held
 from color_modem_tpu_torch.kernels.tiles import band_tiles, band_tiles16
 from color_modem_tpu_torch.dsp.nco import sample_phase_ramp
+from color_modem_tpu_torch.utils.tracing import span
 
 #: the sample rate the default tap counts were tuned at (every standard's
 #: 720-sample active line): tap counts scale as fs/REF_FS so each filter
@@ -311,11 +312,12 @@ def plan_on(plan: QamPlan | FmPlan, device: torch.device | str) -> QamPlan | FmP
     copies = _COPIES.setdefault(plan, {})
     key = str(device)
     if key not in copies:
-        # a shallow copy with buffers of its own: the host arrays and the
-        # config are shared and never written
-        new = copy.copy(plan)
-        new._buffers = {k: v.to(device) for k, v in plan._buffers.items()}
-        copies[key] = new
+        with span("cm.build.plan_copy"):
+            # a shallow copy with buffers of its own: the host arrays and the
+            # config are shared and never written
+            new = copy.copy(plan)
+            new._buffers = {k: v.to(device) for k, v in plan._buffers.items()}
+            copies[key] = new
     return copies[key]
 
 

@@ -52,7 +52,10 @@ def chip_peaks(device: torch.device | str | None = None) -> dict:
 def trace(log_dir: str):
     """Profile a block: ``with trace('/tmp/tb'): run()`` writes a
     ``*.pt.trace.json`` into ``log_dir``; the card's activity is traced too
-    when CUDA is available."""
+    when CUDA is available.  The trace holds the package's own ``cm.*``
+    spans (``utils/tracing.py``: the runner's stages, the hop, the
+    pipeline's calls, every rebuilt plan) beside the operators and kernels,
+    on the same clock; they are recorded only while a profiler records."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
