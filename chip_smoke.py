@@ -31,7 +31,8 @@ Phases; any failure raises and exits nonzero:
    sentinels and inputs intact, every output sample written, 20 launches
    identical; per kernel and shape a line; no wrapper launch counted; the
    threefry rows (the runner's per-item keys, one key, the normal alone,
-   the raw bits) at the QAM rows' shapes;
+   the raw bits) and the colour matrix's (``csrc/colour_matrix.cu``: the
+   encoder's matrix, the decoder's with its clamp) at the QAM rows' shapes;
 3d. the threefry generator (``csrc/threefry.cu``, JAX's ``jax.random``
    on the card): the bits against the plain version at 2^20 words exactly,
    ``x + sigma * normal`` at 16 x 480 x 2880 (the runner's satellite noise
@@ -42,10 +43,18 @@ Phases; any failure raises and exits nonzero:
    on the CPU (:data:`JAX_PINNED`); CUDA-event times of each entry point
    against its plain version, with ``torch.randn`` at the same shape as a
    yardstick (not the same function) and the bound;
+3e. the colour matrix (``csrc/colour_matrix.cu``) against its plain version
+   on the card at phase 4's 16x3x480x720, the NTSC batch's 64x3x480x720 and
+   SECAM's 16x3x576x720, each standard's two matrices, the clamp on and
+   off, within 1e-6, a NaN put into an input kept in its three outputs;
+   CUDA-event times of each matrix against the plain version and the bound
+   (``measure.colour_matrix_bound``).  The pipelines' plain backend takes
+   the plain colour matrix, so the agreements of phases 4-4i cover it too;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
-   one launch of each kernel, agreement with the plain backend on the card
-   and with the plain backend on the CPU on a small input (:func:`check_path`);
+   one launch of each kernel and two of the colour matrix, agreement with
+   the plain backend on the card and with the plain backend on the CPU on a
+   small input (:func:`check_path`);
 4b. the SECAM path, encode -> interp/avg/notch decode at 16x3x576x720, the
    same way: PSNR 38.8644/33.3755/35.3157 +- 0.02 dB, one launch of each
    SECAM kernel per round trip; and interp at 16x3x576x1440 (the chip
@@ -383,8 +392,9 @@ SOUND_CPU_ATOL = {"rf-sound": 1e-4, "sat-sound": 1e-3, "a2 stereo": 1e-3, "a2 du
 VIDEO_AUDIO = {"progressive": (47.24, 62.4085),
                "interlaced": (42.87, 62.3770)}
 AUDIO_CHUNK_ATOL = 1e-4    # tests/test_video.py::test_video_rf_audio_phase_continuous
-QAM_1_1 = {"qam_encode": 1, "qam_decode": 1}
-SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1}
+#: one round trip: an encode, a decode and the two colour matrices
+QAM_1_1 = {"qam_encode": 1, "qam_decode": 1, "colour_matrix": 2}
+SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1, "colour_matrix": 2}
 #: phase 3d: values taken from ``jax.random`` on the CPU (JAX 0.9.0, its
 #: default threefry2x32 in the partitionable form; the card's machine has no
 #: JAX), each under the call that made it, with PRNGKey, split and fold_in
@@ -420,6 +430,11 @@ NORMAL_ATOL = 1e-6
 THREEFRY_SHAPE, THREEFRY_G0 = (16, 480, 2880), 37
 DROPOUT_SHAPE, DROPOUT_SPAN = (1, 480), 2880 - 1231
 THREEFRY_CPU_FRAMES = 2
+#: phase 3e's shapes: phase 4's batch, the NTSC batch cell's 64 frames and
+#: the SECAM batch cell's 16 frames of 576 lines; the kernel's float32
+#: multiply-adds against the product and two addcmul_ of the plain version
+COLOUR_SHAPES = ((BATCH, 3, 480, N), (64, 3, 480, N), (BATCH, 3, 576, N))
+COLOUR_ATOL = 1e-6
 #: phase 4i: the data services' stimuli (scripts/jax_transmission_reference.py
 #: uses the same) and the JAX xla values on the CPU at the card's shapes
 #: (its rows caption, teletext-wss-vitc, scramble, vir, measure, palplus,
@@ -938,6 +953,64 @@ def check_threefry(dev, card: str) -> dict:
             "err_jax": e_jax, "times": times, "bounds": bounds, "randn": randn}
 
 
+def check_colour_matrix(dev, card: str) -> dict:
+    """Phase 3e: the colour matrix against its plain version on the card,
+    then timed.  Returns the largest error, and each matrix's times and
+    bound at each of :data:`COLOUR_SHAPES`."""
+    import math
+
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+    from color_modem_tpu_torch.kernels.measure import colour_matrix_bound
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    def compare(mat, x, clamp) -> float:
+        got, want = ck.colour_matrix(mat, x, clamp), ck.colour_matrix_plain(mat, x, clamp)
+        nan = torch.isnan(want)
+        _check(torch.equal(torch.isnan(got), nan), "3e colour_matrix: NaNs differ")
+        return float((got - want).masked_fill(nan, 0.0).abs().max())
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    err, times = 0.0, {}
+    for shape in COLOUR_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev)
+        e_shape = 0.0
+        for name in sorted(ALL_STANDARDS):
+            plan = make_plan(ALL_STANDARDS[name](), N).to(dev)
+            for mat in (plan.rgb_to_ycc, plan.ycc_to_rgb):
+                for clamp in (False, True):
+                    e_shape = max(e_shape, compare(mat, x, clamp))
+        # a NaN in one input sample stays a NaN in each of its three outputs
+        nan_at = (0, 1, 5, 17)
+        x[nan_at] = float("nan")
+        mat = make_plan(ALL_STANDARDS["ntsc"](), N).to(dev).ycc_to_rgb
+        for clamp in (False, True):
+            e_shape = max(e_shape, compare(mat, x, clamp))
+            out = ck.colour_matrix(mat, x, clamp)
+            _check(bool(torch.isnan(out[0, :, 5, 17]).all()) and int(torch.isnan(out).sum()) == 3,
+                   f"3e colour_matrix {shape} clamp {clamp}: the NaN was not kept")
+        x[nan_at] = 0.5
+        print(f"3e colour_matrix {shape}: kernel vs plain max|diff| {e_shape:.3e} (<= "
+              f"{COLOUR_ATOL}) over {len(ALL_STANDARDS)} standards x 2 matrices x clamp on/off; "
+              f"a NaN kept in its 3 outputs, clamped or not")
+        _check(e_shape <= COLOUR_ATOL, f"3e colour_matrix {shape}: {e_shape}")
+        err = max(err, e_shape)
+        plan = make_plan(ALL_STANDARDS["secam" if shape[-2] == 576 else "ntsc"](), N).to(dev)
+        bound = colour_matrix_bound(math.prod(shape))
+        for entry, mat, clamp in (("encode", plan.rgb_to_ycc, False),
+                                  ("decode", plan.ycc_to_rgb, True)):
+            t = time_pair(partial(ck.colour_matrix_plain, mat, x, clamp),
+                          partial(ck.colour_matrix, mat, x, clamp))
+            times[shape, entry] = {**t, "bound": bound}
+            print(f"time colour_matrix {entry} {shape} on {card}: kernel {_fmt(t['kernel'])}, "
+                  f"plain {_fmt(t['plain'])} (median [min, max] of 10 windows); bound "
+                  f"{bound[0]:.4g} ms by {bound[1]}, {bound[0] / t['kernel'][0]:.3f} of it")
+        del x
+    return {"err": err, "times": times}
+
+
 def check_channel(dev) -> None:
     """Phase 4d through the kernel backend: raster identities, burst lock,
     ACC, PAL ident and NIIR normalisation against CHANNEL_PSNR."""
@@ -960,7 +1033,7 @@ def check_channel(dev) -> None:
     def locked(plan, rp, bad, g, decoder, **kw):
         reset_counts()
         out = raster.decode_burst_locked(plan, rp, bad, g, decoder, "kernel", **kw)
-        read_counts("a burst-locked decode", {"qam_decode": 1})
+        read_counts("a burst-locked decode", {"qam_decode": 1, "colour_matrix": 1})
         return out
 
     def rastered(name, decoder, **imp):
@@ -1085,7 +1158,7 @@ def check_frame_layer(dev) -> dict:
            "interlaced raster: strip(add(x)) is not x")
     reset_counts()
     dec = dec_r(rast, 0)
-    got = read_counts("interlaced rastered decode", {"qam_decode": 1})
+    got = read_counts("interlaced rastered decode", {"qam_decode": 1, "colour_matrix": 1})
     _check(torch.equal(dec, rt(rgb, 0)), "interlaced rastered decode differs from the round trip")
     print(f"interlaced ntsc comb3 rastered {tuple(rast.shape)}: strip(add(x)) == x and "
           f"decode == round trip, bit for bit; decode launches {got}")
@@ -1103,7 +1176,9 @@ def check_frame_layer(dev) -> dict:
         _check(e_yc <= YC_ATOL, f"{key}: Y + C is not the composite: {e_yc}")
         reset_counts()
         out = rt_k(rgb, 0)
-        got = read_counts(key, {"secam_encode" if cfg.is_fm else "qam_encode": 1})
+        # the encoder's matrix, the luma's own, the decoder's
+        got = read_counts(key, {"secam_encode" if cfg.is_fm else "qam_encode": 1,
+                                "colour_matrix": 3})
         frame_row(key, out, rgb, got, _max_err(out, rt_p(rgb, 0)))
         if name == "ntsc":
             timed[key] = (partial(rt_p, rgb, 0), partial(rt_k, rgb, 0))
@@ -1356,7 +1431,7 @@ def check_transmission(dev, card: str) -> dict:
     rgb = full_scene(480, dev)
     reset_counts()
     comp = enc(rgb, 0)
-    read_counts("4g ntsc notch composite", {"qam_encode": 1})
+    read_counts("4g ntsc notch composite", {"qam_encode": 1, "colour_matrix": 1})
     rfp = rf_mod.make_rf_plan(plan)
     sp = sat_mod.make_sat_plan(plan.fs, N)
     mplan = mac.make_mac_plan(N)
@@ -1415,7 +1490,7 @@ def check_transmission(dev, card: str) -> dict:
     fixed = tbc()
     for key, x in (("tbc-clean", ras), ("tbc-wrecked", shifted), ("tbc-fixed", fixed)):
         hold(key, psnr(dec_r(x, 0), rgb))
-    read_counts("4g tbc", {"qam_encode": 1, "qam_decode": 3})
+    read_counts("4g tbc", {"qam_encode": 1, "qam_decode": 3, "colour_matrix": 4})
 
     # sync-tip AGC above 2^24 elements: the quantile by sort, against float64
     enc_a, _, _ = make_pipeline(plan, "notch", "kernel", dev, raster=True)
@@ -1554,7 +1629,8 @@ def sound_chains(dev, frames: int = BATCH, lines: int = 480,
     comp = make_pipeline(plan, "notch", "kernel", dev)[0](rgb, 0)
     pcomp = make_pipeline(pal, "delayline", "kernel", dev)[0](prgb, 0)
     if dev.type == "cuda":
-        read_counts("4h composites (NTSC notch, PAL delayline)", {"qam_encode": 2})
+        read_counts("4h composites (NTSC notch, PAL delayline)",
+                    {"qam_encode": 2, "colour_matrix": 2})
     rfp, prfp = rf_mod.make_rf_plan(plan), rf_mod.make_rf_plan(pal)
     rfp50 = rf_mod.make_rf_plan(plan, audio_bw=50e3)
     a2p = a2.make_a2_plan(prfp)
@@ -1823,7 +1899,8 @@ def check_video(dev, card: str) -> dict:
         reset_counts()
         s = run("kernel", src, VIDEO_FRAMES)
         chunks = VIDEO_FRAMES // VIDEO_CHUNK
-        got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+        got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                  "colour_matrix": 2 * chunks})
         _check(s["frames_processed_this_run"] == VIDEO_FRAMES, f"{label}: {s}")
         print(f"{label}: min_psnr_db {s['min_psnr_db']} (expected {VIDEO_MIN_PSNR} +- "
               f"{PSNR_TOL}), launches {got}, {s['mpix_per_s']} Mpix/s (first run, cold) on "
@@ -1883,6 +1960,7 @@ def check_video(dev, card: str) -> dict:
             reset_counts()
             s_hop = run(f"hop_{hop}".replace(" ", "_"), src, VIDEO_FRAMES, **kw)
             got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                      "colour_matrix": 2 * chunks,
                                       **({"threefry_add_normal": chunks} if noisy else {})})
             print(f"{label}: min_psnr_db {s_hop['min_psnr_db']} (expected {expected} +- "
                   f"{PSNR_TOL}), launches {got}, {s_hop['mpix_per_s']} Mpix/s on {card}")
@@ -1903,7 +1981,7 @@ def check_video(dev, card: str) -> dict:
                     n_chunks = -(-KEYING_FRAMES // VIDEO_CHUNK)
                     got = read_counts(f"keying {case}", {
                         "qam_encode": n_chunks, "qam_decode": n_chunks,
-                        "threefry_add_normal": draws * n_chunks})
+                        "colour_matrix": 2 * n_chunks, "threefry_add_normal": draws * n_chunks})
                 outs[where.type] = np.concatenate(
                     [np.load(f) for f in sorted(glob.glob(os.path.join(d, "rgb_*.npy")))])
             _check(outs["cuda"].shape == (KEYING_FRAMES, 3, KEYING_LINES, N),
@@ -1933,7 +2011,8 @@ def check_video(dev, card: str) -> dict:
             reset_counts()
             s_aud = run(f"audio_{form}", src, VIDEO_FRAMES, rf=True, rf_audio=track,
                         interlaced=form == "interlaced")
-            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                      "colour_matrix": 2 * chunks})
             rx = np.concatenate([np.load(f) for f in sorted(
                 glob.glob(os.path.join(tmp, f"audio_{form}", "aud_*.npy")))])
             _check(rx.shape == track.shape, f"{label}: audio {rx.shape}")
@@ -2035,7 +2114,7 @@ def service_chains(dev, frames: int = BATCH, ntsc_lines: int = 480,
     word = upload(wss.wss_word(WSS_ASPECT).numpy(), dev)
     comp_n = enc_n(rgb_n, 0)
     comp_r = add_raster(ntsc, make_raster(ntsc), comp_n, g_n)
-    one_each = {"qam_encode": 1, "qam_decode": 1}
+    one_each = {"qam_encode": 1, "qam_decode": 1, "colour_matrix": 2}
     chains = {}
 
     @torch.inference_mode()
@@ -2086,8 +2165,9 @@ def service_chains(dev, frames: int = BATCH, ntsc_lines: int = 480,
                 "corrected": vir.decode_vir_corrected(ntsc, bad, g_n, 2, "comb3"),
                 "uncorrected": decode_block(ntsc, bad[:, 2:], g_n[:, 2:], "comb3")}
 
-    chains["scramble roundtrip"] = (scramble_roundtrip, {"qam_encode": 1, "qam_decode": 2})
-    chains["vir"] = (vir_chain, {"qam_encode": 1, "qam_decode": 2})
+    chains["scramble roundtrip"] = (scramble_roundtrip, {"qam_encode": 1, "qam_decode": 2,
+                                                         "colour_matrix": 3})
+    chains["vir"] = (vir_chain, {"qam_encode": 1, "qam_decode": 2, "colour_matrix": 3})
     pipes = {}
     for form in ("progressive", "interlaced"):
         mk = (palplus.make_interlaced_palplus_pipeline if form == "interlaced"
@@ -2101,7 +2181,8 @@ def service_chains(dev, frames: int = BATCH, ntsc_lines: int = 480,
                 comp = enc_dec[0](rgb_p, 0)
                 return {"comp": comp, "helper": enc_dec[1](comp, 0)}
 
-            chains[key] = (palplus_roundtrip, one_each)
+            # the helper's two matrices before the encoder's, two after the decoder's
+            chains[key] = (palplus_roundtrip, {**one_each, "colour_matrix": 5})
     inputs = {"rgb_n": rgb_n, "rgb_w": rgb_w, "rgb_p": rgb_p, "cells": cells, "tcs": tcs,
               "ntsc": ntsc, "pal": pal, "wide": wide, "cap": cap, "wst": wst,
               "palplus": pipes, "comp_n": comp_n, "comp_r": comp_r, "g_n": g_n}
@@ -2267,7 +2348,8 @@ def check_data_services(dev, card: str) -> dict:
         reset_counts()
         rep = torch_fullstack.full_stack(nicam=sound == "nicam", a2=sound == "a2", lines=576,
                                          device=dev)
-        got = read_counts(f"4i full stack {sound}", {"qam_encode": 1, "qam_decode": 2})
+        got = read_counts(f"4i full stack {sound}", {"qam_encode": 1, "qam_decode": 2,
+                                                     "colour_matrix": 3})
         exact = all(rep[k]["exact"] for k in ("caption", "teletext", "wss", "vitc"))
         snrs = {"audio_snr_db": rep["rf"].get("audio_snr_db")}
         for sub in ("nicam", "a2"):
@@ -2330,10 +2412,12 @@ def check_data_services(dev, card: str) -> dict:
     timed = {name: call for name, (call, _) in chains.items()}
     timed["inputs"] = inp
     # this slice's launches of the QAM kernels: the NTSC caption round trip
-    # (the unshared pair), the PAL PALplus round trip (the _shared forms)
+    # (the unshared pair and the colour matrix), the PAL PALplus round trip
+    # (the _shared forms)
     timed["launches"] = {
         "qam_encode": counts["caption"]["qam_encode"],
         "qam_decode": counts["caption"]["qam_decode"],
+        "colour_matrix": counts["caption"]["colour_matrix"],
         "qam_encode_shared": counts["palplus progressive"]["qam_encode"],
         "qam_decode_shared": counts["palplus progressive"]["qam_decode"],
     }
@@ -2442,7 +2526,8 @@ def check_video_services(dev, card: str) -> None:
             label = f"video ntsc comb3 {name} {VIDEO_FRAMES}x3x480x{N} chunk {VIDEO_CHUNK}"
             reset_counts()
             s, cells, _ = run(name.replace(" ", "_"), VIDEO_FRAMES, **kw)
-            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+            got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                      "colour_matrix": 2 * chunks})
             exact = cells is None or np.array_equal(cells, bits)
             print(f"{label}: min_psnr_db {s['min_psnr_db']} (expected {want} +- {PSNR_TOL})"
                   + (f", {len(cells)} caption cells exact" if cells is not None else "")
@@ -2486,11 +2571,14 @@ def _sharded_launches(case: dict) -> dict:
     """Each rank's launches for one sharded round trip of ``case``: one
     encode and one decode of its block (none for MAC, whose modem has no
     kernel; no decode for comb3dA, whose adaptive separation runs outside
-    the decode kernel, as unsharded)."""
+    the decode kernel, as unsharded), and the two colour matrices (five
+    with PALplus's helper)."""
+    colour = {"colour_matrix": 5 if case["kind"] == "palplus" else 2}
     if case["kind"] == "mac":
-        return {}
+        return colour
     fam = "secam" if case["standard"] == "secam" else "qam"
-    return {f"{fam}_encode": 1, f"{fam}_decode": 0 if case["decoder"] == "comb3dA" else 1}
+    return {f"{fam}_encode": 1, f"{fam}_decode": 0 if case["decoder"] == "comb3dA" else 1,
+            **colour}
 
 
 def sharded_cases() -> list:
@@ -2781,7 +2869,7 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     _check(e == 0.0, f"{label}: frames differ from the unsharded run by {e}")
     _check(s["mesh"] == {"frame": 2, "lineblk": 2}, f"{label}: {s}")
     _check(all(rr[0]["summary"] is None for rr in recs[1:]), f"{label}: ranks 1-3 reported")
-    want = {"qam_encode": chunks, "qam_decode": chunks}
+    want = {"qam_encode": chunks, "qam_decode": chunks, "colour_matrix": 2 * chunks}
     want = {k: want.get(k, 0) for k in launch_counts()}
     _check(all(c == want for c in counts),
            f"{label}: launches {counts}")
@@ -2918,7 +3006,8 @@ def check_cli_video(dev, card: str, video: dict) -> dict:
                 "--chunk", str(VIDEO_CHUNK)]
         reset_counts()
         rep = run_cli(argv + ["--out", os.path.join(tmp, "cli"), "--output", out_clip])
-        launches = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks})
+        launches = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
+                                       "colour_matrix": 2 * chunks})
         source, n, h, w = y4m_source(clip)
         s = process_video(make_plan(NTSC(), N), source, n, os.path.join(tmp, "runner"),
                           decoder="comb3", chunk=VIDEO_CHUNK, device=dev, save_outputs=True)
@@ -2953,7 +3042,7 @@ def check_cli_video(dev, card: str, video: dict) -> dict:
           f"{_fmt_rate(rates['read only'])} reading only (median [min, max] of 3 runs; first "
           f"run {rep['mpix_per_s']}), against the runner's {_fmt_rate(video['rates']['kernel'])} "
           f"on synthetic device frames (phase 6), host clock, on {card}")
-    return {"qam_encode": launches["qam_encode"], "qam_decode": launches["qam_decode"]}
+    return {k: launches[k] for k in ("qam_encode", "qam_decode", "colour_matrix")}
 
 
 def check_cli_roundtrips(card: str) -> dict:
@@ -3055,8 +3144,12 @@ def check_line_api(dev, card: str) -> dict:
         comp = im.modulate_image(img)
         rgb = im.demodulate_image(comp_b)
         dt = time.perf_counter() - t0
-        got = read_counts(label, {kernel: lines})
+        # a matrix per line each way, and the 3-D comb's one more for the
+        # line it holds back
+        got = read_counts(label, {kernel: lines,
+                                  "colour_matrix": 2 * lines + (decoder == "comb3")})
         launches[entry] = launches.get(entry, 0) + got[kernel]
+        launches["colour_matrix"] = launches.get("colour_matrix", 0) + got["colour_matrix"]
         e_enc = float(np.abs(comp - comp_b).max())
         hi = lines - 1 if decoder == "comb3" else lines
         e_dec = float(np.abs(rgb[:, skip:hi] - rgb_b[:, skip:hi]).max())
@@ -3382,8 +3475,9 @@ def check_kernel_sanitizer(dev, card: str) -> dict:
     read_counts("3c sanitizer", {})
     t_run = time.perf_counter() - t0
     bad = [(r["row"], r["standard"], r["shape"]) for r in results if not r["ok"]]
-    print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows "
-          f"and {len(sanitize.PRNG_ROWS)} threefry rows x "
+    print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows, "
+          f"{len(sanitize.PRNG_ROWS)} threefry rows and {len(sanitize.COLOUR_ROWS)} colour-matrix "
+          f"rows x "
           f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}, "
           f"samples {sanitize.SECAM_ONLY_SAMPLES} on the SECAM rows only), "
           f"{len(bad)} faults, {t_run:.1f} s on {card}")
@@ -3695,6 +3789,9 @@ def main() -> None:
     # --- 3d. the threefry generator against its plain version, the CPU and JAX --
     threefry = check_threefry(dev, card)
 
+    # --- 3e. the colour matrix against its plain version ------------------------
+    colour = check_colour_matrix(dev, card)
+
     # --- 4. main path; 4b. the SECAM path -------------------------------------
     paths = {}
     rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED, QAM_1_1)
@@ -3710,7 +3807,8 @@ def main() -> None:
     # --- 4c. the rest of the QAM family ---------------------------------------
     for (name, decoder), (expected, (n_enc, n_dec)) in QAM_FAMILY.items():
         rt_k, rt_p, got = check_path(dev, name, decoder, expected,
-                                     {"qam_encode": n_enc, "qam_decode": n_dec})
+                                     {"qam_encode": n_enc, "qam_decode": n_dec,
+                                      "colour_matrix": 2})
         paths[name, decoder] = (rt_k, rt_p)
         if (name, decoder) == ("pal", "delayline"):
             # the _shared forms: the same CUDA kernels with equal tile arrays
@@ -3818,6 +3916,25 @@ def main() -> None:
              f"process_video channel noise, {VIDEO_FRAMES} frames in chunks of {VIDEO_CHUNK}"),
             ("threefry_bits", launches_cli_noisy["threefry_bits"],
              "cli roundtrip ntsc comb3 " + " ".join(CLI_NOISY_ARGS)))
+    ] + [
+        # the colour matrix: both matrices of a round trip, timed as the
+        # decoder's (with its clamp) at phase 4's shape
+        {"name": "colour_matrix", "route": "cuda",
+         "source": "color_modem_tpu_torch/csrc/colour_matrix.cu",
+         "replaces": "color_modem_tpu/dsp/colorimetry.py apply_mat3 (XLA einsum, no Pallas "
+                     "kernel)",
+         "launches": launches["colour_matrix"], "max_abs_err": colour["err"],
+         "ms": t_colour["kernel"][0], "plain_ms": t_colour["plain"][0],
+         "bound_ms": t_colour["bound"][0], "bound_by": t_colour["bound"][1],
+         "library_ms": None,
+         "launches_data_services": services["launches"].get("colour_matrix"),
+         "launches_sharded": launches_sharded["colour_matrix"],
+         "launches_cli_video": launches_cli.get("colour_matrix", 0),
+         "launches_line_api": launches_line_api.get("colour_matrix", 0),
+         "launches_bench": bench["ntsc"]["kernel_launches"]["colour_matrix"],
+         "ms_spread": list(t_colour["kernel"][1:]),
+         "plain_ms_spread": list(t_colour["plain"][1:])}
+        for t_colour in (colour["times"][COLOUR_SHAPES[0], "decode"],)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.frame.pipeline import encode_block, resolve_device
 from color_modem_tpu_torch.modem import qam
 from color_modem_tpu_torch.modem import secam as secam_mod
@@ -85,7 +85,7 @@ class _LineModemBase:
         """(N,) components -> (3, N) RGB, clamped."""
         ycc = upload(np.stack([np.asarray(y), np.asarray(c1), np.asarray(c2)]).astype(
             np.float32), self.device)[None, :, None, :]
-        return _host(clamp01(apply_mat3(self.plan.ycc_to_rgb, ycc)))[0, :, 0]
+        return _host(apply_mat3(self.plan.ycc_to_rgb, ycc, clamp=True))[0, :, 0]
 
     def reset(self) -> None:
         """Drop cross-line streaming state (start of a new image or field)."""

@@ -2,23 +2,31 @@
 
 Port of ``color_modem_tpu/dsp/colorimetry.py``.  The JAX version asks for
 ``Precision.HIGHEST`` (full float32).  Here each output plane is three
-scaled adds of the input planes, in float32 elementwise arithmetic: no
-matrix product, so no process-wide matmul precision setting (TF32, bf16)
-can change it.
+scaled adds of the input planes, in float32 arithmetic, in the order
+c = 0, 1, 2: no matrix product, so no process-wide matmul precision setting
+(TF32, bf16) can change it.  On a CUDA tensor one pass of the hand-written
+kernel ``csrc/colour_matrix.cu`` computes them, with the decoder's clamp
+inside it (``kernels/colorimetry.py``); on the CPU, and on every device under
+the pipelines' ``"plain"`` backend, its plain version does, so that the plain
+backend on the card stays a witness of the kernel.
 """
 
 from __future__ import annotations
 
 import torch
 
+from color_modem_tpu_torch.kernels.colorimetry import colour_matrix, colour_matrix_plain
 
-def apply_mat3(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+
+def apply_mat3(mat: torch.Tensor, x: torch.Tensor, clamp: bool = False,
+               backend: str = "kernel") -> torch.Tensor:
     """``y[..., d, l, n] = sum_c mat[d, c] * x[..., c, l, n]``, summed in the
-    order c = 0, 1, 2.  ``mat`` stays on the device (no host readback)."""
-    m = mat.to(device=x.device, dtype=x.dtype).reshape(3, 3, 1, 1)
-    y = x[..., 0:1, :, :] * m[:, 0]
-    y.addcmul_(x[..., 1:2, :, :], m[:, 1])
-    return y.addcmul_(x[..., 2:3, :, :], m[:, 2])
+    order c = 0, 1, 2, then with ``clamp`` clamped to [0, 1] as
+    :func:`clamp01` does.  ``mat`` stays on the device (no host readback).
+    ``backend="plain"`` takes the plain version on a CUDA tensor too."""
+    if backend == "kernel" and x.device.type == "cuda":
+        return colour_matrix(mat, x, clamp)
+    return colour_matrix_plain(mat, x, clamp)
 
 
 def clamp01(x: torch.Tensor) -> torch.Tensor:

@@ -133,10 +133,10 @@ def helper_reconstruct(geo: PalPlusGeometry, y_pic: torch.Tensor,
     return up + _row_sign(geo.l_full, y_pic.device) * resample_lines(helper, geo.l_full)
 
 
-def _encode_helper(plan: Plan, geo: PalPlusGeometry, rgb: torch.Tensor):
+def _encode_helper(plan: Plan, geo: PalPlusGeometry, rgb: torch.Tensor, backend: str):
     """(float32 RGB, band-limited helper lines, clamped letterbox RGB)."""
     rgb = rgb.to(torch.float32)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb)
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb, backend=backend)
     _, helper = helper_encode(geo, ycc[..., 0, :, :])
     helper = fir_same_taps(helper, _helper_taps(plan))
     return rgb, helper, clamp01(resample_lines(rgb, geo.l_pic))
@@ -156,15 +156,15 @@ def _helper_off_carrier(plan: Plan, bars: torch.Tensor, g: torch.Tensor,
 
 
 def _with_helper(plan: Plan, geo: PalPlusGeometry, up: torch.Tensor,
-                 helper: torch.Tensor) -> torch.Tensor:
+                 helper: torch.Tensor, backend: str) -> torch.Tensor:
     """Add the helper band to the upsampled picture's luma (resampling and
     the 3x3 matrices are linear and commute, so this equals
     :func:`helper_reconstruct` on the letterbox luma), back to RGB."""
-    ycc = apply_mat3(plan.rgb_to_ycc, up)
+    ycc = apply_mat3(plan.rgb_to_ycc, up, backend=backend)
     y = ycc[..., 0, :, :] + _row_sign(geo.l_full, up.device) * resample_lines(helper,
                                                                               geo.l_full)
     ycc = torch.stack([y, ycc[..., 1, :, :], ycc[..., 2, :, :]], dim=-3)
-    return clamp01(apply_mat3(plan.ycc_to_rgb, ycc))
+    return apply_mat3(plan.ycc_to_rgb, ycc, clamp=True, backend=backend)
 
 
 def encode_palplus(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
@@ -172,7 +172,7 @@ def encode_palplus(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
     """(..., 3, L, N) full-height 16:9 RGB -> (..., L, N) letterbox
     composite with the helper in the bars; ``gline`` covers all L rows."""
     geo = _check_plan(plan, rgb.shape[-2])
-    rgb, helper, rgb_pic = _encode_helper(plan, geo, rgb)
+    rgb, helper, rgb_pic = _encode_helper(plan, geo, rgb, backend)
     g_pic, g_bars = _split_g(geo, gline)
     comp_pic = encode_block(plan, rgb_pic, g_pic, backend)
     bars = _helper_on_carrier(plan, helper, g_bars, helper_gain)
@@ -191,7 +191,8 @@ def decode_palplus(plan: Plan, comp: torch.Tensor, gline: torch.Tensor, decoder:
     up = resample_lines(decode_block(plan, pic, g_pic, decoder, backend), geo.l_full)
     if not use_helper:
         return clamp01(up)
-    return _with_helper(plan, geo, up, _helper_off_carrier(plan, bars, g_bars, helper_gain))
+    return _with_helper(plan, geo, up, _helper_off_carrier(plan, bars, g_bars, helper_gain),
+                        backend)
 
 
 def _factory_setup(plan: Plan, decoder: str, backend: str, device, raster: bool):
@@ -261,7 +262,7 @@ def encode_palplus_fields(plan: Plan, rgb: torch.Tensor, frame0, backend: str = 
     """
     b, _, l, n = rgb.shape
     geo = _check_interlaced(plan, l)
-    rgb, helper, rgb_pic = _encode_helper(plan, geo, rgb)
+    rgb, helper, rgb_pic = _encode_helper(plan, geo, rgb, backend)
     # full-height planes: picture rows in place, helper line h on its bar
     # row; the zero rows of each plane are the other plane's
     zb = rgb.new_zeros(rgb.shape[:-3] + (3, geo.bar, n))
@@ -303,7 +304,7 @@ def decode_palplus_fields(plan: Plan, comp_fields: torch.Tensor, frame0,
     helper_f = _helper_off_carrier(plan, bars_f, g_bars, helper_gain)   # (2B, bar, N)
     helper = torch.cat([weave_fields(helper_f[..., :hb, :]),
                         weave_fields(helper_f[..., hb:, :])], dim=-2)  # (B, L/4, N)
-    return _with_helper(plan, geo, up, helper)
+    return _with_helper(plan, geo, up, helper, backend)
 
 
 def make_interlaced_palplus_pipeline(plan: Plan, decoder: str = "comb3",

@@ -3,11 +3,11 @@
 Port of ``color_modem_tpu/frame/pipeline.py``: every standard, with every
 decoder ``allowed_decoders`` offers it.  ``backend``:
 
-* ``"kernel"`` — the CUDA kernels of ``kernels/qam.py`` and
-  ``kernels/secam.py`` on a CUDA device (on the CPU, the same wrappers run
-  their plain versions);
+* ``"kernel"`` — the CUDA kernels of ``kernels/qam.py``,
+  ``kernels/secam.py`` and ``kernels/colorimetry.py`` on a CUDA device (on
+  the CPU, the same wrappers run their plain versions);
 * ``"plain"`` — the plain PyTorch modems of ``modem/qam.py`` and
-  ``modem/secam.py``.
+  ``modem/secam.py``, and the colour matrices' plain version.
 
 The adaptive combs ('combA', 'comb3dA') separate with a data-dependent
 blend that has no kernel in the JAX package either: on both backends they
@@ -22,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from color_modem_tpu_torch.standards.decoders import allowed_decoders
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.dsp.nco import global_line_index
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
 from color_modem_tpu_torch.kernels import qam as qam_k
@@ -58,7 +58,7 @@ def encode_block(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
                  backend: str = "kernel") -> torch.Tensor:
     """(..., 3, L, N) RGB in [0,1] + (..., L) absolute lines -> (..., L, N)."""
     _check_backend(backend)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32))
+    ycc = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32), backend=backend)
     if plan.cfg.is_fm:
         enc = secam_k.encode if backend == "kernel" else secam.encode
     else:
@@ -144,11 +144,11 @@ def decode_block(
     if plan.cfg.is_fm:
         if phase_err is not None or chroma_gain is not None:
             raise ValueError("phase_err and chroma_gain apply to QAM standards only")
-        return clamp01(apply_mat3(plan.ycc_to_rgb,
-                                  _decode_fm(plan, comp, gline, decoder, backend)))
+        return apply_mat3(plan.ycc_to_rgb, _decode_fm(plan, comp, gline, decoder, backend),
+                          clamp=True, backend=backend)
     ycc = _demodulate_qam(plan, comp, gline, decoder, backend)
     ycc = _correct_chroma(plan, ycc, gline, decoder, phase_err, chroma_gain)
-    return clamp01(apply_mat3(plan.ycc_to_rgb, ycc))
+    return apply_mat3(plan.ycc_to_rgb, ycc, clamp=True, backend=backend)
 
 
 def roundtrip_block(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,

@@ -8,16 +8,16 @@ it: ``C = composite - Y``, so ``Y + C`` is the composite to float32
 rounding.  The decoder is the ideal S-Video receiver: luma passes
 untouched, and chroma demodulates straight off the clean carrier with the
 plain product detector (or the plain SECAM discriminator and interpolated
-pairing), with no separation stage.  So the decode takes no ``backend``, as
+pairing), with no separation stage.  So the decode runs no modem kernel, as
 in the JAX package: the decode kernel band-passes its input, and this
-receiver does not.
+receiver does not.  Its ``backend`` picks the colour matrix alone.
 """
 
 from __future__ import annotations
 
 import torch
 
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.frame.pipeline import (
     Plan,
     _check_backend,
@@ -33,12 +33,13 @@ def encode_yc(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
               backend: str = "kernel") -> torch.Tensor:
     """(..., 3, L, N) RGB -> (..., 2, L, N) stacked (Y, C) planes; Y is the
     matrix luma before any filtering."""
-    y = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32))[..., 0, :, :]
+    y = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32), backend=backend)[..., 0, :, :]
     comp = encode_block(plan, rgb, gline, backend)
     return torch.stack([y, comp - y], dim=-3)
 
 
-def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor) -> torch.Tensor:
+def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor,
+              backend: str = "kernel") -> torch.Tensor:
     """(..., 2, L, N) (Y, C) planes -> (..., 3, L, N) RGB in [0, 1]."""
     y, c = yc[..., 0, :, :], yc[..., 1, :, :]
     if plan.cfg.is_fm:
@@ -48,7 +49,8 @@ def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor) -> torch.Tensor
         c1, c2 = qam.demodulate_carrier(plan, c, gline)
         if plan.chroma.reference_amplitude is not None:
             c1, c2 = niir.normalize(plan, c1, c2, gline)
-    return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([y, c1, c2], dim=-3)))
+    return apply_mat3(plan.ycc_to_rgb, torch.stack([y, c1, c2], dim=-3), clamp=True,
+                      backend=backend)
 
 
 def make_svideo_pipeline(plan: Plan, backend: str = "kernel",
@@ -73,12 +75,12 @@ def make_svideo_pipeline(plan: Plan, backend: str = "kernel",
     @torch.inference_mode()
     def decode(yc, frame0=0):
         yc = _input(yc)
-        return decode_yc(plan, yc, _lines(yc, frame0))
+        return decode_yc(plan, yc, _lines(yc, frame0), backend)
 
     @torch.inference_mode()
     def roundtrip(rgb, frame0=0):
         rgb = _input(rgb)
         g = _lines(rgb, frame0)
-        return decode_yc(plan, encode_yc(plan, rgb, g, backend), g)
+        return decode_yc(plan, encode_yc(plan, rgb, g, backend), g, backend)
 
     return encode, decode, roundtrip

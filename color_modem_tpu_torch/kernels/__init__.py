@@ -5,16 +5,17 @@ import time: ``build.load_library`` compiles at the first launch."""
 
 def launch_counts() -> dict:
     """A copy of every kernel's launch counter (``qam.LAUNCHES``,
-    ``secam.LAUNCHES`` and ``prng.LAUNCHES``)."""
-    from color_modem_tpu_torch.kernels import prng, qam, secam
+    ``secam.LAUNCHES``, ``prng.LAUNCHES`` and ``colorimetry.LAUNCHES``)."""
+    from color_modem_tpu_torch.kernels import colorimetry, prng, qam, secam
 
-    return {**qam.LAUNCHES, **secam.LAUNCHES, **prng.LAUNCHES}
+    return {**qam.LAUNCHES, **secam.LAUNCHES, **prng.LAUNCHES, **colorimetry.LAUNCHES}
 
 
 def reset_launches() -> None:
     """Zero every kernel's launch counter."""
-    from color_modem_tpu_torch.kernels import prng, qam, secam
+    from color_modem_tpu_torch.kernels import colorimetry, prng, qam, secam
 
     qam.reset_launches()
     secam.reset_launches()
     prng.reset_launches()
+    colorimetry.reset_launches()

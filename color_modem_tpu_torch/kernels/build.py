@@ -66,6 +66,8 @@ SIGNATURES = {
     "threefry_bits": (_P, _U32, _U32, _U64, _P),
     # x (may be NULL), out, k0, k1, fold, g0, sigma, words per item, items, stream
     "threefry_add_normal": (_P, _P, _U32, _U32, _I, _U32, _F, _U64, _I, _P),
+    # x, mat, out, groups, samples per plane, clamp, stream
+    "colour_matrix": (_P, _P, _P, _I, _U64, _I, _P),
 }
 
 

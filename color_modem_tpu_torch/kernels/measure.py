@@ -55,6 +55,16 @@ def kernel_bound(plan, kernel: str, n_lines: int) -> tuple[float, str]:
     return (1e3 * t_bytes, "bytes") if t_bytes >= t_ops else (1e3 * t_ops, "operations")
 
 
+def colour_matrix_bound(values: int) -> tuple[float, str]:
+    """The least time in ms of one pass of ``csrc/colour_matrix.cu`` over
+    ``values`` input samples (the three planes of every group), and what
+    sets it: each sample read once and each output written once, 8 bytes a
+    sample (6 planes per group of 3) over the memory rate ("bytes"), 2.39 us
+    per million samples.  Its 3 multiply-adds a sample take 0.09 us per
+    million on the 67 TFLOP/s float32 lanes, 27 times less."""
+    return 1e3 * 8.0 * values / HBM_BYTES_PER_S, "bytes"
+
+
 #: 32-bit integer operations per second of the INT32 lanes alone: 64 on
 #: each of 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
 #: architecture white paper)

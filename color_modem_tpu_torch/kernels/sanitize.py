@@ -7,7 +7,8 @@ which its ``utils/debug.py`` calls the kernel memory sanitizer (and of
 is launched from the same C arguments its wrapper assembles
 (``kernels/qam.py::encode_call``/``decode_call``,
 ``kernels/secam.py::encode_call``/``demodulate_call``,
-``kernels/prng.py::bits_call``/``normal_call``), with each tensor moved
+``kernels/prng.py::bits_call``/``normal_call``,
+``kernels/colorimetry.py::colour_matrix_call``), with each tensor moved
 into the middle of a larger allocation:
 
 * every input into a flat allocation filled with :data:`GUARD_BITS`, a NaN,
@@ -213,6 +214,9 @@ SECAM_ONLY_SAMPLES = (2160,)
 #: one key over the block, the normal alone (no addend) and the raw bits
 PRNG_ROWS = ("threefry_add_normal", "threefry_add_normal_one_key", "threefry_normal",
              "threefry_bits")
+#: the colour matrix's rows (``csrc/colour_matrix.cu``), on the QAM rows'
+#: grid: the encoder's RGB -> YIQ, and the decoder's YIQ -> RGB with its clamp
+COLOUR_ROWS = ("colour_matrix", "colour_matrix_clamp")
 
 
 def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int = 0):
@@ -271,41 +275,62 @@ def prng_call(row: str, frames: int, lines: int, n: int, dev, seed: int = 0):
     return "threefry_add_normal", pk.normal_call(x, 0.05, key, g0, out), [out]
 
 
+def colour_call(row: str, plan, frames: int, lines: int, seed: int = 0):
+    """(call, outputs) of one colour-matrix launch of :data:`COLOUR_ROWS`
+    over ``frames`` x 3 x ``lines`` x ``plan.n_samples`` on the plan's
+    device: RGB uniform in [0, 1] for the encoder's matrix, the components
+    in their ranges for the decoder's."""
+    from color_modem_tpu_torch.kernels import colorimetry
+
+    dev, n = plan.rgb_to_ycc.device, plan.n_samples
+    clamp = row == "colour_matrix_clamp"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.rand((frames, 3, lines, n), generator=gen, device=dev)
+    if clamp:
+        x[:, 1:] = 1.2 * x[:, 1:] - 0.6
+    out = torch.empty_like(x)
+    mat = plan.ycc_to_rgb if clamp else plan.rgb_to_ycc
+    return colorimetry.colour_matrix_call(mat, x, out, clamp), [out]
+
+
 def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> list[dict]:
     """:func:`sanitize` every row of :data:`ROWS` at every (lines, samples,
     frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`, and
-    every row of :data:`PRNG_ROWS` where the QAM rows run;
-    ``report(result)`` after each.  Returns the results, each with
-    ``row``, ``kernel``, ``standard`` and ``shape``."""
+    every row of :data:`PRNG_ROWS` and :data:`COLOUR_ROWS` (on the NTSC
+    plan's matrices) where the QAM rows run; ``report(result)`` after each.
+    Returns the results, each with ``row``, ``kernel``, ``standard`` and
+    ``shape``."""
     from color_modem_tpu_torch import ALL_STANDARDS
     from color_modem_tpu_torch.modem.plan import make_plan, plan_on
 
     plans, results = {}, []
+
+    def run(row, kernel, std, shape, call, outs):
+        res = sanitize(kernel, call, outs)
+        del res["outputs"]
+        res.update(row=row, kernel=kernel, standard=std, shape=shape)
+        results.append(res)
+        if report is not None:
+            report(res)
+
+    grid = [(f, l) for f in frames for l in lines]
     for n in samples:
         for row, kernel, std, decoder in ROWS:
             if n in SECAM_ONLY_SAMPLES and std != "secam":
                 continue
             if (std, n) not in plans:
                 plans[std, n] = plan_on(make_plan(ALL_STANDARDS[std](), n), dev)
-            for f in frames:
-                for l in lines:
-                    call, outs = kernel_call(kernel, plans[std, n], f, l, decoder)
-                    res = sanitize(kernel, call, outs)
-                    del res["outputs"]
-                    res.update(row=row, kernel=kernel, standard=std, shape=(f, l, n))
-                    results.append(res)
-                    if report is not None:
-                        report(res)
+            for f, l in grid:
+                run(row, kernel, std, (f, l, n), *kernel_call(kernel, plans[std, n], f, l,
+                                                              decoder))
         if n in SECAM_ONLY_SAMPLES:
             continue
         for row in PRNG_ROWS:
-            for f in frames:
-                for l in lines:
-                    kernel, call, outs = prng_call(row, f, l, n, dev)
-                    res = sanitize(kernel, call, outs)
-                    del res["outputs"]
-                    res.update(row=row, kernel=kernel, standard="threefry", shape=(f, l, n))
-                    results.append(res)
-                    if report is not None:
-                        report(res)
+            for f, l in grid:
+                kernel, call, outs = prng_call(row, f, l, n, dev)
+                run(row, kernel, "threefry", (f, l, n), call, outs)
+        for row in COLOUR_ROWS:
+            for f, l in grid:
+                run(row, "colour_matrix", "ntsc", (f, l, n),
+                    *colour_call(row, plans["ntsc", n], f, l))
     return results

@@ -30,7 +30,7 @@ from functools import lru_cache
 import torch
 
 from color_modem_tpu_torch.dsp.apply import fir_same, toeplitz_same
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.dsp.resample import resample_width
 from color_modem_tpu_torch.frame.nicam import FRAME_BITS, nicam_frames, parse_frames
@@ -199,7 +199,7 @@ def decode(plan: MacPlan, sig: torch.Tensor, gline: torch.Tensor) -> torch.Tenso
     """(..., L, 1296) MAC lines -> (..., 3, L, W) RGB, clamped to [0, 1]."""
     y, u, v = decode_components(plan, sig, gline)
     ycc = torch.stack([y, u, v], dim=-3)
-    return clamp01(apply_mat3(_on_device(plan, sig.device)[1], ycc))
+    return apply_mat3(_on_device(plan, sig.device)[1], ycc, clamp=True)
 
 
 def decode_data(plan: MacPlan, sig: torch.Tensor):

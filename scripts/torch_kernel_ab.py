@@ -1,11 +1,15 @@
-"""Time the QAM or the SECAM kernels of one or more trees of this repository
-on one CUDA GPU, in turns, at the paths' shapes.
+"""Time the QAM or the SECAM kernels, or the colour matrix, of one or more
+trees of this repository on one CUDA GPU, in turns, at the paths' shapes.
 
-    python3 scripts/torch_kernel_ab.py [--family qam|secam] [--tree DIR ...] [--rounds 1]
+    python3 scripts/torch_kernel_ab.py [--family qam|secam|colour] [--tree DIR ...] [--rounds 1]
 
 QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720,
 4x576x1440 and 1x576x2160, the plans of chip_smoke.py's phase 3b, and 16x576x1440, the
-chip matrix's SECAM row.  Each tree (default:
+chip matrix's SECAM row.  Colour (``csrc/colour_matrix.cu``): the pass alone at the batch
+cells' shapes, NTSC 64x3x480x720 and SECAM 16x3x576x720, the encoder's matrix and the
+decoder's with its clamp, timed in turns (plain, kernel, kernel, plain) against the plain
+version (a product, two ``addcmul_`` and, for the decoder, ``torch.clamp``), whose ms it
+adds to the record.  Each tree (default:
 this one) runs in its own process, which imports that tree's
 ``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
 forward then backward (A, B, B, A for two trees).  Each process holds the
@@ -50,19 +54,23 @@ def _measure():
     return mod
 
 
-def _timed(measure, fn) -> tuple[list[float], float]:
-    """CUDA-event windows of ``fn``, and the host-clock us per call while
-    100 calls are queued."""
+def _host_us(fn) -> float:
+    """The host-clock us per call of ``fn`` while 100 calls are queued."""
     import torch
 
-    w = measure.time_ms(fn, windows=10)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(100):
         fn()
     host_us = (time.perf_counter() - t0) / 100 * 1e6
     torch.cuda.synchronize()
-    return w, host_us
+    return host_us
+
+
+def _timed(measure, fn) -> tuple[list[float], float]:
+    """CUDA-event windows of ``fn``, and the host-clock us per call while
+    100 calls are queued."""
+    return measure.time_ms(fn, windows=10), _host_us(fn)
 
 
 def _record(w, host_us, bound, err, library=None) -> dict:
@@ -136,6 +144,48 @@ def secam_worker() -> dict:
     return res
 
 
+#: the colour matrix: (standard, frames, lines) of the two batch cells, 720 samples
+COLOUR_SHAPES = (("NTSC", 64, 480), ("SECAM", 16, 576))
+
+
+def colour_worker() -> dict:
+    """The imported tree's colour-matrix pass against its plain version on
+    RGB uniform in [0, 1] (the encoder's matrix) and on that RGB's
+    components (the decoder's, clamped), 10 windows of each side."""
+    import torch
+
+    import color_modem_tpu_torch as cmt
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    measure = _measure()
+    dev = torch.device("cuda:0")
+    res = {}
+    for std, frames, lines in COLOUR_SHAPES:
+        plan = make_plan(getattr(cmt, std)(), 720).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(frames)
+        rgb = torch.rand((frames, 3, lines, 720), generator=gen, device=dev)
+        ycc = ck.colour_matrix_plain(plan.rgb_to_ycc, rgb)
+        for name, mat, x, clamp in (("colour_matrix", plan.rgb_to_ycc, rgb, False),
+                                    ("colour_matrix_clamp", plan.ycc_to_rgb, ycc, True)):
+            def kernel():
+                return ck.colour_matrix(mat, x, clamp)
+
+            def plain():
+                return ck.colour_matrix_plain(mat, x, clamp)
+
+            err = float((kernel() - plain()).abs().max())
+            if err > 1e-6:
+                raise AssertionError(f"{name} {std}: kernel vs plain {err}")
+            p1, k1, k2, p2 = (measure.time_ms(f, windows=5) for f in (plain, kernel, kernel, plain))
+            rec = _record(k1 + k2, _host_us(kernel), measure.colour_matrix_bound(x.numel()), err)
+            plain_ms = p1 + p2
+            rec.update(plain_ms=statistics.median(plain_ms), plain_min=min(plain_ms),
+                       plain_max=max(plain_ms))
+            res[f"{name} {std} {frames}x3x{lines}x720"] = rec
+    return res
+
+
 def worker(tree: str, family: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -154,6 +204,9 @@ def worker(tree: str, family: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     load_library()
+    if family == "colour":
+        print(json.dumps({"tree": tree, "results": colour_worker()}))
+        return
     if family == "secam":
         print(json.dumps({"tree": tree, "results": secam_worker()}))
         return
@@ -187,7 +240,7 @@ def worker(tree: str, family: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--family", choices=("qam", "secam"), default="qam")
+    ap.add_argument("--family", choices=("qam", "secam", "colour"), default="qam")
     ap.add_argument("--tree", nargs="+", default=[HERE])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
@@ -213,6 +266,9 @@ def main() -> None:
             for key, r in run["results"].items():
                 yard = (f", conv2d {r['conv2d_ms']:.4f} ms [{r['conv2d_min']:.4f}, "
                         f"{r['conv2d_max']:.4f}]" if "conv2d_ms" in r else "")
+                if "plain_ms" in r:
+                    yard += (f", plain {r['plain_ms']:.4f} ms [{r['plain_min']:.4f}, "
+                             f"{r['plain_max']:.4f}]")
                 print(f"{tree} {key} on {card}: {r['ms']:.4f} ms [{r['min']:.4f}, "
                       f"{r['max']:.4f}], bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
                       f"{100 * r['share']:.1f}% of it, host {r['host_us']:.2f} us per call, "

@@ -107,6 +107,104 @@ def test_main_path_roundtrip(dev):
     assert abs(psnr(out, rgb) - 46.62) <= 0.02
 
 
+# --- the colour matrix, csrc/colour_matrix.cu ----------------------------------------
+
+#: the two batch cells' shapes, a plane that is no multiple of 4 samples
+#: (the scalar path) under two leading axes, and one line with no leading axis
+COLOUR_SHAPES = [(64, 3, 480, 720), (16, 3, 576, 720), (2, 4, 3, 7, 721), (3, 1, 720)]
+COLOUR_ATOL = 1e-6  # float32 multiply-adds against the product and two addcmul_
+
+
+def _colour_vs_plain(mat, x, clamp):
+    """The kernel against the plain version on the card: one launch, the
+    same NaNs, and the largest difference elsewhere."""
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    ck.reset_launches()
+    got = ck.colour_matrix(mat, x, clamp)
+    want = ck.colour_matrix_plain(mat, x, clamp)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 1}
+    assert got.shape == want.shape and got.is_contiguous()
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    return float((got - want).masked_fill(nan, 0.0).abs().max())
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("matrix", ["rgb_to_ycc", "ycc_to_rgb"])
+@pytest.mark.parametrize("name", sorted(ALL_STANDARDS))
+def test_colour_matrix_per_standard(dev, name, matrix, clamp):
+    mat = getattr(make_plan(ALL_STANDARDS[name](), 720).to(dev), matrix)
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    x = torch.rand((2, 3, 16, 720), generator=gen, device=dev)
+    assert _colour_vs_plain(mat, x, clamp) <= COLOUR_ATOL
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("shape", COLOUR_SHAPES)
+def test_colour_matrix_shapes(dev, shape, clamp):
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    mat = plan.ycc_to_rgb if clamp else plan.rgb_to_ycc
+    gen = torch.Generator(device=dev).manual_seed(shape[-1])
+    x = torch.rand(shape, generator=gen, device=dev)
+    assert _colour_vs_plain(mat, x, clamp) <= COLOUR_ATOL
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+def test_colour_matrix_misaligned_view_and_nan(dev, clamp):
+    """A view 4 bytes past a 16-byte boundary takes the scalar path; a NaN
+    in an input sample stays a NaN in each of its three outputs, clamped or
+    not, and so reaches the float checks."""
+    mat = make_plan(ALL_STANDARDS["pal"](), 720).to(dev).ycc_to_rgb
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flat = torch.rand(1 + 2 * 3 * 16 * 720, generator=gen, device=dev)
+    x = flat[1:].view(2, 3, 16, 720)
+    assert x.data_ptr() % 16 == 4
+    x[0, 1, 5, 17] = float("nan")
+    x[1, 2, 0, 0] = float("nan")
+    assert _colour_vs_plain(mat, x, clamp) <= COLOUR_ATOL
+    out = apply_mat3(mat, x, clamp)
+    assert bool(torch.isnan(out[0, :, 5, 17]).all()) and bool(torch.isnan(out[1, :, 0, 0]).all())
+    assert int(torch.isnan(out).sum()) == 6
+
+
+@pytest.mark.parametrize("name,decoder", [("ntsc", "comb3"), ("secam", "interp")])
+def test_roundtrip_launches_the_colour_matrix_twice(dev, name, decoder):
+    """Each round trip runs both matrices, the decoder's clamp inside the
+    second: two launches a call."""
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    cfg = ALL_STANDARDS[name]()
+    rgb = _scene(cfg.active_lines, dev)
+    _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="kernel", device=dev)
+    rt(rgb, 0)
+    ck.reset_launches()
+    for frame0 in (0, 16):
+        out = rt(rgb, frame0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 4}
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+
+
+@pytest.mark.parametrize("name,decoder", [("ntsc", "comb3"), ("secam", "interp")])
+def test_plain_backend_takes_the_plain_colour_matrix(dev, name, decoder):
+    """The plain backend on the card launches no colour-matrix kernel, so
+    its agreement with the kernel backend covers the colour conversion too."""
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    cfg = ALL_STANDARDS[name]()
+    rgb = _scene(cfg.active_lines, dev)
+    _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="plain", device=dev)
+    ck.reset_launches()
+    rt(rgb, 0)
+    mat = make_plan(cfg, 720).to(dev).ycc_to_rgb
+    got = apply_mat3(mat, rgb, True, "plain")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 0}
+    assert torch.equal(got, ck.colour_matrix_plain(mat, rgb, True))
+
+
 def test_wrappers_reject_bad_cuda_input(dev):
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
     ycc = torch.zeros((1, 3, 4, 720), device=dev)
@@ -1006,7 +1104,7 @@ def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
             assert rr[k]["device"] == "cuda:0"
             assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                          "secam_decode": 0, "threefry_bits": 0,
-                                         "threefry_add_normal": 0}
+                                         "threefry_add_normal": 0, "colour_matrix": 2}
 
 
 def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
@@ -1039,7 +1137,7 @@ def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert abs(rec["roundtrip_psnr_db"] - 46.62) <= 0.02
     assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                       "secam_decode": 0, "threefry_bits": 0,
-                                      "threefry_add_normal": 0}
+                                      "threefry_add_normal": 0, "colour_matrix": 2}
     for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
         assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
 
@@ -1064,7 +1162,8 @@ def test_sanitizer_on_every_kernel(dev, shape):
     frames, lines, n = shape
     reset_launches()
     results = sanitize.run_all(dev, lines=(lines,), samples=(n,), frames=(frames,))
-    assert len(results) == len(sanitize.ROWS) + len(sanitize.PRNG_ROWS)
+    rows = len(sanitize.ROWS) + len(sanitize.PRNG_ROWS) + len(sanitize.COLOUR_ROWS)
+    assert len(results) == rows
     bad = [(r["row"], r["standard"], r["shape"], {k: v for k, v in r.items() if k != "poison"},
             r["poison"]) for r in results if not r["ok"]]
     assert not bad, bad

@@ -83,3 +83,17 @@ def test_threefry_bound_counts_the_kernels_integer_operations(entry, bytes_per_w
     ms, by = measure.threefry_bound(entry, words, bytes_per_word)
     assert by == "operations"
     assert ms == pytest.approx(1e3 * want * words / measure.INT32_OPS_PER_S)
+
+
+@pytest.mark.parametrize("shape,want", [((64, 3, 480, 720), 0.158460),
+                                        ((16, 3, 576, 720), 0.047538)])
+def test_colour_matrix_bound_is_six_planes_at_the_cells_shapes(shape, want):
+    """One pass reads the three planes of each group and writes three: 8
+    bytes per input sample at 3.35 TB/s (NTSC batch 64, SECAM batch 16)."""
+    import math
+
+    ms, by = measure.colour_matrix_bound(math.prod(shape))
+    assert by == "bytes"
+    assert ms == pytest.approx(want, rel=1e-5)
+    assert ms == pytest.approx(1e3 * 6 * 4 * math.prod(shape[:1] + shape[2:])
+                               / measure.HBM_BYTES_PER_S)

@@ -42,11 +42,15 @@ def _plain(kernel, plan, v):
 _PLANS = {}
 
 
-def _case(row):
-    _, kernel, std, decoder = row
+def _plan(std):
     if std not in _PLANS:
         _PLANS[std] = make_plan(ALL_STANDARDS[std](), N)
-    plan = _PLANS[std]
+    return _PLANS[std]
+
+
+def _case(row):
+    _, kernel, std, decoder = row
+    plan = _plan(std)
     (tensors, _), outs = sanitize.kernel_call(kernel, plan, 2, 17, decoder, seed=1)
     return kernel, plan, tensors, outs
 
@@ -247,3 +251,37 @@ def test_threefry_kernel_poisons_its_key_first():
     head = text[text.index("{", kernels[0]) + 1:blocks[0].start()]
     assert head.strip() == "__shared__ uint32_t key_s[2];"
     assert text.index("key_s[0] = a;") > blocks[0].end()
+
+
+@pytest.mark.parametrize("row", sanitize.COLOUR_ROWS)
+def test_colour_rows_pass_the_guards(row):
+    """The colour matrix's C arguments (``kernels/colorimetry.py::colour_matrix_call``)
+    through the guard plumbing around the plain version: groups of three
+    planes of L x N samples, the matrix an input like the planes; a read
+    one element before the planes (a NaN, which the clamp keeps) and a
+    write past the output are caught."""
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    (tensors, (groups, plane, clamp)), outs = sanitize.colour_call(row, _plan("ntsc"), 2, 17)
+    assert (groups, plane, clamp) == (2, 17 * N, int(row == "colour_matrix_clamp"))
+    pos = sanitize._order_outputs(tensors, outs)
+    assert pos == [2]
+
+    def plain(views, shift=0):
+        x = views[0]
+        x = torch.as_strided(x, x.shape, x.stride(), x.storage_offset() - shift)
+        views[2].copy_(ck.colour_matrix_plain(views[1], x, bool(clamp)))
+
+    rep = sanitize.guarded_call(plain, tensors, pos, GUARD)
+    assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
+    assert rep["sentinels_intact"] and rep["inputs_intact"]
+    assert torch.equal(rep["outputs"][0], ck.colour_matrix_plain(tensors[1], tensors[0],
+                                                                 bool(clamp)))
+    assert sanitize.guarded_call(lambda v: plain(v, shift=1), tensors, pos, GUARD)["nan"] > 0
+
+    def past(views):
+        plain(views)
+        out = views[2]
+        torch.as_strided(out, (out.numel() + 1,), (1,), out.storage_offset())[-1] = 0.5
+
+    assert not sanitize.guarded_call(past, tensors, pos, GUARD)["sentinels_intact"]
