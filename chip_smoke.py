@@ -49,7 +49,12 @@ Phases; any failure raises and exits nonzero:
    off, within 1e-6, a NaN put into an input kept in its three outputs;
    CUDA-event times of each matrix against the plain version and the bound
    (``measure.colour_matrix_bound``).  The pipelines' plain backend takes
-   the plain colour matrix, so the agreements of phases 4-4i cover it too;
+   the plain colour matrix, so the agreements of phases 4-4i cover it too.
+   Then the delay-line pass (``delayline_matrix``: C1 and C2 averaged with
+   the line before, then the decoder's matrix and clamp) against its plain
+   composition at 16x3x576x720 and 64x3x576x720 on every standard's
+   matrix (each has an averaging decoder), bit for bit, NaNs kept where the composition has
+   them, and timed against it with the same six-plane bound;
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel and two of the colour matrix, agreement with
@@ -392,9 +397,23 @@ SOUND_CPU_ATOL = {"rf-sound": 1e-4, "sat-sound": 1e-3, "a2 stereo": 1e-3, "a2 du
 VIDEO_AUDIO = {"progressive": (47.24, 62.4085),
                "interlaced": (42.87, 62.3770)}
 AUDIO_CHUNK_ATOL = 1e-4    # tests/test_video.py::test_video_rf_audio_phase_continuous
-#: one round trip: an encode, a decode and the two colour matrices
-QAM_1_1 = {"qam_encode": 1, "qam_decode": 1, "colour_matrix": 2}
-SECAM_1_1 = {"secam_encode": 1, "secam_decode": 1, "colour_matrix": 2}
+def roundtrip_launches(name: str, decoder: str, n_enc: int = 1, n_dec: int = 1,
+                       n_enc_matrices: int = 1) -> dict:
+    """One round trip's launches: ``n_enc`` encodes and ``n_dec`` decodes of
+    the standard's modem kernels (SECAM's or QAM's), ``n_enc_matrices`` of
+    the encoder's colour matrix, and the decoder's last step: the delay-line
+    pass for an averaging decoder, else the colour matrix."""
+    from color_modem_tpu_torch.frame.pipeline import AVERAGING
+
+    fam = "secam" if name == "secam" else "qam"
+    want = {f"{fam}_encode": n_enc, f"{fam}_decode": n_dec, "colour_matrix": n_enc_matrices}
+    if decoder in AVERAGING:
+        want["delayline_matrix"] = 1
+    else:
+        want["colour_matrix"] += 1
+    return want
+
+
 #: phase 3d: values taken from ``jax.random`` on the CPU (JAX 0.9.0, its
 #: default threefry2x32 in the partitionable form; the card's machine has no
 #: JAX), each under the call that made it, with PRNGKey, split and fold_in
@@ -435,6 +454,9 @@ THREEFRY_CPU_FRAMES = 2
 #: multiply-adds against the product and two addcmul_ of the plain version
 COLOUR_SHAPES = ((BATCH, 3, 480, N), (64, 3, 480, N), (BATCH, 3, 576, N))
 COLOUR_ATOL = 1e-6
+#: phase 3e's delay-line pass: PAL's 16 frames and the PAL batch cell's 64
+#: (the kernel is bit for bit its plain composition, so no tolerance)
+DELAYLINE_SHAPES = ((BATCH, 3, 576, N), (64, 3, 576, N))
 #: phase 4i: the data services' stimuli (scripts/jax_transmission_reference.py
 #: uses the same) and the JAX xla values on the CPU at the card's shapes
 #: (its rows caption, teletext-wss-vitc, scramble, vir, measure, palplus,
@@ -1011,6 +1033,54 @@ def check_colour_matrix(dev, card: str) -> dict:
     return {"err": err, "times": times}
 
 
+def check_delayline_matrix(dev, card: str) -> dict:
+    """Phase 3e, the delay-line pass: bit for bit its plain composition at
+    :data:`DELAYLINE_SHAPES` on the matrix of every standard (each has an
+    averaging decoder), a NaN in a chroma sample kept in its line and the next, then
+    timed against the composition.  Returns the largest difference (0) and
+    the times and bound at each shape."""
+    import math
+
+    import torch
+
+    from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+    from color_modem_tpu_torch.kernels.measure import colour_matrix_bound
+    from color_modem_tpu_torch.modem.plan import make_plan
+
+    def exact(mat, x) -> bool:
+        got, want = ck.delayline_matrix(mat, x), ck.delayline_matrix_plain(mat, x)
+        return torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    names = sorted(ALL_STANDARDS)
+    times = {}
+    for shape in DELAYLINE_SHAPES:
+        x = torch.rand(shape, generator=gen, device=dev)
+        x[:, 1:] = 1.2 * x[:, 1:] - 0.6
+        mats = {n: make_plan(ALL_STANDARDS[n](), N).to(dev).ycc_to_rgb for n in names}
+        same = all(exact(m, x) for m in mats.values())
+        x[0, 1, 5, 17] = float("nan")
+        same &= exact(mats["pal"], x)
+        out = ck.delayline_matrix(mats["pal"], x)
+        kept = bool(torch.isnan(out[0, :, 5:7, 17]).all()) and int(torch.isnan(out).sum()) == 6
+        x[0, 1, 5, 17] = 0.5
+        print(f"3e delayline_matrix {shape}: kernel vs plain composition bit for bit {same} "
+              f"(max|diff| 0) over {len(names)} standards' matrices; a NaN kept in its line "
+              f"and the next: {kept}")
+        _check(same, f"3e delayline_matrix {shape}: not bit for bit the plain composition")
+        _check(kept, f"3e delayline_matrix {shape}: the NaN was not kept")
+        bound = colour_matrix_bound(math.prod(shape))
+        t = time_pair(partial(ck.delayline_matrix_plain, mats["pal"], x),
+                      partial(ck.delayline_matrix, mats["pal"], x))
+        times[shape] = {**t, "bound": bound}
+        print(f"time delayline_matrix {shape} on {card}: kernel {_fmt(t['kernel'])}, plain "
+              f"composition {_fmt(t['plain'])} (median [min, max] of 10 windows); bound "
+              f"{bound[0]:.4g} ms by {bound[1]}, {bound[0] / t['kernel'][0]:.3f} of it")
+        del x, out
+    return {"err": 0.0, "times": times}
+
+
 def check_channel(dev) -> None:
     """Phase 4d through the kernel backend: raster identities, burst lock,
     ACC, PAL ident and NIIR normalisation against CHANNEL_PSNR."""
@@ -1033,7 +1103,8 @@ def check_channel(dev) -> None:
     def locked(plan, rp, bad, g, decoder, **kw):
         reset_counts()
         out = raster.decode_burst_locked(plan, rp, bad, g, decoder, "kernel", **kw)
-        read_counts("a burst-locked decode", {"qam_decode": 1, "colour_matrix": 1})
+        read_counts("a burst-locked decode",
+                    roundtrip_launches(plan.cfg.name, decoder, 0, n_enc_matrices=0))
         return out
 
     def rastered(name, decoder, **imp):
@@ -1141,7 +1212,7 @@ def check_frame_layer(dev) -> dict:
         (_, _, rt_k), (_, _, rt_p) = both(make_interlaced_pipeline, plan(name), decoder)
         reset_counts()
         out = rt_k(rgb, 0)
-        got = read_counts(key, SECAM_1_1 if name == "secam" else QAM_1_1)
+        got = read_counts(key, roundtrip_launches(name, decoder))
         frame_row(key, out, rgb, got, _max_err(out, rt_p(rgb, 0)))
         if (name, decoder) == ("ntsc", "comb3"):
             timed[key] = (partial(rt_p, rgb, 0), partial(rt_k, rgb, 0))
@@ -1192,7 +1263,7 @@ def check_frame_layer(dev) -> dict:
         conv_k, conv_p = both(make_transcoder, plan(src), plan(dst))
         reset_counts()
         comp_d = conv_k(comp, 0)
-        got = read_counts(key, QAM_1_1)
+        got = read_counts(key, roundtrip_launches(src, "notch"))
         _check(tuple(comp_d.shape) == (BATCH, l_dst, N), f"{key}: shape {tuple(comp_d.shape)}")
         p_dst = plan(dst)
         out = make_pipeline(p_dst, best_decoder(p_dst), "kernel", dev)[1](comp_d, 0)
@@ -1206,7 +1277,7 @@ def check_frame_layer(dev) -> dict:
     conv_k, conv_p = both(make_interlaced_transcoder, plan("ntsc"), plan("pal"))
     reset_counts()
     fields_d = conv_k(fields, 0)
-    got = read_counts(key, QAM_1_1)
+    got = read_counts(key, roundtrip_launches("ntsc", "comb3"))
     _check(tuple(fields_d.shape) == (2 * BATCH, 288, N), f"{key}: shape {tuple(fields_d.shape)}")
     out = make_interlaced_pipeline(plan("pal"), "comb3", "kernel", dev)[1](fields_d, 0)
     frame_row(key, out, resample_lines(rgb, 576), got, _max_err(fields_d, conv_p(fields, 0)))
@@ -2572,13 +2643,15 @@ def _sharded_launches(case: dict) -> dict:
     encode and one decode of its block (none for MAC, whose modem has no
     kernel; no decode for comb3dA, whose adaptive separation runs outside
     the decode kernel, as unsharded), and the two colour matrices (five
-    with PALplus's helper)."""
+    with PALplus's helper; the encoder's and the delay-line pass for a
+    delay-line decoder)."""
     colour = {"colour_matrix": 5 if case["kind"] == "palplus" else 2}
     if case["kind"] == "mac":
         return colour
-    fam = "secam" if case["standard"] == "secam" else "qam"
-    return {f"{fam}_encode": 1, f"{fam}_decode": 0 if case["decoder"] == "comb3dA" else 1,
-            **colour}
+    if case["kind"] == "palplus":
+        return {"qam_encode": 1, "qam_decode": 1, **colour}
+    return roundtrip_launches(case["standard"], case["decoder"], 1,
+                              0 if case["decoder"] == "comb3dA" else 1)
 
 
 def sharded_cases() -> list:
@@ -2895,10 +2968,10 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
 #:       --pattern scene --standard S --decoder D
 #: with the kernels each launches once
 CLI_ROUNDTRIP = {
-    ("ntsc", "comb3"): (46.62, QAM_1_1),
-    ("pal", "delayline"): (38.0, QAM_1_1),
-    ("secam", "interp"): (38.87, SECAM_1_1),
-    ("niir", "avg"): (33.18, QAM_1_1),
+    ("ntsc", "comb3"): (46.62, roundtrip_launches("ntsc", "comb3")),
+    ("pal", "delayline"): (38.0, roundtrip_launches("pal", "delayline")),
+    ("secam", "interp"): (38.87, roundtrip_launches("secam", "interp")),
+    ("niir", "avg"): (33.18, roundtrip_launches("niir", "avg")),
 }
 #: phase 7c's noisy round trip (scripts/jax_transmission_reference.py
 #: cli-noisy-rf): NTSC comb3 with composite noise (PRNGKey(0)), RF noise
@@ -2906,7 +2979,8 @@ CLI_ROUNDTRIP = {
 #: halves) repaired by DOC, the JAX CLI's PSNR and the launches
 CLI_NOISY_ARGS = ("--noise", "0.02", "--rf", "--rf-noise", "0.01", "--rf-dropouts", "0.05",
                   "--rf-doc")
-CLI_NOISY = (31.1, {**QAM_1_1, "threefry_bits": 3, "threefry_add_normal": 2})
+CLI_NOISY = (31.1, {**roundtrip_launches("ntsc", "comb3"), "threefry_bits": 3,
+                   "threefry_add_normal": 2})
 #: phase 7d: the rows of ``cli gallery`` at its defaults
 GALLERY_ROWS = 58
 LINE_API_LINES = 24
@@ -3283,10 +3357,10 @@ def check_cli_mesh(card: str) -> None:
 #: phase 8: the benchmark's flagship paths, (standard, decoder) -> the JAX
 #: CPU round-trip PSNR that phases 4, 4b and 4c hold at the same shape
 BENCH_PATHS = {
-    ("ntsc", "comb3"): (PSNR_EXPECTED, QAM_1_1),
-    ("secam", "interp"): (SECAM_PSNR["interp"], SECAM_1_1),
-    ("pal", "delayline"): (QAM_FAMILY["pal", "delayline"][0], QAM_1_1),
-    ("niir", "avg"): (QAM_FAMILY["niir", "avg"][0], QAM_1_1),
+    ("ntsc", "comb3"): (PSNR_EXPECTED, roundtrip_launches("ntsc", "comb3")),
+    ("secam", "interp"): (SECAM_PSNR["interp"], roundtrip_launches("secam", "interp")),
+    ("pal", "delayline"): (QAM_FAMILY["pal", "delayline"][0], roundtrip_launches("pal", "delayline")),
+    ("niir", "avg"): (QAM_FAMILY["niir", "avg"][0], roundtrip_launches("niir", "avg")),
 }
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
 ROOFLINE_SHARES = ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak")
@@ -3403,7 +3477,7 @@ def check_entry(dev) -> None:
     _check(rgb.device.type == "cuda", f"entry: example input on {rgb.device}")
     reset_counts()
     out = step(rgb)
-    got = read_counts("entry step", QAM_1_1)
+    got = read_counts("entry step", roundtrip_launches("ntsc", "comb3"))
     _check(tuple(out.shape) == (2, 3, 480, 720) and bool(torch.isfinite(out).all()),
            f"entry: output {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}")
     print(f"entry(): step{tuple(rgb.shape)} -> {tuple(out.shape)} on {out.device}, finite, "
@@ -3791,29 +3865,33 @@ def main() -> None:
 
     # --- 3e. the colour matrix against its plain version ------------------------
     colour = check_colour_matrix(dev, card)
+    delayline = check_delayline_matrix(dev, card)
 
     # --- 4. main path; 4b. the SECAM path -------------------------------------
     paths = {}
-    rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED, QAM_1_1)
+    rt_k, rt_p, launches = check_path(dev, "ntsc", "comb3", PSNR_EXPECTED,
+                                      roundtrip_launches("ntsc", "comb3"))
     paths["ntsc", "comb3"] = (rt_k, rt_p)
     for decoder, expected in SECAM_PSNR.items():
-        rt_k, rt_p, got = check_path(dev, "secam", decoder, expected, SECAM_1_1)
+        rt_k, rt_p, got = check_path(dev, "secam", decoder, expected,
+                                     roundtrip_launches("secam", decoder))
         if decoder == "interp":
-            launches.update({k: got[k] for k in SECAM_1_1})
+            launches.update({k: got[k] for k in ("secam_encode", "secam_decode")})
             paths["secam", decoder] = (rt_k, rt_p)
     # the chip matrix's SECAM row, 1440 samples
-    wide = check_path(dev, "secam", "interp", SECAM_PSNR_1440, SECAM_1_1, n=2 * N)[:2]
+    wide = check_path(dev, "secam", "interp", SECAM_PSNR_1440, roundtrip_launches("secam", "interp"),
+                      n=2 * N)[:2]
 
     # --- 4c. the rest of the QAM family ---------------------------------------
     for (name, decoder), (expected, (n_enc, n_dec)) in QAM_FAMILY.items():
         rt_k, rt_p, got = check_path(dev, name, decoder, expected,
-                                     {"qam_encode": n_enc, "qam_decode": n_dec,
-                                      "colour_matrix": 2})
+                                     roundtrip_launches(name, decoder, n_enc, n_dec))
         paths[name, decoder] = (rt_k, rt_p)
         if (name, decoder) == ("pal", "delayline"):
             # the _shared forms: the same CUDA kernels with equal tile arrays
             launches["qam_encode_shared"] = got["qam_encode"]
             launches["qam_decode_shared"] = got["qam_decode"]
+            launches["delayline_matrix"] = got["delayline_matrix"]
 
     # --- 4k. the card against the port's oracle (golden/) at full width ----------
     t_oracle = check_oracle(dev, card)
@@ -3935,6 +4013,19 @@ def main() -> None:
          "ms_spread": list(t_colour["kernel"][1:]),
          "plain_ms_spread": list(t_colour["plain"][1:])}
         for t_colour in (colour["times"][COLOUR_SHAPES[0], "decode"],)
+    ] + [
+        # the delay-line pass: PAL delayline's decoder matrix, at phase 4c's shape
+        {"name": "delayline_matrix", "route": "cuda",
+         "source": "color_modem_tpu_torch/csrc/colour_matrix.cu",
+         "replaces": "color_modem_tpu/separate/delayline.py average_with_neighbor and "
+                     "dsp/colorimetry.py apply_mat3 (XLA, no Pallas kernel)",
+         "launches": launches["delayline_matrix"], "max_abs_err": delayline["err"],
+         "ms": t_delay["kernel"][0], "plain_ms": t_delay["plain"][0],
+         "bound_ms": t_delay["bound"][0], "bound_by": t_delay["bound"][1],
+         "library_ms": None, "launches_bench": bench["pal"]["kernel_launches"]["delayline_matrix"],
+         "ms_spread": list(t_delay["kernel"][1:]),
+         "plain_ms_spread": list(t_delay["plain"][1:])}
+        for t_delay in (delayline["times"][DELAYLINE_SHAPES[0]],)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -8,14 +8,20 @@ c = 0, 1, 2: no matrix product, so no process-wide matmul precision setting
 kernel ``csrc/colour_matrix.cu`` computes them, with the decoder's clamp
 inside it (``kernels/colorimetry.py``); on the CPU, and on every device under
 the pipelines' ``"plain"`` backend, its plain version does, so that the plain
-backend on the card stays a witness of the kernel.
+backend on the card stays a witness of the kernel.  :func:`delayline_mat3`
+is the delay-line decoders' last step, dispatched the same way.
 """
 
 from __future__ import annotations
 
 import torch
 
-from color_modem_tpu_torch.kernels.colorimetry import colour_matrix, colour_matrix_plain
+from color_modem_tpu_torch.kernels.colorimetry import (
+    colour_matrix,
+    colour_matrix_plain,
+    delayline_matrix,
+    delayline_matrix_plain,
+)
 
 
 def apply_mat3(mat: torch.Tensor, x: torch.Tensor, clamp: bool = False,
@@ -27,6 +33,16 @@ def apply_mat3(mat: torch.Tensor, x: torch.Tensor, clamp: bool = False,
     if backend == "kernel" and x.device.type == "cuda":
         return colour_matrix(mat, x, clamp)
     return colour_matrix_plain(mat, x, clamp)
+
+
+def delayline_mat3(mat: torch.Tensor, x: torch.Tensor, backend: str = "kernel") -> torch.Tensor:
+    """``(..., 3, L, N)`` ``(Y, C1, C2)`` with C1 and C2 of each line averaged
+    with the line before (line 0 with line 1), then ``mat`` applied and the
+    result clamped as :func:`apply_mat3` does: one pass of the CUDA kernel on
+    a CUDA tensor with ``backend="kernel"``, else the plain composition."""
+    if backend == "kernel" and x.device.type == "cuda":
+        return delayline_matrix(mat, x)
+    return delayline_matrix_plain(mat, x)
 
 
 def clamp01(x: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,10 @@ The adaptive combs ('combA', 'comb3dA') separate with a data-dependent
 blend that has no kernel in the JAX package either: on both backends they
 take the plain separation and product detector, and only the encode runs
 the kernel.  After the QAM demodulation come, in the JAX package's order,
-the burst phase and gain hooks, delay-line averaging and NIIR
-normalisation.
+the burst phase and gain hooks and NIIR normalisation.  The averaging
+decoders' delay line, on QAM chroma and on SECAM's D'R/D'B alike, is one
+step with the decoder's matrix (``dsp/colorimetry.py::delayline_mat3``:
+one CUDA pass on the kernel backend), after all of these.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from color_modem_tpu_torch.standards.decoders import allowed_decoders
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, delayline_mat3
 from color_modem_tpu_torch.dsp.nco import global_line_index
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
 from color_modem_tpu_torch.kernels import qam as qam_k
@@ -30,11 +32,10 @@ from color_modem_tpu_torch.kernels import secam as secam_k
 from color_modem_tpu_torch.modem import niir, qam, secam
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan, plan_on
 from color_modem_tpu_torch.separate.comb import ADAPTIVE, separate, stencil_signal
-from color_modem_tpu_torch.separate.delayline import average_with_neighbor
 from color_modem_tpu_torch.utils.tracing import span
 
 BACKENDS = ("kernel", "plain")
-#: QAM decoders that average the demodulated chroma over adjacent lines
+#: decoders that average the decoded chroma over adjacent lines
 AVERAGING = ("delayline", "avg")
 
 
@@ -70,13 +71,7 @@ def _decode_fm(plan: FmPlan, comp: torch.Tensor, gline: torch.Tensor,
                decoder: str, backend: str) -> torch.Tensor:
     pairing = "interp" if decoder == "interp" else "copy"
     dec = secam_k.decode if backend == "kernel" else secam.decode
-    ycc = dec(plan, comp, gline, pairing)
-    if decoder == "avg":
-        # chroma averaging on the assembled D'R/D'B planes, outside the
-        # kernel, the same on both backends
-        ycc = torch.cat([ycc[..., :1, :, :], average_with_neighbor(ycc[..., 1:, :, :])],
-                        dim=-3)
-    return ycc
+    return dec(plan, comp, gline, pairing)
 
 
 def _demodulate_qam(plan: QamPlan, comp: torch.Tensor, gline: torch.Tensor,
@@ -91,15 +86,14 @@ def _demodulate_qam(plan: QamPlan, comp: torch.Tensor, gline: torch.Tensor,
 
 
 def _correct_chroma(plan: QamPlan, ycc: torch.Tensor, gline: torch.Tensor,
-                    decoder: str, phase_err: torch.Tensor | None,
+                    phase_err: torch.Tensor | None,
                     chroma_gain: torch.Tensor | None) -> torch.Tensor:
     """The steps after the product detector, in the JAX package's order:
-    phase counter-rotation, chroma gain, delay-line averaging (non-NIIR),
-    NIIR normalisation and NIIR 'avg'.  ``ycc`` comes back as it is when
-    none applies."""
+    phase counter-rotation, chroma gain and NIIR normalisation (the
+    delay-line averaging comes after, with the decoder's matrix).  ``ycc``
+    comes back as it is when none applies."""
     is_niir = plan.chroma.reference_amplitude is not None
-    if (phase_err is None and chroma_gain is None and not is_niir
-            and decoder not in AVERAGING):
+    if phase_err is None and chroma_gain is None and not is_niir:
         return ycc
     luma, c1, c2 = ycc.unbind(-3)
     if phase_err is not None:
@@ -111,13 +105,8 @@ def _correct_chroma(plan: QamPlan, ycc: torch.Tensor, gline: torch.Tensor,
     if chroma_gain is not None:
         g = chroma_gain[..., None].to(torch.float32)
         c1, c2 = g * c1, g * c2
-    if decoder in AVERAGING and not is_niir:
-        c1, c2 = average_with_neighbor(c1), average_with_neighbor(c2)
     if is_niir:
         c1, c2 = niir.normalize(plan, c1, c2, gline)
-        if decoder == "avg":
-            # after normalising: raw demod alternates chroma and reference
-            c1, c2 = average_with_neighbor(c1), average_with_neighbor(c2)
     return torch.stack([luma, c1, c2], dim=-3)
 
 
@@ -144,10 +133,14 @@ def decode_block(
     if plan.cfg.is_fm:
         if phase_err is not None or chroma_gain is not None:
             raise ValueError("phase_err and chroma_gain apply to QAM standards only")
-        return apply_mat3(plan.ycc_to_rgb, _decode_fm(plan, comp, gline, decoder, backend),
-                          clamp=True, backend=backend)
-    ycc = _demodulate_qam(plan, comp, gline, decoder, backend)
-    ycc = _correct_chroma(plan, ycc, gline, decoder, phase_err, chroma_gain)
+        ycc = _decode_fm(plan, comp, gline, decoder, backend)
+    else:
+        ycc = _demodulate_qam(plan, comp, gline, decoder, backend)
+        ycc = _correct_chroma(plan, ycc, gline, phase_err, chroma_gain)
+    if decoder in AVERAGING:
+        # NIIR's after its normalisation: raw demod alternates chroma and reference
+        with span("cm.pipeline.delayline"):
+            return delayline_mat3(plan.ycc_to_rgb, ycc, backend)
     return apply_mat3(plan.ycc_to_rgb, ycc, clamp=True, backend=backend)
 
 

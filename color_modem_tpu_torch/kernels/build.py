@@ -68,6 +68,8 @@ SIGNATURES = {
     "threefry_add_normal": (_P, _P, _U32, _U32, _I, _U32, _F, _U64, _I, _P),
     # x, mat, out, groups, samples per plane, clamp, stream
     "colour_matrix": (_P, _P, _P, _I, _U64, _I, _P),
+    # x, mat, out, groups, lines, samples, stream
+    "delayline_matrix": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 

@@ -8,8 +8,8 @@ is launched from the same C arguments its wrapper assembles
 (``kernels/qam.py::encode_call``/``decode_call``,
 ``kernels/secam.py::encode_call``/``demodulate_call``,
 ``kernels/prng.py::bits_call``/``normal_call``,
-``kernels/colorimetry.py::colour_matrix_call``), with each tensor moved
-into the middle of a larger allocation:
+``kernels/colorimetry.py::colour_matrix_call``/``delayline_matrix_call``),
+with each tensor moved into the middle of a larger allocation:
 
 * every input into a flat allocation filled with :data:`GUARD_BITS`, a NaN,
   at least one tile of lines (:data:`GUARD_LINES` x N samples) before and
@@ -215,8 +215,10 @@ SECAM_ONLY_SAMPLES = (2160,)
 PRNG_ROWS = ("threefry_add_normal", "threefry_add_normal_one_key", "threefry_normal",
              "threefry_bits")
 #: the colour matrix's rows (``csrc/colour_matrix.cu``), on the QAM rows'
-#: grid: the encoder's RGB -> YIQ, and the decoder's YIQ -> RGB with its clamp
-COLOUR_ROWS = ("colour_matrix", "colour_matrix_clamp")
+#: grid: the encoder's RGB -> YIQ, the decoder's YIQ -> RGB with its clamp, and
+#: the delay-line decoders' pass (PAL's YUV averaged with the line before, then
+#: its matrix and clamp; not at one line, which it refuses)
+COLOUR_ROWS = ("colour_matrix", "colour_matrix_clamp", "delayline_matrix")
 
 
 def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int = 0):
@@ -276,28 +278,31 @@ def prng_call(row: str, frames: int, lines: int, n: int, dev, seed: int = 0):
 
 
 def colour_call(row: str, plan, frames: int, lines: int, seed: int = 0):
-    """(call, outputs) of one colour-matrix launch of :data:`COLOUR_ROWS`
+    """(C entry point, call, outputs) of one launch of :data:`COLOUR_ROWS`
     over ``frames`` x 3 x ``lines`` x ``plan.n_samples`` on the plan's
     device: RGB uniform in [0, 1] for the encoder's matrix, the components
-    in their ranges for the decoder's."""
+    in their ranges for the decoder's and the delay line's."""
     from color_modem_tpu_torch.kernels import colorimetry
 
     dev, n = plan.rgb_to_ycc.device, plan.n_samples
-    clamp = row == "colour_matrix_clamp"
+    decoder = row != "colour_matrix"
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand((frames, 3, lines, n), generator=gen, device=dev)
-    if clamp:
+    if decoder:
         x[:, 1:] = 1.2 * x[:, 1:] - 0.6
     out = torch.empty_like(x)
-    mat = plan.ycc_to_rgb if clamp else plan.rgb_to_ycc
-    return colorimetry.colour_matrix_call(mat, x, out, clamp), [out]
+    if row == "delayline_matrix":
+        return row, colorimetry.delayline_matrix_call(plan.ycc_to_rgb, x, out), [out]
+    mat = plan.ycc_to_rgb if decoder else plan.rgb_to_ycc
+    return "colour_matrix", colorimetry.colour_matrix_call(mat, x, out, decoder), [out]
 
 
 def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> list[dict]:
     """:func:`sanitize` every row of :data:`ROWS` at every (lines, samples,
     frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`, and
     every row of :data:`PRNG_ROWS` and :data:`COLOUR_ROWS` (on the NTSC
-    plan's matrices) where the QAM rows run; ``report(result)`` after each.
+    plan's matrices, the delay line on PAL's) where the QAM rows run, the
+    delay line but at one line; ``report(result)`` after each.
     Returns the results, each with ``row``, ``kernel``, ``standard`` and
     ``shape``."""
     from color_modem_tpu_torch import ALL_STANDARDS
@@ -330,7 +335,10 @@ def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> li
                 kernel, call, outs = prng_call(row, f, l, n, dev)
                 run(row, kernel, "threefry", (f, l, n), call, outs)
         for row in COLOUR_ROWS:
+            std = "pal" if row == "delayline_matrix" else "ntsc"
             for f, l in grid:
-                run(row, "colour_matrix", "ntsc", (f, l, n),
-                    *colour_call(row, plans["ntsc", n], f, l))
+                if row == "delayline_matrix" and l < 2:
+                    continue
+                kernel, call, outs = colour_call(row, plans[std, n], f, l)
+                run(row, kernel, std, (f, l, n), call, outs)
     return results

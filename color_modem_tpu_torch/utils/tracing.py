@@ -33,6 +33,8 @@ SPANS = {
     "cm.pipeline.encode": "make_pipeline's encode call, dispatched",
     "cm.pipeline.decode": "make_pipeline's decode call, dispatched",
     "cm.pipeline.roundtrip": "make_pipeline's roundtrip call, dispatched",
+    "cm.pipeline.delayline": "decode_block's delay line and decoder's matrix, for every "
+                             "averaging decoder (one pass on the kernel backend), dispatched",
     "cm.build.rf_plan": "frame/rf.py::make_rf_plan: the RF geometry and its float64 filter design",
     "cm.build.plan_copy": "modem/plan.py::plan_on: a plan's buffers copied to another device",
     "cm.build.memo": "dsp/stream.py::plan_memo: a hop plan's composed taps built",

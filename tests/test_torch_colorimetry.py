@@ -25,6 +25,7 @@ from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem import qam, secam
 from color_modem_tpu_torch.modem.plan import make_plan
+from color_modem_tpu_torch.separate.delayline import average_with_neighbor
 from color_modem_tpu_torch.utils.testimages import smooth_scene
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -137,7 +138,7 @@ def test_cpu_apply_mat3_is_the_plain_version_on_either_backend(backend, clamp):
 
 
 BLOCKS = [("ntsc", "notch"), ("ntsc", "comb3"), ("ntsc", "combA"), ("pal", "delayline"),
-          ("secam", "interp"), ("niir", "avg")]
+          ("secam", "interp"), ("niir", "avg"), ("secam", "avg")]
 
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
@@ -160,7 +161,11 @@ def test_blocks_equal_the_composition_they_replace(name, decoder, backend):
         dec = pipeline._decode_fm(plan, comp, gline, decoder, backend)
     else:
         dec = pipeline._demodulate_qam(plan, comp, gline, decoder, backend)
-        dec = pipeline._correct_chroma(plan, dec, gline, decoder, None, None)
+        dec = pipeline._correct_chroma(plan, dec, gline, None, None)
+    if decoder in pipeline.AVERAGING:
+        # the delay line comes with the decoder's matrix, after the hooks
+        y, c1, c2 = dec.unbind(-3)
+        dec = torch.stack([y, average_with_neighbor(c1), average_with_neighbor(c2)], dim=-3)
     want = clamp01(_composition(plan.ycc_to_rgb, dec))
     assert torch.equal(pipeline.decode_block(plan, comp, gline, decoder, backend), want)
 
@@ -180,3 +185,131 @@ def test_kernel_source_sums_in_order_and_keeps_nans():
     assert "__shared__" not in text and "CMT_POISON" not in text
     assert not any("fast_math" in f or "fmad=false" in f for f in NVCC_FLAGS)
     assert len(SIGNATURES["colour_matrix"]) == 7
+
+
+# --- the delay line and the decoder's matrix in one pass (delayline_matrix) ------------
+
+def _delayline_composition(mat, x):
+    """The decoder's last steps as the pipeline composed them before the
+    pass: ``average_with_neighbor`` on C1 and C2, the stack, the matrix and
+    ``clamp01``."""
+    y, c1, c2 = x.unbind(-3)
+    ycc = torch.stack([y, average_with_neighbor(c1), average_with_neighbor(c2)], dim=-3)
+    return clamp01(_composition(mat, ycc))
+
+
+@pytest.mark.parametrize("frames", [1, 3])
+@pytest.mark.parametrize("lines", [576, 63, 2])
+def test_delayline_matrix_on_the_cpu_is_the_composition(lines, frames):
+    """Bit for bit, NaNs and infinities included, at a full 576-line frame,
+    an odd count and the least the delay line takes."""
+    mat = plan_of("pal").ycc_to_rgb
+    x = _wild(lines * frames, (frames, 3, lines, 24))
+    got = ck.delayline_matrix(mat, x)
+    assert torch.equal(bits(got), bits(_delayline_composition(mat, x)))
+    assert torch.equal(bits(got), bits(ck.delayline_matrix_plain(mat, x)))
+    assert torch.isnan(got).any() and not torch.isinf(got).any()
+
+
+def test_delayline_matrix_reflects_line_0_onto_line_1():
+    """Line 0 averages with line 1, every other line with the one before;
+    a NaN in a chroma sample reaches its own line and the line after (and
+    line 0, from line 1)."""
+    mat = plan_of("pal").ycc_to_rgb
+    x = torch.rand((2, 3, 5, 8), generator=torch.Generator().manual_seed(11))
+    got = ck.delayline_matrix(mat, x)
+    for line, nb in ((0, 1), (1, 0), (2, 1), (4, 3)):
+        ycc = torch.stack([x[:, 0, line], 0.5 * (x[:, 1, line] + x[:, 1, nb]),
+                           0.5 * (x[:, 2, line] + x[:, 2, nb])], dim=1)[:, :, None]
+        assert torch.equal(got[:, :, line:line + 1], clamp01(_composition(mat, ycc)))
+    x[1, 2, 1, 3] = float("nan")
+    nan = torch.isnan(ck.delayline_matrix(mat, x))
+    assert nan[1, :, :3, 3].all() and int(nan.sum()) == 9
+
+
+def test_delayline_matrix_checks_its_inputs():
+    mat = plan_of("pal").ycc_to_rgb
+    x = torch.zeros((2, 3, 4, 8))
+    with pytest.raises(TypeError):
+        ck.delayline_matrix(mat, x.double())
+    with pytest.raises(ValueError, match=r"\(\.\.\., 3, L, N\)"):
+        ck.delayline_matrix(mat, torch.zeros((2, 4, 4, 8)))
+    with pytest.raises(ValueError, match="mat"):
+        ck.delayline_matrix(mat[:, :2], x)
+    with pytest.raises(ValueError, match="2 or more lines"):
+        ck.delayline_matrix(mat, torch.zeros((2, 3, 1, 8)))
+    with pytest.raises(ValueError, match="device"):
+        ck.delayline_matrix(mat, x.to("meta"))
+    assert ck.delayline_matrix(mat, torch.zeros((0, 3, 4, 8))).shape == (0, 3, 4, 8)
+
+
+def test_delayline_matrix_call_passes_groups_lines_and_samples():
+    mat = plan_of("pal").ycc_to_rgb
+    x = torch.zeros((2, 5, 3, 7, 9))
+    out = torch.empty_like(x)
+    tensors, scalars = ck.delayline_matrix_call(mat, x, out)
+    assert tensors[0] is x and tensors[1] is mat and tensors[2] is out
+    assert scalars == (10, 7, 9)
+
+
+AVERAGING_BLOCKS = [("pal", "delayline"), ("ntsc", "avg"), ("pal60", "delayline"),
+                    ("ntsc443", "avg"), ("niir", "avg")]
+
+
+#: kernel against plain backend on the CPU: their QAM demodulations (the
+#: kernels' plain versions and ``modem/qam.py``) sum in other orders and
+#: differ by an ulp or two, the same on every decoder (comb3 reads 3e-7)
+BACKENDS_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("name,decoder", AVERAGING_BLOCKS)
+def test_averaging_decoders_agree_on_both_backends(name, decoder):
+    """The kernel backend, which takes the one pass, gives bit for bit its
+    own demodulation through the hooks, the averages, the matrix and the
+    clamp as composed steps, and agrees with the plain backend: the round
+    trip, and a decode with the burst phase and gain hooks."""
+    plan = plan_of(name)
+    rgb = torch.tensor(smooth_scene(12, N, seed=6), dtype=torch.float32)[None].repeat(3, 1, 1, 1)
+    outs = {b: make_pipeline(plan, decoder, b, "cpu")[2](rgb, 7) for b in ("kernel", "plain")}
+    assert float((outs["kernel"] - outs["plain"]).abs().max()) <= BACKENDS_ATOL
+    gline = frame_line_index(plan, 7, 3, 12, "cpu")
+    comp = pipeline.encode_block(plan, rgb, gline, "plain")
+    phase = torch.linspace(-0.3, 0.3, 12).expand(3, 12)
+    gain = torch.linspace(0.8, 1.2, 12).expand(3, 12)
+    hooked = {b: pipeline.decode_block(plan, comp, gline, decoder, b, phase, gain)
+              for b in ("kernel", "plain")}
+    ycc = pipeline._demodulate_qam(plan, comp, gline, decoder, "kernel")
+    ycc = pipeline._correct_chroma(plan, ycc, gline, phase, gain)
+    assert torch.equal(bits(hooked["kernel"]), bits(_delayline_composition(plan.ycc_to_rgb, ycc)))
+    assert float((hooked["kernel"] - hooked["plain"]).abs().max()) <= BACKENDS_ATOL
+    nominal = pipeline.decode_block(plan, comp, gline, decoder, "kernel")
+    assert not torch.equal(hooked["kernel"], nominal)
+
+
+@pytest.mark.parametrize("name,decoder,takes_pass", [("pal", "delayline", True),
+                                                     ("ntsc", "avg", True),
+                                                     ("niir", "avg", True),
+                                                     ("secam", "avg", True),
+                                                     ("pal", "comb3", False),
+                                                     ("niir", "notch", False),
+                                                     ("secam", "interp", False)])
+def test_which_decoders_take_the_delayline_step(name, decoder, takes_pass, monkeypatch):
+    """Every averaging decoder ends in the delay line and matrix as one
+    step, on either backend: the QAM decoders after the hooks (NIIR's after
+    its normalisation), SECAM's on the assembled D'R/D'B planes.  The other
+    decoders take the colour matrix."""
+    seen = []
+    real = pipeline.delayline_mat3
+    monkeypatch.setattr(pipeline, "delayline_mat3",
+                        lambda mat, x, backend: seen.append(backend) or real(mat, x, backend))
+    rgb = torch.tensor(smooth_scene(8, N, seed=2), dtype=torch.float32)[None]
+    for backend in ("plain", "kernel"):
+        make_pipeline(plan_of(name), decoder, backend, "cpu")[2](rgb, 0)
+    assert seen == (["plain", "kernel"] if takes_pass else [])
+
+
+@pytest.mark.parametrize("backend", ["kernel", "plain"])
+def test_delayline_mat3_on_the_cpu_is_the_composition(backend):
+    mat, x = plan_of("pal").ycc_to_rgb, _wild(9, (2, 3, 7, 33))
+    assert torch.equal(bits(pipeline.delayline_mat3(mat, x, backend)),
+                       bits(_delayline_composition(mat, x)))

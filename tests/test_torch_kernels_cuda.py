@@ -124,7 +124,7 @@ def _colour_vs_plain(mat, x, clamp):
     got = ck.colour_matrix(mat, x, clamp)
     want = ck.colour_matrix_plain(mat, x, clamp)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 1}
+    assert ck.LAUNCHES == {"colour_matrix": 1, "delayline_matrix": 0}
     assert got.shape == want.shape and got.is_contiguous()
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
@@ -183,7 +183,7 @@ def test_roundtrip_launches_the_colour_matrix_twice(dev, name, decoder):
     for frame0 in (0, 16):
         out = rt(rgb, frame0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 4}
+    assert ck.LAUNCHES == {"colour_matrix": 4, "delayline_matrix": 0}
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
 
@@ -201,8 +201,133 @@ def test_plain_backend_takes_the_plain_colour_matrix(dev, name, decoder):
     mat = make_plan(cfg, 720).to(dev).ycc_to_rgb
     got = apply_mat3(mat, rgb, True, "plain")
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 0}
+    assert ck.LAUNCHES == {"colour_matrix": 0, "delayline_matrix": 0}
     assert torch.equal(got, ck.colour_matrix_plain(mat, rgb, True))
+
+
+# --- the delay line and the decoder's matrix in one pass (delayline_matrix) ---------
+
+#: the cell's batch and chip_smoke's, under leading axes, ragged lines and a line
+#: that is no multiple of 4 samples (the scalar path), and the least frame
+DELAYLINE_SHAPES = [(64, 3, 576, 720), (16, 3, 576, 720), (2, 4, 3, 7, 721), (3, 3, 63, 722),
+                    (1, 3, 2, 4), (3, 65, 720)]
+
+
+def _delayline_vs_plain(dev, x, name="pal"):
+    """The pass against the plain composition on the card: one launch, the
+    same bits (NaNs where the plain composition has them)."""
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    mat = make_plan(ALL_STANDARDS[name](), 720).to(dev).ycc_to_rgb
+    ck.reset_launches()
+    got = ck.delayline_matrix(mat, x)
+    want = ck.delayline_matrix_plain(mat, x)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 0, "delayline_matrix": 1}
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("shape", DELAYLINE_SHAPES)
+def test_delayline_matrix_is_the_plain_composition_bit_for_bit(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(shape[-2])
+    x = torch.rand(shape, generator=gen, device=dev)
+    x[..., 1:, :, :] = 1.2 * x[..., 1:, :, :] - 0.6
+    _delayline_vs_plain(dev, x)
+
+
+@pytest.mark.parametrize("name", ["pal", "ntsc", "pal60", "ntsc443", "pal_m", "pal_n"])
+def test_delayline_matrix_per_standard(dev, name):
+    gen = torch.Generator(device=dev).manual_seed(len(name))
+    x = 1.4 * torch.rand((2, 3, 16, 720), generator=gen, device=dev) - 0.2
+    _delayline_vs_plain(dev, x, name)
+
+
+def test_delayline_matrix_misaligned_view_and_nan(dev):
+    """A view 4 bytes past a 16-byte boundary takes the scalar path; a NaN
+    in a chroma sample of line 5 reaches lines 5 and 6 of its frame, a NaN
+    on line 1 reaches line 0 through the reflection."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flat = torch.rand(1 + 2 * 3 * 16 * 720, generator=gen, device=dev)
+    x = flat[1:].view(2, 3, 16, 720)
+    assert x.data_ptr() % 16 == 4
+    x[0, 1, 5, 17] = float("nan")
+    x[1, 2, 1, 3] = float("nan")
+    out = _delayline_vs_plain(dev, x)
+    assert bool(torch.isnan(out[0, :, 5:7, 17]).all())
+    assert bool(torch.isnan(out[1, :, 0:3, 3]).all())
+    assert int(torch.isnan(out).sum()) == 15
+
+
+def test_delayline_matrix_refuses_one_line(dev):
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    mat = make_plan(ALL_STANDARDS["pal"](), 720).to(dev).ycc_to_rgb
+    with pytest.raises(ValueError, match="2 or more lines"):
+        ck.delayline_matrix(mat, torch.zeros((2, 3, 1, 720), device=dev))
+
+
+@pytest.mark.parametrize("name,decoder", [("pal", "delayline"), ("ntsc", "avg"), ("niir", "avg")])
+def test_averaging_roundtrip_launches_the_pass(dev, name, decoder):
+    """A delay-line round trip runs the encoder's colour matrix and the one
+    pass; it agrees with the plain backend on the card within the decode
+    bound, and its decode with the phase hook equals the plain composition
+    of the same demodulation."""
+    from color_modem_tpu_torch.frame import pipeline
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    cfg = ALL_STANDARDS[name]()
+    plan = make_plan(cfg, 720)
+    rgb = _scene(cfg.active_lines, dev)
+    enc, _, rt = make_pipeline(plan, decoder, backend="kernel", device=dev)
+    _, _, rt_p = make_pipeline(plan, decoder, backend="plain", device=dev)
+    rt(rgb, 0)
+    ck.reset_launches()
+    qk.reset_launches()
+    for frame0 in (0, 16):
+        out = rt(rgb, frame0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 2, "delayline_matrix": 2}
+    assert qk.LAUNCHES == {"qam_encode": 2, "qam_decode": 2}
+    assert float((out - rt_p(rgb, 16)).abs().max()) <= DEC_ATOL
+    p = plan.to(dev)
+    comp = enc(rgb, 0)
+    g = frame_line_index(p, 0, 16, cfg.active_lines, dev)
+    phase = torch.full((16, cfg.active_lines), 0.1, device=dev)
+    got = pipeline.decode_block(p, comp, g, decoder, "kernel", phase_err=phase)
+    ycc = pipeline._correct_chroma(p, pipeline._demodulate_qam(p, comp, g, decoder, "kernel"), g,
+                                   phase, None)
+    want = ck.delayline_matrix_plain(p.ycc_to_rgb, ycc)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_secam_avg_roundtrip_launches_the_pass(dev):
+    """SECAM 'avg' averages the assembled D'R/D'B planes in the same pass:
+    one launch of each SECAM kernel, the encoder's colour matrix and the
+    pass, its decode bit for bit the plain composition of the kernel's
+    demodulation, and within the decode bound of the plain backend."""
+    from color_modem_tpu_torch.frame import pipeline
+    from color_modem_tpu_torch.kernels import colorimetry as ck
+
+    plan = make_plan(SECAM(), 720)
+    rgb = _scene(576, dev)
+    enc, _, rt = make_pipeline(plan, "avg", backend="kernel", device=dev)
+    _, _, rt_p = make_pipeline(plan, "avg", backend="plain", device=dev)
+    ck.reset_launches()
+    sk.reset_launches()
+    out = rt(rgb, 0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"colour_matrix": 1, "delayline_matrix": 1}
+    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    assert abs(psnr(out, rgb) - 33.3755) <= 0.02
+    assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
+    p = plan.to(dev)
+    comp = enc(rgb, 0)
+    g = frame_line_index(p, 0, 16, 576, dev)
+    got = pipeline.decode_block(p, comp, g, "avg", "kernel")
+    want = ck.delayline_matrix_plain(p.ycc_to_rgb, pipeline._decode_fm(p, comp, g, "avg", "kernel"))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_wrappers_reject_bad_cuda_input(dev):
@@ -1104,7 +1229,8 @@ def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
             assert rr[k]["device"] == "cuda:0"
             assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                          "secam_decode": 0, "threefry_bits": 0,
-                                         "threefry_add_normal": 0, "colour_matrix": 2}
+                                         "threefry_add_normal": 0, "colour_matrix": 2,
+                                         "delayline_matrix": 0}
 
 
 def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
@@ -1137,7 +1263,8 @@ def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert abs(rec["roundtrip_psnr_db"] - 46.62) <= 0.02
     assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                       "secam_decode": 0, "threefry_bits": 0,
-                                      "threefry_add_normal": 0, "colour_matrix": 2}
+                                      "threefry_add_normal": 0, "colour_matrix": 2,
+                                      "delayline_matrix": 0}
     for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
         assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
 

@@ -255,28 +255,39 @@ def test_threefry_kernel_poisons_its_key_first():
 
 @pytest.mark.parametrize("row", sanitize.COLOUR_ROWS)
 def test_colour_rows_pass_the_guards(row):
-    """The colour matrix's C arguments (``kernels/colorimetry.py::colour_matrix_call``)
-    through the guard plumbing around the plain version: groups of three
-    planes of L x N samples, the matrix an input like the planes; a read
-    one element before the planes (a NaN, which the clamp keeps) and a
-    write past the output are caught."""
+    """The colour matrix's C arguments (``kernels/colorimetry.py::colour_matrix_call``,
+    ``delayline_matrix_call``) through the guard plumbing around the plain
+    version: groups of three planes of L x N samples, the matrix an input
+    like the planes; a read one element before the planes (a NaN, which the
+    clamp keeps) and a write past the output are caught."""
     from color_modem_tpu_torch.kernels import colorimetry as ck
 
-    (tensors, (groups, plane, clamp)), outs = sanitize.colour_call(row, _plan("ntsc"), 2, 17)
-    assert (groups, plane, clamp) == (2, 17 * N, int(row == "colour_matrix_clamp"))
+    delay = row == "delayline_matrix"
+    kernel, (tensors, scalars), outs = sanitize.colour_call(row, _plan("pal" if delay else "ntsc"),
+                                                            2, 17)
+    if delay:
+        assert (kernel, scalars) == ("delayline_matrix", (2, 17, N))
+
+        def version(mat, x):
+            return ck.delayline_matrix_plain(mat, x)
+    else:
+        assert kernel == "colour_matrix"
+        assert scalars == (2, 17 * N, int(row == "colour_matrix_clamp"))
+
+        def version(mat, x):
+            return ck.colour_matrix_plain(mat, x, bool(scalars[2]))
     pos = sanitize._order_outputs(tensors, outs)
     assert pos == [2]
 
     def plain(views, shift=0):
         x = views[0]
         x = torch.as_strided(x, x.shape, x.stride(), x.storage_offset() - shift)
-        views[2].copy_(ck.colour_matrix_plain(views[1], x, bool(clamp)))
+        views[2].copy_(version(views[1], x))
 
     rep = sanitize.guarded_call(plain, tensors, pos, GUARD)
     assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
     assert rep["sentinels_intact"] and rep["inputs_intact"]
-    assert torch.equal(rep["outputs"][0], ck.colour_matrix_plain(tensors[1], tensors[0],
-                                                                 bool(clamp)))
+    assert torch.equal(rep["outputs"][0], version(tensors[1], tensors[0]))
     assert sanitize.guarded_call(lambda v: plain(v, shift=1), tensors, pos, GUARD)["nan"] > 0
 
     def past(views):

@@ -130,6 +130,23 @@ def test_each_pipeline_call_is_one_span(which):
     assert [n for n, _, _ in spans if n.startswith("cm.")] == [f"cm.pipeline.{which}"] * 3
 
 
+@pytest.mark.parametrize("backend", ["kernel", "plain"])
+def test_the_delayline_step_is_a_span_inside_the_decode(backend):
+    """PAL's delay-line decode dispatches its delay line and matrix (one
+    pass on the kernel backend) inside ``cm.pipeline.delayline``, within
+    the decode's span; a comb decode records no such span."""
+    plan = make_plan(ALL_STANDARDS["pal"](), N)
+    enc, dec, _ = make_pipeline(plan, "delayline", backend, "cpu")
+    comp = enc(torch.rand(2, 3, 16, N), 0)
+    _, spans = _recorded(lambda: dec(comp, 0))
+    got = [s for s in spans if s[0].startswith("cm.")]
+    assert [n for n, _, _ in got] == ["cm.pipeline.decode", "cm.pipeline.delayline"]
+    assert _inside(got[1], got[0])
+    comb = make_pipeline(plan, "comb3", backend, "cpu")[1]
+    _, spans = _recorded(lambda: comb(comp, 0))
+    assert [n for n, _, _ in spans if n.startswith("cm.")] == ["cm.pipeline.decode"]
+
+
 class _Holder:
     """A stand-in for a hop plan: ``plan_memo`` keeps its memo in the
     instance's ``__dict__``."""
