@@ -54,7 +54,12 @@ Phases; any failure raises and exits nonzero:
    the line before, then the decoder's matrix and clamp) against its plain
    composition at 16x3x576x720 and 64x3x576x720 on every standard's
    matrix (each has an averaging decoder), bit for bit, NaNs kept where the composition has
-   them, and timed against it with the same six-plane bound;
+   them, and timed against it with the same six-plane bound.  Then the comb
+   stencil's pass (``comb_stencil``: 'comb2' and 'comb3' at NTSC's spacing of
+   1 line and PAL's of 2) against its plain composition at phase 4's
+   16x480x720, the NTSC batch cell's 64x480x720 and PAL's 64x576x720, bit
+   for bit, a NaN reaching the lines that read it, and timed against the
+   composition with its two-plane bound (``measure.comb_stencil_bound``);
 4. the main path, NTSC encode -> comb3 decode at 16x3x480x720 through
    ``make_pipeline(..., backend="kernel")``: round-trip PSNR 46.62 +- 0.02 dB,
    one launch of each kernel and two of the colour matrix, agreement with
@@ -400,13 +405,17 @@ AUDIO_CHUNK_ATOL = 1e-4    # tests/test_video.py::test_video_rf_audio_phase_cont
 def roundtrip_launches(name: str, decoder: str, n_enc: int = 1, n_dec: int = 1,
                        n_enc_matrices: int = 1) -> dict:
     """One round trip's launches: ``n_enc`` encodes and ``n_dec`` decodes of
-    the standard's modem kernels (SECAM's or QAM's), ``n_enc_matrices`` of
-    the encoder's colour matrix, and the decoder's last step: the delay-line
+    the standard's modem kernels (SECAM's or QAM's), the comb stencil's pass
+    in front of each 'comb2' or 'comb3' decode, ``n_enc_matrices`` of the
+    encoder's colour matrix, and the decoder's last step: the delay-line
     pass for an averaging decoder, else the colour matrix."""
     from color_modem_tpu_torch.frame.pipeline import AVERAGING
+    from color_modem_tpu_torch.kernels.comb import FORMS
 
     fam = "secam" if name == "secam" else "qam"
     want = {f"{fam}_encode": n_enc, f"{fam}_decode": n_dec, "colour_matrix": n_enc_matrices}
+    if decoder in FORMS:
+        want["comb_stencil"] = n_dec
     if decoder in AVERAGING:
         want["delayline_matrix"] = 1
     else:
@@ -457,6 +466,9 @@ COLOUR_ATOL = 1e-6
 #: phase 3e's delay-line pass: PAL's 16 frames and the PAL batch cell's 64
 #: (the kernel is bit for bit its plain composition, so no tolerance)
 DELAYLINE_SHAPES = ((BATCH, 3, 576, N), (64, 3, 576, N))
+#: phase 3e's comb stencil: (shape, spacing) at phase 4's batch, the NTSC batch
+#: cell's 64 frames and PAL's 64 (bit for bit its plain composition)
+COMB_SHAPES = (((BATCH, 480, N), 1), ((64, 480, N), 1), ((64, 576, N), 2))
 #: phase 4i: the data services' stimuli (scripts/jax_transmission_reference.py
 #: uses the same) and the JAX xla values on the CPU at the card's shapes
 #: (its rows caption, teletext-wss-vitc, scramble, vir, measure, palplus,
@@ -1081,6 +1093,52 @@ def check_delayline_matrix(dev, card: str) -> dict:
     return {"err": 0.0, "times": times}
 
 
+def check_comb_stencil(dev, card: str) -> dict:
+    """Phase 3e, the comb stencil's pass: bit for bit its plain composition
+    at :data:`COMB_SHAPES`, 'comb2' and 'comb3', a NaN on one line reaching
+    exactly the lines that read it, then timed against the composition.
+    Returns the largest difference (0) and the times and bound of each form
+    at each shape."""
+    import math
+
+    import torch
+
+    from color_modem_tpu_torch.kernels import comb
+    from color_modem_tpu_torch.kernels.measure import comb_stencil_bound
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    times = {}
+    for shape, p in COMB_SHAPES:
+        x = 1.9 * torch.rand(shape, generator=gen, device=dev) - 0.45
+        bound = comb_stencil_bound(math.prod(shape))
+        for decoder in comb.FORMS:
+            got, want = comb.comb_stencil(x, p, decoder), comb.comb_stencil_plain(x, p, decoder)
+            same = torch.equal(got.view(torch.int32), want.view(torch.int32))
+            x[1, 9, 17] = float("nan")
+            out = comb.comb_stencil(x, p, decoder)
+            readers = [9, 9 + p] + ([9 - p] if decoder == "comb3" else [])
+            kept = (bool(torch.isnan(out[1, readers, 17]).all())
+                    and int(torch.isnan(out).sum()) == len(readers))
+            same &= torch.equal(out.view(torch.int32),
+                                comb.comb_stencil_plain(x, p, decoder).view(torch.int32))
+            x[1, 9, 17] = 0.5
+            print(f"3e comb_stencil {decoder} p={p} {shape}: kernel vs plain composition bit for "
+                  f"bit {same} (max|diff| 0); a NaN reaches exactly lines {sorted(readers)}: "
+                  f"{kept}")
+            _check(same, f"3e comb_stencil {decoder} {shape}: not bit for bit the composition")
+            _check(kept, f"3e comb_stencil {decoder} {shape}: the NaN reached other lines")
+            t = time_pair(partial(comb.comb_stencil_plain, x, p, decoder),
+                          partial(comb.comb_stencil, x, p, decoder))
+            times[shape, decoder] = {**t, "bound": bound}
+            print(f"time comb_stencil {decoder} p={p} {shape} on {card}: kernel "
+                  f"{_fmt(t['kernel'])}, plain composition {_fmt(t['plain'])} (median [min, max] "
+                  f"of 10 windows); bound {bound[0]:.4g} ms by {bound[1]}, "
+                  f"{bound[0] / t['kernel'][0]:.3f} of it")
+            del got, want, out
+        del x
+    return {"err": 0.0, "times": times}
+
+
 def check_channel(dev) -> None:
     """Phase 4d through the kernel backend: raster identities, burst lock,
     ACC, PAL ident and NIIR normalisation against CHANNEL_PSNR."""
@@ -1229,7 +1287,8 @@ def check_frame_layer(dev) -> dict:
            "interlaced raster: strip(add(x)) is not x")
     reset_counts()
     dec = dec_r(rast, 0)
-    got = read_counts("interlaced rastered decode", {"qam_decode": 1, "colour_matrix": 1})
+    got = read_counts("interlaced rastered decode", {"qam_decode": 1, "colour_matrix": 1,
+                                                     "comb_stencil": 1})
     _check(torch.equal(dec, rt(rgb, 0)), "interlaced rastered decode differs from the round trip")
     print(f"interlaced ntsc comb3 rastered {tuple(rast.shape)}: strip(add(x)) == x and "
           f"decode == round trip, bit for bit; decode launches {got}")
@@ -1254,7 +1313,7 @@ def check_frame_layer(dev) -> dict:
         if name == "ntsc":
             timed[key] = (partial(rt_p, rgb, 0), partial(rt_k, rgb, 0))
 
-    # standards conversion: one source decode and one destination encode
+    # standards conversion: one source decode (its best decoder) and one destination encode
     for src, dst in (("ntsc", "pal"), ("pal", "ntsc")):
         key = f"transcode {src}->{dst}"
         rgb = full_scene(ALL_STANDARDS[src]().active_lines, dev)
@@ -1263,7 +1322,7 @@ def check_frame_layer(dev) -> dict:
         conv_k, conv_p = both(make_transcoder, plan(src), plan(dst))
         reset_counts()
         comp_d = conv_k(comp, 0)
-        got = read_counts(key, roundtrip_launches(src, "notch"))
+        got = read_counts(key, roundtrip_launches(src, best_decoder(plan(src))))
         _check(tuple(comp_d.shape) == (BATCH, l_dst, N), f"{key}: shape {tuple(comp_d.shape)}")
         p_dst = plan(dst)
         out = make_pipeline(p_dst, best_decoder(p_dst), "kernel", dev)[1](comp_d, 0)
@@ -1561,7 +1620,8 @@ def check_transmission(dev, card: str) -> dict:
     fixed = tbc()
     for key, x in (("tbc-clean", ras), ("tbc-wrecked", shifted), ("tbc-fixed", fixed)):
         hold(key, psnr(dec_r(x, 0), rgb))
-    read_counts("4g tbc", {"qam_encode": 1, "qam_decode": 3, "colour_matrix": 4})
+    read_counts("4g tbc", {"qam_encode": 1, "qam_decode": 3, "colour_matrix": 4,
+                           "comb_stencil": 3})
 
     # sync-tip AGC above 2^24 elements: the quantile by sort, against float64
     enc_a, _, _ = make_pipeline(plan, "notch", "kernel", dev, raster=True)
@@ -1971,7 +2031,7 @@ def check_video(dev, card: str) -> dict:
         s = run("kernel", src, VIDEO_FRAMES)
         chunks = VIDEO_FRAMES // VIDEO_CHUNK
         got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
-                                  "colour_matrix": 2 * chunks})
+                                  "colour_matrix": 2 * chunks, "comb_stencil": chunks})
         _check(s["frames_processed_this_run"] == VIDEO_FRAMES, f"{label}: {s}")
         print(f"{label}: min_psnr_db {s['min_psnr_db']} (expected {VIDEO_MIN_PSNR} +- "
               f"{PSNR_TOL}), launches {got}, {s['mpix_per_s']} Mpix/s (first run, cold) on "
@@ -2031,7 +2091,7 @@ def check_video(dev, card: str) -> dict:
             reset_counts()
             s_hop = run(f"hop_{hop}".replace(" ", "_"), src, VIDEO_FRAMES, **kw)
             got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
-                                      "colour_matrix": 2 * chunks,
+                                      "colour_matrix": 2 * chunks, "comb_stencil": chunks,
                                       **({"threefry_add_normal": chunks} if noisy else {})})
             print(f"{label}: min_psnr_db {s_hop['min_psnr_db']} (expected {expected} +- "
                   f"{PSNR_TOL}), launches {got}, {s_hop['mpix_per_s']} Mpix/s on {card}")
@@ -2052,7 +2112,8 @@ def check_video(dev, card: str) -> dict:
                     n_chunks = -(-KEYING_FRAMES // VIDEO_CHUNK)
                     got = read_counts(f"keying {case}", {
                         "qam_encode": n_chunks, "qam_decode": n_chunks,
-                        "colour_matrix": 2 * n_chunks, "threefry_add_normal": draws * n_chunks})
+                        "colour_matrix": 2 * n_chunks, "comb_stencil": n_chunks,
+                        "threefry_add_normal": draws * n_chunks})
                 outs[where.type] = np.concatenate(
                     [np.load(f) for f in sorted(glob.glob(os.path.join(d, "rgb_*.npy")))])
             _check(outs["cuda"].shape == (KEYING_FRAMES, 3, KEYING_LINES, N),
@@ -2083,7 +2144,7 @@ def check_video(dev, card: str) -> dict:
             s_aud = run(f"audio_{form}", src, VIDEO_FRAMES, rf=True, rf_audio=track,
                         interlaced=form == "interlaced")
             got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
-                                      "colour_matrix": 2 * chunks})
+                                      "colour_matrix": 2 * chunks, "comb_stencil": chunks})
             rx = np.concatenate([np.load(f) for f in sorted(
                 glob.glob(os.path.join(tmp, f"audio_{form}", "aud_*.npy")))])
             _check(rx.shape == track.shape, f"{label}: audio {rx.shape}")
@@ -2185,7 +2246,7 @@ def service_chains(dev, frames: int = BATCH, ntsc_lines: int = 480,
     word = upload(wss.wss_word(WSS_ASPECT).numpy(), dev)
     comp_n = enc_n(rgb_n, 0)
     comp_r = add_raster(ntsc, make_raster(ntsc), comp_n, g_n)
-    one_each = {"qam_encode": 1, "qam_decode": 1, "colour_matrix": 2}
+    one_each = {"qam_encode": 1, "qam_decode": 1, "colour_matrix": 2, "comb_stencil": 1}
     chains = {}
 
     @torch.inference_mode()
@@ -2237,8 +2298,9 @@ def service_chains(dev, frames: int = BATCH, ntsc_lines: int = 480,
                 "uncorrected": decode_block(ntsc, bad[:, 2:], g_n[:, 2:], "comb3")}
 
     chains["scramble roundtrip"] = (scramble_roundtrip, {"qam_encode": 1, "qam_decode": 2,
-                                                         "colour_matrix": 3})
-    chains["vir"] = (vir_chain, {"qam_encode": 1, "qam_decode": 2, "colour_matrix": 3})
+                                                         "colour_matrix": 3, "comb_stencil": 2})
+    chains["vir"] = (vir_chain, {"qam_encode": 1, "qam_decode": 2, "colour_matrix": 3,
+                                 "comb_stencil": 2})
     pipes = {}
     for form in ("progressive", "interlaced"):
         mk = (palplus.make_interlaced_palplus_pipeline if form == "interlaced"
@@ -2420,7 +2482,7 @@ def check_data_services(dev, card: str) -> dict:
         rep = torch_fullstack.full_stack(nicam=sound == "nicam", a2=sound == "a2", lines=576,
                                          device=dev)
         got = read_counts(f"4i full stack {sound}", {"qam_encode": 1, "qam_decode": 2,
-                                                     "colour_matrix": 3})
+                                                     "colour_matrix": 3, "comb_stencil": 2})
         exact = all(rep[k]["exact"] for k in ("caption", "teletext", "wss", "vitc"))
         snrs = {"audio_snr_db": rep["rf"].get("audio_snr_db")}
         for sub in ("nicam", "a2"):
@@ -2489,6 +2551,7 @@ def check_data_services(dev, card: str) -> dict:
         "qam_encode": counts["caption"]["qam_encode"],
         "qam_decode": counts["caption"]["qam_decode"],
         "colour_matrix": counts["caption"]["colour_matrix"],
+        "comb_stencil": counts["caption"]["comb_stencil"],
         "qam_encode_shared": counts["palplus progressive"]["qam_encode"],
         "qam_decode_shared": counts["palplus progressive"]["qam_decode"],
     }
@@ -2598,7 +2661,7 @@ def check_video_services(dev, card: str) -> None:
             reset_counts()
             s, cells, _ = run(name.replace(" ", "_"), VIDEO_FRAMES, **kw)
             got = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
-                                      "colour_matrix": 2 * chunks})
+                                      "colour_matrix": 2 * chunks, "comb_stencil": chunks})
             exact = cells is None or np.array_equal(cells, bits)
             print(f"{label}: min_psnr_db {s['min_psnr_db']} (expected {want} +- {PSNR_TOL})"
                   + (f", {len(cells)} caption cells exact" if cells is not None else "")
@@ -2644,12 +2707,13 @@ def _sharded_launches(case: dict) -> dict:
     kernel; no decode for comb3dA, whose adaptive separation runs outside
     the decode kernel, as unsharded), and the two colour matrices (five
     with PALplus's helper; the encoder's and the delay-line pass for a
-    delay-line decoder)."""
+    delay-line decoder; the comb stencil's pass before a 'comb2' or 'comb3'
+    decode)."""
     colour = {"colour_matrix": 5 if case["kind"] == "palplus" else 2}
     if case["kind"] == "mac":
         return colour
     if case["kind"] == "palplus":
-        return {"qam_encode": 1, "qam_decode": 1, **colour}
+        return {**roundtrip_launches(case["standard"], case["decoder"]), **colour}
     return roundtrip_launches(case["standard"], case["decoder"], 1,
                               0 if case["decoder"] == "comb3dA" else 1)
 
@@ -2942,7 +3006,8 @@ def check_video_mesh(dev, card: str, unsharded: dict) -> None:
     _check(e == 0.0, f"{label}: frames differ from the unsharded run by {e}")
     _check(s["mesh"] == {"frame": 2, "lineblk": 2}, f"{label}: {s}")
     _check(all(rr[0]["summary"] is None for rr in recs[1:]), f"{label}: ranks 1-3 reported")
-    want = {"qam_encode": chunks, "qam_decode": chunks, "colour_matrix": 2 * chunks}
+    want = {"qam_encode": chunks, "qam_decode": chunks, "colour_matrix": 2 * chunks,
+            "comb_stencil": chunks}
     want = {k: want.get(k, 0) for k in launch_counts()}
     _check(all(c == want for c in counts),
            f"{label}: launches {counts}")
@@ -3081,7 +3146,7 @@ def check_cli_video(dev, card: str, video: dict) -> dict:
         reset_counts()
         rep = run_cli(argv + ["--out", os.path.join(tmp, "cli"), "--output", out_clip])
         launches = read_counts(label, {"qam_encode": chunks, "qam_decode": chunks,
-                                       "colour_matrix": 2 * chunks})
+                                       "colour_matrix": 2 * chunks, "comb_stencil": chunks})
         source, n, h, w = y4m_source(clip)
         s = process_video(make_plan(NTSC(), N), source, n, os.path.join(tmp, "runner"),
                           decoder="comb3", chunk=VIDEO_CHUNK, device=dev, save_outputs=True)
@@ -3116,7 +3181,8 @@ def check_cli_video(dev, card: str, video: dict) -> dict:
           f"{_fmt_rate(rates['read only'])} reading only (median [min, max] of 3 runs; first "
           f"run {rep['mpix_per_s']}), against the runner's {_fmt_rate(video['rates']['kernel'])} "
           f"on synthetic device frames (phase 6), host clock, on {card}")
-    return {k: launches[k] for k in ("qam_encode", "qam_decode", "colour_matrix")}
+    return {k: launches[k] for k in ("qam_encode", "qam_decode", "colour_matrix",
+                                     "comb_stencil")}
 
 
 def check_cli_roundtrips(card: str) -> dict:
@@ -3252,8 +3318,10 @@ def check_sanitizer(dev) -> None:
     """Phase 7f: ``utils/debug.py::checked`` passes a clean decode on the
     card and raises on a NaN put into one composite sample; it names the
     operation and the port's line that made a NaN which the decode then
-    removes (``nan_to_num`` after it), and names the CUDA kernel whose output
-    holds a NaN (its wrapper's hook), the NaN again removed after it."""
+    removes (``nan_to_num`` after it: the plain backend's comb stencil),
+    and names the CUDA kernel whose output holds a NaN (its wrapper's hook:
+    the kernel backend's comb stencil pass, and the QAM encoder), the NaN
+    again removed after it."""
     import re
 
     import numpy as np
@@ -3282,13 +3350,23 @@ def check_sanitizer(dev) -> None:
     print(f"sanitizer: checked() passed the clean decode and raised on a NaN in the "
           f"composite on {dev}: {msg}")
 
+    dec_p = make_pipeline(plan, "comb3", "plain", device=dev)[1]
+
     def decode_then_clean(c, frame0):
-        return torch.nan_to_num(dec(c, frame0))
+        return torch.nan_to_num(dec_p(c, frame0))
 
     msg = raises(checked(decode_then_clean), comp, 0)
-    print(f"sanitizer: a NaN made and removed inside a decode on {dev}: {msg}")
+    print(f"sanitizer: a NaN made and removed inside a plain decode on {dev}: {msg}")
     _check(re.search(r"aten\.\S+ made a NaN at color_modem_tpu_torch/\S+\.py:\d+", msg)
            is not None, f"sanitizer: the op and its line are not named: {msg}")
+
+    def kernel_decode_then_clean(c, frame0):
+        return torch.nan_to_num(dec(c, frame0))
+
+    msg = raises(checked(kernel_decode_then_clean), comp, 0)
+    print(f"sanitizer: a NaN made and removed inside a kernel decode on {dev}: {msg}")
+    _check("the CUDA kernel comb_stencil made a NaN" in msg,
+           f"sanitizer: the comb stencil's pass is not named: {msg}")
 
     pd = plan.to(dev)
     ycc = torch.zeros((1, 3, 16, N), device=dev)
@@ -3550,8 +3628,8 @@ def check_kernel_sanitizer(dev, card: str) -> dict:
     t_run = time.perf_counter() - t0
     bad = [(r["row"], r["standard"], r["shape"]) for r in results if not r["ok"]]
     print(f"3c sanitizer: {len(results)} launches sanitized ({len(sanitize.ROWS)} kernel rows, "
-          f"{len(sanitize.PRNG_ROWS)} threefry rows and {len(sanitize.COLOUR_ROWS)} colour-matrix "
-          f"rows x "
+          f"{len(sanitize.PRNG_ROWS)} threefry rows, {len(sanitize.COLOUR_ROWS)} colour-matrix "
+          f"rows and {len(sanitize.COMB_ROWS)} comb-stencil rows x "
           f"lines {sanitize.LINES} x samples {sanitize.SAMPLES} x frames {sanitize.FRAMES}, "
           f"samples {sanitize.SECAM_ONLY_SAMPLES} on the SECAM rows only), "
           f"{len(bad)} faults, {t_run:.1f} s on {card}")
@@ -3866,6 +3944,7 @@ def main() -> None:
     # --- 3e. the colour matrix against its plain version ------------------------
     colour = check_colour_matrix(dev, card)
     delayline = check_delayline_matrix(dev, card)
+    stencil = check_comb_stencil(dev, card)
 
     # --- 4. main path; 4b. the SECAM path -------------------------------------
     paths = {}
@@ -4026,6 +4105,23 @@ def main() -> None:
          "ms_spread": list(t_delay["kernel"][1:]),
          "plain_ms_spread": list(t_delay["plain"][1:])}
         for t_delay in (delayline["times"][DELAYLINE_SHAPES[0]],)
+    ] + [
+        # the comb stencil: NTSC comb3's, at the NTSC batch cell's shape
+        {"name": "comb_stencil", "route": "cuda",
+         "source": "color_modem_tpu_torch/csrc/comb_stencil.cu",
+         "replaces": "color_modem_tpu/separate/comb.py stencil_signal on separate/stencil.py "
+                     "prev_reflect, next_reflect (XLA, no Pallas kernel)",
+         "launches": launches["comb_stencil"], "max_abs_err": stencil["err"],
+         "ms": t_comb["kernel"][0], "plain_ms": t_comb["plain"][0],
+         "bound_ms": t_comb["bound"][0], "bound_by": t_comb["bound"][1],
+         "library_ms": None,
+         "launches_data_services": services["launches"].get("comb_stencil"),
+         "launches_sharded": launches_sharded["comb_stencil"],
+         "launches_cli_video": launches_cli.get("comb_stencil", 0),
+         "launches_bench": bench["ntsc"]["kernel_launches"]["comb_stencil"],
+         "ms_spread": list(t_comb["kernel"][1:]),
+         "plain_ms_spread": list(t_comb["plain"][1:])}
+        for t_comb in (stencil["times"][COMB_SHAPES[1][0], "comb3"],)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

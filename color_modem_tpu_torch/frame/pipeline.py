@@ -4,29 +4,35 @@ Port of ``color_modem_tpu/frame/pipeline.py``: every standard, with every
 decoder ``allowed_decoders`` offers it.  ``backend``:
 
 * ``"kernel"`` — the CUDA kernels of ``kernels/qam.py``,
-  ``kernels/secam.py`` and ``kernels/colorimetry.py`` on a CUDA device (on
-  the CPU, the same wrappers run their plain versions);
+  ``kernels/secam.py``, ``kernels/colorimetry.py`` and ``kernels/comb.py``
+  on a CUDA device (on the CPU, the same wrappers run their plain
+  versions);
 * ``"plain"`` — the plain PyTorch modems of ``modem/qam.py`` and
   ``modem/secam.py``, and the colour matrices' plain version.
 
 The adaptive combs ('combA', 'comb3dA') separate with a data-dependent
 blend that has no kernel in the JAX package either: on both backends they
 take the plain separation and product detector, and only the encode runs
-the kernel.  After the QAM demodulation come, in the JAX package's order,
-the burst phase and gain hooks and NIIR normalisation.  The averaging
-decoders' delay line, on QAM chroma and on SECAM's D'R/D'B alike, is one
-step with the decoder's matrix (``dsp/colorimetry.py::delayline_mat3``:
-one CUDA pass on the kernel backend), after all of these.
+the kernel.  On the kernel backend the line stencil of 'comb2' and 'comb3'
+is one CUDA pass (``kernels/comb.py``) in front of the decode kernel;
+'comb3d' keeps its plain frame stencil, and the notch and averaging
+decoders hand the composite itself to the decode kernel.  After the QAM
+demodulation come, in the JAX package's order, the burst phase and gain
+hooks and NIIR normalisation.  The averaging decoders' delay line, on QAM
+chroma and on SECAM's D'R/D'B alike, is one step with the decoder's
+matrix (``dsp/colorimetry.py::delayline_mat3``: one CUDA pass on the
+kernel backend), after all of these.
 """
 
 from __future__ import annotations
 
 import torch
 
-from color_modem_tpu_torch.standards.decoders import allowed_decoders
+from color_modem_tpu_torch.standards.decoders import allowed_decoders, comb_spacing
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, delayline_mat3
 from color_modem_tpu_torch.dsp.nco import global_line_index
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
+from color_modem_tpu_torch.kernels import comb as comb_k
 from color_modem_tpu_torch.kernels import qam as qam_k
 from color_modem_tpu_torch.kernels import secam as secam_k
 from color_modem_tpu_torch.modem import niir, qam, secam
@@ -78,7 +84,11 @@ def _demodulate_qam(plan: QamPlan, comp: torch.Tensor, gline: torch.Tensor,
                     decoder: str, backend: str) -> torch.Tensor:
     """(..., L, N) composite -> (..., 3, L, N) ``[y, c1, c2]``."""
     if backend == "kernel" and decoder not in ADAPTIVE:
-        sep = stencil_signal(plan, comp, decoder)
+        if decoder in comb_k.FORMS:
+            with span("cm.pipeline.stencil"):
+                sep = comb_k.comb_stencil(comp, comb_spacing(plan.cfg), decoder)
+        else:
+            sep = stencil_signal(plan, comp, decoder)
         return qam_k.demodulate_separated(plan, sep, comp, gline)
     luma, chroma_band = separate(plan, comp, decoder)
     return torch.stack([luma, *qam.demodulate_carrier(plan, chroma_band, gline)],

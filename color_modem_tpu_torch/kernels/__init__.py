@@ -5,17 +5,20 @@ import time: ``build.load_library`` compiles at the first launch."""
 
 def launch_counts() -> dict:
     """A copy of every kernel's launch counter (``qam.LAUNCHES``,
-    ``secam.LAUNCHES``, ``prng.LAUNCHES`` and ``colorimetry.LAUNCHES``)."""
-    from color_modem_tpu_torch.kernels import colorimetry, prng, qam, secam
+    ``secam.LAUNCHES``, ``prng.LAUNCHES``, ``colorimetry.LAUNCHES`` and
+    ``comb.LAUNCHES``)."""
+    from color_modem_tpu_torch.kernels import colorimetry, comb, prng, qam, secam
 
-    return {**qam.LAUNCHES, **secam.LAUNCHES, **prng.LAUNCHES, **colorimetry.LAUNCHES}
+    return {**qam.LAUNCHES, **secam.LAUNCHES, **prng.LAUNCHES, **colorimetry.LAUNCHES,
+            **comb.LAUNCHES}
 
 
 def reset_launches() -> None:
     """Zero every kernel's launch counter."""
-    from color_modem_tpu_torch.kernels import colorimetry, prng, qam, secam
+    from color_modem_tpu_torch.kernels import colorimetry, comb, prng, qam, secam
 
     qam.reset_launches()
     secam.reset_launches()
     prng.reset_launches()
     colorimetry.reset_launches()
+    comb.reset_launches()

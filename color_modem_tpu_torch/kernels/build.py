@@ -70,6 +70,8 @@ SIGNATURES = {
     "colour_matrix": (_P, _P, _P, _I, _U64, _I, _P),
     # x, mat, out, groups, lines, samples, stream
     "delayline_matrix": (_P, _P, _P, _I, _I, _I, _P),
+    # x, out, groups, lines, samples, spacing, form, stream
+    "comb_stencil": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

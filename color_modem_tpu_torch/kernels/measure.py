@@ -65,6 +65,15 @@ def colour_matrix_bound(values: int) -> tuple[float, str]:
     return 1e3 * 8.0 * values / HBM_BYTES_PER_S, "bytes"
 
 
+def comb_stencil_bound(samples: int) -> tuple[float, str]:
+    """The least time in ms of one pass of ``csrc/comb_stencil.cu`` over
+    ``samples`` composite samples, and what sets it: the composite read once
+    and the stencil signal written once, 8 bytes a sample, over the memory
+    rate ("bytes"), 0.0528 ms at 64 x 480 x 720.  Its three operations a
+    sample take 0.09 us per million on the float32 lanes, 27 times less."""
+    return 1e3 * 8.0 * samples / HBM_BYTES_PER_S, "bytes"
+
+
 #: 32-bit integer operations per second of the INT32 lanes alone: 64 on
 #: each of 132 SMs at the 1.98 GHz boost clock (NVIDIA's Hopper
 #: architecture white paper)

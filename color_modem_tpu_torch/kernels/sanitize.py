@@ -8,7 +8,8 @@ is launched from the same C arguments its wrapper assembles
 (``kernels/qam.py::encode_call``/``decode_call``,
 ``kernels/secam.py::encode_call``/``demodulate_call``,
 ``kernels/prng.py::bits_call``/``normal_call``,
-``kernels/colorimetry.py::colour_matrix_call``/``delayline_matrix_call``),
+``kernels/colorimetry.py::colour_matrix_call``/``delayline_matrix_call``,
+``kernels/comb.py::comb_stencil_call``),
 with each tensor moved into the middle of a larger allocation:
 
 * every input into a flat allocation filled with :data:`GUARD_BITS`, a NaN,
@@ -219,6 +220,11 @@ PRNG_ROWS = ("threefry_add_normal", "threefry_add_normal_one_key", "threefry_nor
 #: the delay-line decoders' pass (PAL's YUV averaged with the line before, then
 #: its matrix and clamp; not at one line, which it refuses)
 COLOUR_ROWS = ("colour_matrix", "colour_matrix_clamp", "delayline_matrix")
+#: the comb stencil's rows (``csrc/comb_stencil.cu``), on the QAM rows' grid:
+#: (table row, standard, decoder), each form at NTSC's spacing (1 line) and
+#: PAL's (2 lines); not below p + 1 lines, which it refuses
+COMB_ROWS = (("comb_stencil_comb2", "ntsc", "comb2"), ("comb_stencil_comb3", "ntsc", "comb3"),
+             ("comb_stencil_comb2_pal", "pal", "comb2"), ("comb_stencil_comb3_pal", "pal", "comb3"))
 
 
 def kernel_call(kernel: str, plan, frames: int, lines: int, decoder, seed: int = 0):
@@ -297,16 +303,32 @@ def colour_call(row: str, plan, frames: int, lines: int, seed: int = 0):
     return "colour_matrix", colorimetry.colour_matrix_call(mat, x, out, decoder), [out]
 
 
+def comb_call(plan, frames: int, lines: int, decoder: str, seed: int = 0):
+    """(C entry point, call, outputs) of one launch of the comb stencil over
+    ``frames`` x ``lines`` x ``plan.n_samples`` on the plan's device at the
+    plan's comb spacing: the composite uniform in [-0.5, 1.5]."""
+    from color_modem_tpu_torch.kernels import comb
+    from color_modem_tpu_torch.standards.decoders import comb_spacing
+
+    dev = plan.rgb_to_ycc.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = 2.0 * torch.rand((frames, lines, plan.n_samples), generator=gen, device=dev) - 0.5
+    out = torch.empty_like(x)
+    return "comb_stencil", comb.comb_stencil_call(x, out, comb_spacing(plan.cfg), decoder), [out]
+
+
 def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> list[dict]:
     """:func:`sanitize` every row of :data:`ROWS` at every (lines, samples,
     frames) on ``dev``, the QAM rows but at :data:`SECAM_ONLY_SAMPLES`, and
-    every row of :data:`PRNG_ROWS` and :data:`COLOUR_ROWS` (on the NTSC
-    plan's matrices, the delay line on PAL's) where the QAM rows run, the
-    delay line but at one line; ``report(result)`` after each.
+    every row of :data:`PRNG_ROWS`, :data:`COLOUR_ROWS` (on the NTSC
+    plan's matrices, the delay line on PAL's) and :data:`COMB_ROWS` where
+    the QAM rows run, the delay line but at one line and the comb below
+    its spacing + 1 lines; ``report(result)`` after each.
     Returns the results, each with ``row``, ``kernel``, ``standard`` and
     ``shape``."""
     from color_modem_tpu_torch import ALL_STANDARDS
     from color_modem_tpu_torch.modem.plan import make_plan, plan_on
+    from color_modem_tpu_torch.standards.decoders import comb_spacing
 
     plans, results = {}, []
 
@@ -340,5 +362,11 @@ def run_all(dev, lines=LINES, samples=SAMPLES, frames=FRAMES, report=None) -> li
                 if row == "delayline_matrix" and l < 2:
                     continue
                 kernel, call, outs = colour_call(row, plans[std, n], f, l)
+                run(row, kernel, std, (f, l, n), call, outs)
+        for row, std, decoder in COMB_ROWS:
+            for f, l in grid:
+                if l < comb_spacing(plans[std, n].cfg) + 1:
+                    continue
+                kernel, call, outs = comb_call(plans[std, n], f, l, decoder)
                 run(row, kernel, std, (f, l, n), call, outs)
     return results

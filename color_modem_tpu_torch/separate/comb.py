@@ -5,10 +5,13 @@ At the comb spacing ``p`` (1 line for NTSC, 2 for PAL) the subcarrier is
 about 180 degrees out of phase, so a line difference cancels luma; at
 ``temporal_comb_spacing`` frames the whole chroma flips, so a frame
 difference does.  Port of ``color_modem_tpu/separate/comb.py``.  The
-stencils stay plain tensor slicing outside the decode kernel, as in the JAX
-package.  The adaptive combs (``combA``, ``comb3dA``) blend their estimates
-by data-dependent weights; the JAX package runs them as plain array code on
-every backend, and so does the port.
+stencils stay outside the decode kernel, as in the JAX package: plain tensor
+slicing here, and on the kernel backend one CUDA pass for the line stencil
+of 'comb2' and 'comb3' (``kernels/comb.py``, whose plain version this
+module's :func:`stencil_signal` runs).  The adaptive combs (``combA``,
+``comb3dA``) blend their estimates by data-dependent weights; the JAX
+package runs them as plain array code on every backend, and so does the
+port.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from color_modem_tpu_torch.standards.decoders import (
     temporal_comb_spacing,
 )
 from color_modem_tpu_torch.dsp.apply import fir_same
+from color_modem_tpu_torch.kernels.comb import comb_stencil_plain
 from color_modem_tpu_torch.modem.plan import QamPlan
 from color_modem_tpu_torch.separate.stencil import (
     next_reflect,
@@ -58,11 +62,8 @@ def stencil_signal(plan: QamPlan, comp: torch.Tensor, decoder: str) -> torch.Ten
         return (
             2.0 * comp - prev_reflect_frames(comp, pt) - next_reflect_frames(comp, pt)
         ) / 4.0
-    p = comb_spacing(plan.cfg)
-    if decoder == "comb2":
-        return (comp - prev_reflect(comp, p)) / 2.0
-    if decoder == "comb3":
-        return (2.0 * comp - prev_reflect(comp, p) - next_reflect(comp, p)) / 4.0
+    if decoder in ("comb2", "comb3"):
+        return comb_stencil_plain(comp, comb_spacing(plan.cfg), decoder)
     return comp
 
 

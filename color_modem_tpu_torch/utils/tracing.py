@@ -33,6 +33,8 @@ SPANS = {
     "cm.pipeline.encode": "make_pipeline's encode call, dispatched",
     "cm.pipeline.decode": "make_pipeline's decode call, dispatched",
     "cm.pipeline.roundtrip": "make_pipeline's roundtrip call, dispatched",
+    "cm.pipeline.stencil": "_demodulate_qam's line stencil of 'comb2' and 'comb3' on the "
+                           "kernel backend (one pass), dispatched",
     "cm.pipeline.delayline": "decode_block's delay line and decoder's matrix, for every "
                              "averaging decoder (one pass on the kernel backend), dispatched",
     "cm.build.rf_plan": "frame/rf.py::make_rf_plan: the RF geometry and its float64 filter design",

@@ -1,7 +1,8 @@
-"""Time the QAM or the SECAM kernels, or the colour matrix, of one or more
-trees of this repository on one CUDA GPU, in turns, at the paths' shapes.
+"""Time the QAM or the SECAM kernels, the colour matrix or the comb stencil, of one or
+more trees of this repository on one CUDA GPU, in turns, at the paths' shapes.
 
-    python3 scripts/torch_kernel_ab.py [--family qam|secam|colour] [--tree DIR ...] [--rounds 1]
+    python3 scripts/torch_kernel_ab.py [--family qam|secam|colour|comb] [--tree DIR ...]
+                                       [--rounds 1]
 
 QAM: NTSC 16x480x720, PAL 16x576x720 and PAL 4x576x1440 (259 taps).  SECAM: 16x576x720,
 4x576x1440 and 1x576x2160, the plans of chip_smoke.py's phase 3b, and 16x576x1440, the
@@ -9,7 +10,11 @@ chip matrix's SECAM row.  Colour (``csrc/colour_matrix.cu``): the pass alone at 
 cells' shapes, NTSC 64x3x480x720 and SECAM 16x3x576x720, the encoder's matrix and the
 decoder's with its clamp, timed in turns (plain, kernel, kernel, plain) against the plain
 version (a product, two ``addcmul_`` and, for the decoder, ``torch.clamp``), whose ms it
-adds to the record.  Each tree (default:
+adds to the record.  Comb (``csrc/comb_stencil.cu``): the pass alone at the NTSC batch
+cell's 64x480x720 (spacing 1) and PAL's 64x576x720 (spacing 2), 'comb3' and 'comb2', in
+turns against the plain composition (``separate/comb.py::stencil_signal``: flips, two
+``torch.cat``, a scale, subtractions and a division), bit for bit; a tree without the pass
+has nothing to time.  Each tree (default:
 this one) runs in its own process, which imports that tree's
 ``color_modem_tpu_torch`` and builds its kernels.  A round runs the trees
 forward then backward (A, B, B, A for two trees).  Each process holds the
@@ -186,6 +191,49 @@ def colour_worker() -> dict:
     return res
 
 
+#: the comb stencil: (standard, frames, lines) of the NTSC batch cell and PAL's, 720 samples
+COMB_SHAPES = (("NTSC", 64, 480), ("PAL", 64, 576))
+
+
+def comb_worker() -> dict:
+    """The imported tree's comb-stencil pass against the plain composition
+    on a composite uniform in [-0.45, 1.45], 10 windows of each side, each
+    form at the standard's spacing; nothing where the tree has no pass."""
+    from functools import partial
+
+    import torch
+
+    import color_modem_tpu_torch as cmt
+    from color_modem_tpu_torch.modem.plan import make_plan
+    from color_modem_tpu_torch.separate.comb import stencil_signal
+    from color_modem_tpu_torch.standards.decoders import comb_spacing
+
+    try:
+        from color_modem_tpu_torch.kernels import comb
+    except ImportError:
+        return {}
+    measure = _measure()
+    dev = torch.device("cuda:0")
+    res = {}
+    for std, frames, lines in COMB_SHAPES:
+        plan = make_plan(getattr(cmt, std)(), 720)
+        p = comb_spacing(plan.cfg)
+        gen = torch.Generator(device=dev).manual_seed(lines)
+        x = 1.9 * torch.rand((frames, lines, 720), generator=gen, device=dev) - 0.45
+        for decoder in ("comb3", "comb2"):
+            kernel = partial(comb.comb_stencil, x, p, decoder)
+            plain = partial(stencil_signal, plan, x, decoder)
+            if not torch.equal(kernel().view(torch.int32), plain().view(torch.int32)):
+                raise AssertionError(f"{decoder} {std}: the pass is not the plain composition")
+            p1, k1, k2, p2 = (measure.time_ms(f, windows=5) for f in (plain, kernel, kernel, plain))
+            rec = _record(k1 + k2, _host_us(kernel), measure.comb_stencil_bound(x.numel()), 0.0)
+            plain_ms = p1 + p2
+            rec.update(plain_ms=statistics.median(plain_ms), plain_min=min(plain_ms),
+                       plain_max=max(plain_ms))
+            res[f"comb_stencil {decoder} {std} {frames}x{lines}x720 p={p}"] = rec
+    return res
+
+
 def worker(tree: str, family: str) -> None:
     sys.path.insert(0, tree)
     import numpy as np
@@ -206,6 +254,9 @@ def worker(tree: str, family: str) -> None:
     load_library()
     if family == "colour":
         print(json.dumps({"tree": tree, "results": colour_worker()}))
+        return
+    if family == "comb":
+        print(json.dumps({"tree": tree, "results": comb_worker()}))
         return
     if family == "secam":
         print(json.dumps({"tree": tree, "results": secam_worker()}))
@@ -240,7 +291,7 @@ def worker(tree: str, family: str) -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--family", choices=("qam", "secam", "colour"), default="qam")
+    ap.add_argument("--family", choices=("qam", "secam", "colour", "comb"), default="qam")
     ap.add_argument("--tree", nargs="+", default=[HERE])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--worker", help=argparse.SUPPRESS)

@@ -138,7 +138,8 @@ def test_cpu_apply_mat3_is_the_plain_version_on_either_backend(backend, clamp):
 
 
 BLOCKS = [("ntsc", "notch"), ("ntsc", "comb3"), ("ntsc", "combA"), ("pal", "delayline"),
-          ("secam", "interp"), ("niir", "avg"), ("secam", "avg")]
+          ("secam", "interp"), ("niir", "avg"), ("secam", "avg"), ("ntsc", "comb2"),
+          ("pal", "comb2"), ("pal", "comb3")]
 
 
 @pytest.mark.parametrize("backend", ["kernel", "plain"])

@@ -330,6 +330,121 @@ def test_secam_avg_roundtrip_launches_the_pass(dev):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# --- the comb stencil of 'comb2' and 'comb3' in one pass (comb_stencil) ----------------
+
+#: (shape, spacing): the NTSC cell's batch at p = 1 and PAL's at p = 2, a line
+#: that is no multiple of 4 samples (the scalar path) and one of 722 under two
+#: leading axes, ragged strips of lines, the least frame each spacing takes
+#: (p + 1 lines) and 2p + 1 lines, and one frame with no leading axis
+COMB_SHAPES = [((64, 480, 720), 1), ((64, 576, 720), 2), ((3, 37, 721), 1), ((2, 2, 63, 722), 2),
+               ((4, 2, 720), 1), ((4, 3, 720), 2), ((5, 3, 720), 1), ((5, 5, 720), 2),
+               ((481, 720), 1)]
+
+
+def _comb_vs_plain(x, p, decoder):
+    """The pass against the plain composition on the card: one launch, the
+    same bits (NaNs where the plain composition has them)."""
+    from color_modem_tpu_torch.kernels import comb
+
+    comb.reset_launches()
+    got = comb.comb_stencil(x, p, decoder)
+    want = comb.comb_stencil_plain(x, p, decoder)
+    torch.cuda.synchronize()
+    assert comb.LAUNCHES == {"comb_stencil": 1}
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("decoder", ["comb2", "comb3"])
+@pytest.mark.parametrize("shape,p", COMB_SHAPES)
+def test_comb_stencil_is_the_plain_composition_bit_for_bit(dev, shape, p, decoder):
+    gen = torch.Generator(device=dev).manual_seed(shape[-2] + p)
+    x = 1.9 * torch.rand(shape, generator=gen, device=dev) - 0.45
+    _comb_vs_plain(x, p, decoder)
+
+
+@pytest.mark.parametrize("decoder", ["comb2", "comb3"])
+@pytest.mark.parametrize("p", [1, 2])
+def test_comb_stencil_non_contiguous_and_misaligned_with_nan(dev, p, decoder):
+    """A transposed view (made contiguous by the wrapper), and a view 4 bytes
+    past a 16-byte boundary, which takes the scalar path; a NaN on line 5
+    reaches the lines that read it, an infinity on line 0 the lines that
+    read line 0."""
+    gen = torch.Generator(device=dev).manual_seed(7 + p)
+    x = torch.rand((720, 2, 40), generator=gen, device=dev).permute(1, 2, 0)
+    assert not x.is_contiguous()
+    _comb_vs_plain(x, p, decoder)
+    flat = torch.rand(1 + 2 * 40 * 720, generator=gen, device=dev)
+    x = flat[1:].view(2, 40, 720)
+    assert x.data_ptr() % 16 == 4
+    x[0, 5, 17] = float("nan")
+    x[1, 0, 3] = float("inf")
+    out = _comb_vs_plain(x, p, decoder)
+    readers = [5, 5 + p] + ([5 - p] if decoder == "comb3" else [])
+    assert bool(torch.isnan(out[0, readers, 17]).all())
+    assert int(torch.isnan(out[0]).sum()) == len(readers)
+
+
+def test_comb_stencil_refuses_too_few_lines(dev):
+    from color_modem_tpu_torch.kernels import comb
+
+    with pytest.raises(ValueError, match="2 or more lines"):
+        comb.comb_stencil(torch.zeros((2, 1, 720), device=dev), 1, "comb3")
+    with pytest.raises(ValueError, match="3 or more lines"):
+        comb.comb_stencil(torch.zeros((2, 2, 720), device=dev), 2, "comb2")
+
+
+@pytest.mark.parametrize("name,decoder,launches", [("ntsc", "comb3", 1), ("ntsc", "comb2", 1),
+                                                   ("pal", "comb3", 1), ("pal", "comb2", 1),
+                                                   ("ntsc", "notch", 0), ("pal", "delayline", 0),
+                                                   ("ntsc", "comb3d", 0)])
+def test_comb_roundtrip_launches_the_pass(dev, name, decoder, launches, monkeypatch):
+    """One launch of the pass for each 'comb2' and 'comb3' kernel-backend
+    decode, none for the notch, the delay line or the frame comb; the round
+    trip equals, bit for bit, the same round trip with the plain stencil,
+    and agrees with the plain backend within the decode bound."""
+    from color_modem_tpu_torch.kernels import comb
+
+    cfg = ALL_STANDARDS[name]()
+    plan = make_plan(cfg, 720)
+    rgb = _scene(cfg.active_lines, dev)
+    _, _, rt = make_pipeline(plan, decoder, backend="kernel", device=dev)
+    _, _, rt_p = make_pipeline(plan, decoder, backend="plain", device=dev)
+    rt(rgb, 0)
+    comb.reset_launches()
+    qk.reset_launches()
+    out = rt(rgb, 16)
+    torch.cuda.synchronize()
+    assert comb.LAUNCHES == {"comb_stencil": launches}
+    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    assert float((out - rt_p(rgb, 16)).abs().max()) <= DEC_ATOL
+    if launches:
+        monkeypatch.setattr(comb, "comb_stencil", comb.comb_stencil_plain)
+        want = rt(rgb, 16)
+        torch.cuda.synchronize()
+        assert comb.LAUNCHES == {"comb_stencil": launches}
+        assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
+def test_main_path_roundtrip_with_the_pass_equals_the_plain_stencil(dev):
+    """The NTSC comb3 round trip of the main path (16 x 480 x 720), bit for
+    bit the same round trip with ``separate/comb.py::stencil_signal``
+    in front of the decode kernel, at 46.62 dB."""
+    from color_modem_tpu_torch.frame import pipeline
+    from color_modem_tpu_torch.separate.comb import stencil_signal
+
+    plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
+    rgb = _scene(480, dev)
+    g = frame_line_index(plan, 0, 16, 480, dev)
+    comp = pipeline.encode_block(plan, rgb, g, "kernel")
+    got = pipeline.decode_block(plan, comp, g, "comb3", "kernel")
+    ycc = qk.demodulate_separated(plan, stencil_signal(plan, comp, "comb3"), comp, g)
+    want = apply_mat3(plan.ycc_to_rgb, ycc, clamp=True)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert abs(psnr(got, rgb) - 46.62) <= 0.02
+
+
 def test_wrappers_reject_bad_cuda_input(dev):
     plan = make_plan(ALL_STANDARDS["ntsc"](), 720).to(dev)
     ycc = torch.zeros((1, 3, 4, 720), device=dev)
@@ -1230,7 +1345,7 @@ def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
             assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                          "secam_decode": 0, "threefry_bits": 0,
                                          "threefry_add_normal": 0, "colour_matrix": 2,
-                                         "delayline_matrix": 0}
+                                         "delayline_matrix": 0, "comb_stencil": 1}
 
 
 def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
@@ -1264,7 +1379,7 @@ def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                       "secam_decode": 0, "threefry_bits": 0,
                                       "threefry_add_normal": 0, "colour_matrix": 2,
-                                      "delayline_matrix": 0}
+                                      "delayline_matrix": 0, "comb_stencil": 1}
     for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
         assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
 
@@ -1289,7 +1404,8 @@ def test_sanitizer_on_every_kernel(dev, shape):
     frames, lines, n = shape
     reset_launches()
     results = sanitize.run_all(dev, lines=(lines,), samples=(n,), frames=(frames,))
-    rows = len(sanitize.ROWS) + len(sanitize.PRNG_ROWS) + len(sanitize.COLOUR_ROWS)
+    rows = (len(sanitize.ROWS) + len(sanitize.PRNG_ROWS) + len(sanitize.COLOUR_ROWS)
+            + len(sanitize.COMB_ROWS))
     assert len(results) == rows
     bad = [(r["row"], r["standard"], r["shape"], {k: v for k, v in r.items() if k != "poison"},
             r["poison"]) for r in results if not r["ok"]]

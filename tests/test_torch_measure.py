@@ -97,3 +97,15 @@ def test_colour_matrix_bound_is_six_planes_at_the_cells_shapes(shape, want):
     assert ms == pytest.approx(want, rel=1e-5)
     assert ms == pytest.approx(1e3 * 6 * 4 * math.prod(shape[:1] + shape[2:])
                                / measure.HBM_BYTES_PER_S)
+
+
+@pytest.mark.parametrize("shape,want", [((64, 480, 720), 0.052820), ((64, 576, 720), 0.063384)])
+def test_comb_stencil_bound_is_two_planes_at_the_cells_shapes(shape, want):
+    """One pass reads the composite once and writes the stencil signal once:
+    8 bytes a sample at 3.35 TB/s (NTSC batch 64; PAL's 576 lines)."""
+    import math
+
+    ms, by = measure.comb_stencil_bound(math.prod(shape))
+    assert by == "bytes"
+    assert ms == pytest.approx(want, rel=1e-5)
+    assert ms == pytest.approx(1e3 * 2 * 4 * math.prod(shape) / measure.HBM_BYTES_PER_S)

@@ -296,3 +296,39 @@ def test_colour_rows_pass_the_guards(row):
         torch.as_strided(out, (out.numel() + 1,), (1,), out.storage_offset())[-1] = 0.5
 
     assert not sanitize.guarded_call(past, tensors, pos, GUARD)["sentinels_intact"]
+
+
+@pytest.mark.parametrize("row,std,decoder", sanitize.COMB_ROWS)
+def test_comb_rows_pass_the_guards(row, std, decoder):
+    """The comb stencil's C arguments (``kernels/comb.py::comb_stencil_call``)
+    through the guard plumbing around the plain version: frames of L x N
+    samples at the standard's spacing; a read one line before the frames
+    (a NaN, which the stencil keeps) and a write past the output are
+    caught."""
+    from color_modem_tpu_torch.kernels import comb
+    from color_modem_tpu_torch.standards.decoders import comb_spacing
+
+    plan = _plan(std)
+    p = comb_spacing(plan.cfg)
+    kernel, (tensors, scalars), outs = sanitize.comb_call(plan, 2, 17, decoder)
+    assert kernel == "comb_stencil" and scalars == (2, 17, N, p, comb.FORMS[decoder])
+    pos = sanitize._order_outputs(tensors, outs)
+    assert pos == [1]
+
+    def plain(views, shift=0):
+        x = views[0]
+        x = torch.as_strided(x, x.shape, x.stride(), x.storage_offset() - shift)
+        views[1].copy_(comb.comb_stencil_plain(x, p, decoder))
+
+    rep = sanitize.guarded_call(plain, tensors, pos, GUARD)
+    assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
+    assert rep["sentinels_intact"] and rep["inputs_intact"]
+    assert torch.equal(rep["outputs"][0], comb.comb_stencil_plain(tensors[0], p, decoder))
+    assert sanitize.guarded_call(lambda v: plain(v, shift=N), tensors, pos, GUARD)["nan"] > 0
+
+    def past(views):
+        plain(views)
+        flat = views[1].reshape(-1)
+        torch.as_strided(flat, (1,), (1,), flat.storage_offset() + flat.numel()).fill_(0.0)
+
+    assert not sanitize.guarded_call(past, tensors, pos, GUARD)["sentinels_intact"]

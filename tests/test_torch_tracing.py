@@ -134,7 +134,8 @@ def test_each_pipeline_call_is_one_span(which):
 def test_the_delayline_step_is_a_span_inside_the_decode(backend):
     """PAL's delay-line decode dispatches its delay line and matrix (one
     pass on the kernel backend) inside ``cm.pipeline.delayline``, within
-    the decode's span; a comb decode records no such span."""
+    the decode's span; a comb decode records no such span (on the kernel
+    backend its line stencil's, ``cm.pipeline.stencil``)."""
     plan = make_plan(ALL_STANDARDS["pal"](), N)
     enc, dec, _ = make_pipeline(plan, "delayline", backend, "cpu")
     comp = enc(torch.rand(2, 3, 16, N), 0)
@@ -144,6 +145,28 @@ def test_the_delayline_step_is_a_span_inside_the_decode(backend):
     assert _inside(got[1], got[0])
     comb = make_pipeline(plan, "comb3", backend, "cpu")[1]
     _, spans = _recorded(lambda: comb(comp, 0))
+    assert [n for n, _, _ in spans if n.startswith("cm.")] == (
+        ["cm.pipeline.decode"] + ["cm.pipeline.stencil"] * (backend == "kernel"))
+
+
+@pytest.mark.parametrize("name,decoder", [("ntsc", "comb3"), ("ntsc", "comb2"),
+                                          ("pal", "comb3"), ("pal", "comb2")])
+def test_the_comb_stencil_is_a_span_inside_the_decode(name, decoder):
+    """On the kernel backend a 'comb2' or 'comb3' decode dispatches its line
+    stencil inside ``cm.pipeline.stencil``, within the decode's span; the
+    plain backend and a notch decode record no such span."""
+    plan = make_plan(ALL_STANDARDS[name](), N)
+    comp = make_pipeline(plan, decoder, "kernel", "cpu")[0](torch.rand(2, 3, 16, N), 0)
+    for backend, want in (("kernel", ["cm.pipeline.decode", "cm.pipeline.stencil"]),
+                          ("plain", ["cm.pipeline.decode"])):
+        dec = make_pipeline(plan, decoder, backend, "cpu")[1]
+        _, spans = _recorded(lambda: dec(comp, 0))
+        got = [s for s in spans if s[0].startswith("cm.")]
+        assert [n for n, _, _ in got] == want
+        if backend == "kernel":
+            assert _inside(got[1], got[0])
+    notch = make_pipeline(plan, "notch", "kernel", "cpu")[1]
+    _, spans = _recorded(lambda: notch(comp, 0))
     assert [n for n, _, _ in spans if n.startswith("cm.")] == ["cm.pipeline.decode"]
 
 
