@@ -610,11 +610,12 @@ def secam_rgb(plan, luma, v, gline, pairing="interp"):
     clamp, as ``decode_block`` does after the kernel."""
     import torch
 
-    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+    from color_modem_tpu_torch.dsp.colorimetry import clamp01
+    from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
     from color_modem_tpu_torch.modem import secam
 
     dr, db = secam.pair(v, gline, pairing)
-    return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
+    return clamp01(colour_matrix(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
 
 
 def check_fir(dev) -> float:
@@ -711,9 +712,9 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     import torch
 
     from color_modem_tpu_torch import SECAM
-    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.utils.testimages import smooth_scene
 
@@ -726,7 +727,7 @@ def check_secam_kernels(dev, frames: int, n: int) -> tuple[float, float]:
     isr = sk.isr_col(gline)
     scenes = np.stack([smooth_scene(lines, n, seed=s) for s in range(4)])
     rgb = torch.tensor(scenes[np.arange(frames) % 4], dtype=torch.float32, device=dev)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    ycc = colour_matrix(plan.rgb_to_ycc, rgb).contiguous()
     rng = np.random.default_rng(n)
     chroma = torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
                           dtype=torch.float32, device=dev)
@@ -996,12 +997,13 @@ def check_colour_matrix(dev, card: str) -> dict:
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.kernels import colorimetry as ck
     from color_modem_tpu_torch.kernels.measure import colour_matrix_bound
     from color_modem_tpu_torch.modem.plan import make_plan
 
     def compare(mat, x, clamp) -> float:
-        got, want = ck.colour_matrix(mat, x, clamp), ck.colour_matrix_plain(mat, x, clamp)
+        got, want = ck.colour_matrix(mat, x, clamp), apply_mat3(mat, x, clamp)
         nan = torch.isnan(want)
         _check(torch.equal(torch.isnan(got), nan), "3e colour_matrix: NaNs differ")
         return float((got - want).masked_fill(nan, 0.0).abs().max())
@@ -1035,7 +1037,7 @@ def check_colour_matrix(dev, card: str) -> dict:
         bound = colour_matrix_bound(math.prod(shape))
         for entry, mat, clamp in (("encode", plan.rgb_to_ycc, False),
                                   ("decode", plan.ycc_to_rgb, True)):
-            t = time_pair(partial(ck.colour_matrix_plain, mat, x, clamp),
+            t = time_pair(partial(apply_mat3, mat, x, clamp),
                           partial(ck.colour_matrix, mat, x, clamp))
             times[shape, entry] = {**t, "bound": bound}
             print(f"time colour_matrix {entry} {shape} on {card}: kernel {_fmt(t['kernel'])}, "
@@ -1056,12 +1058,13 @@ def check_delayline_matrix(dev, card: str) -> dict:
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
+    from color_modem_tpu_torch.dsp.colorimetry import delayline_mat3
     from color_modem_tpu_torch.kernels import colorimetry as ck
     from color_modem_tpu_torch.kernels.measure import colour_matrix_bound
     from color_modem_tpu_torch.modem.plan import make_plan
 
     def exact(mat, x) -> bool:
-        got, want = ck.delayline_matrix(mat, x), ck.delayline_matrix_plain(mat, x)
+        got, want = ck.delayline_matrix(mat, x), delayline_mat3(mat, x)
         return torch.equal(got.view(torch.int32), want.view(torch.int32))
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -1083,7 +1086,7 @@ def check_delayline_matrix(dev, card: str) -> dict:
         _check(same, f"3e delayline_matrix {shape}: not bit for bit the plain composition")
         _check(kept, f"3e delayline_matrix {shape}: the NaN was not kept")
         bound = colour_matrix_bound(math.prod(shape))
-        t = time_pair(partial(ck.delayline_matrix_plain, mats["pal"], x),
+        t = time_pair(partial(delayline_mat3, mats["pal"], x),
                       partial(ck.delayline_matrix, mats["pal"], x))
         times[shape] = {**t, "bound": bound}
         print(f"time delayline_matrix {shape} on {card}: kernel {_fmt(t['kernel'])}, plain "
@@ -1105,6 +1108,7 @@ def check_comb_stencil(dev, card: str) -> dict:
 
     from color_modem_tpu_torch.kernels import comb
     from color_modem_tpu_torch.kernels.measure import comb_stencil_bound
+    from color_modem_tpu_torch.separate.comb import line_stencil
 
     gen = torch.Generator(device=dev).manual_seed(24)
     times = {}
@@ -1112,7 +1116,7 @@ def check_comb_stencil(dev, card: str) -> dict:
         x = 1.9 * torch.rand(shape, generator=gen, device=dev) - 0.45
         bound = comb_stencil_bound(math.prod(shape))
         for decoder in comb.FORMS:
-            got, want = comb.comb_stencil(x, p, decoder), comb.comb_stencil_plain(x, p, decoder)
+            got, want = comb.comb_stencil(x, p, decoder), line_stencil(x, p, decoder)
             same = torch.equal(got.view(torch.int32), want.view(torch.int32))
             x[1, 9, 17] = float("nan")
             out = comb.comb_stencil(x, p, decoder)
@@ -1120,14 +1124,14 @@ def check_comb_stencil(dev, card: str) -> dict:
             kept = (bool(torch.isnan(out[1, readers, 17]).all())
                     and int(torch.isnan(out).sum()) == len(readers))
             same &= torch.equal(out.view(torch.int32),
-                                comb.comb_stencil_plain(x, p, decoder).view(torch.int32))
+                                line_stencil(x, p, decoder).view(torch.int32))
             x[1, 9, 17] = 0.5
             print(f"3e comb_stencil {decoder} p={p} {shape}: kernel vs plain composition bit for "
                   f"bit {same} (max|diff| 0); a NaN reaches exactly lines {sorted(readers)}: "
                   f"{kept}")
             _check(same, f"3e comb_stencil {decoder} {shape}: not bit for bit the composition")
             _check(kept, f"3e comb_stencil {decoder} {shape}: the NaN reached other lines")
-            t = time_pair(partial(comb.comb_stencil_plain, x, p, decoder),
+            t = time_pair(partial(line_stencil, x, p, decoder),
                           partial(comb.comb_stencil, x, p, decoder))
             times[shape, decoder] = {**t, "bound": bound}
             print(f"time comb_stencil {decoder} p={p} {shape} on {card}: kernel "
@@ -1467,10 +1471,10 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrip: tuple, n: int 
     import torch
 
     from color_modem_tpu_torch import ALL_STANDARDS
-    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import qam as qk
     from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
     from color_modem_tpu_torch.kernels.measure import kernel_bound, time_ms
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.separate.comb import stencil_signal
@@ -1479,7 +1483,7 @@ def time_path(dev, card: str, name: str, decoder: str, roundtrip: tuple, n: int 
     lines = plan.cfg.active_lines
     rgb = full_scene(lines, dev, n=n)
     with torch.inference_mode():
-        ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+        ycc = colour_matrix(plan.rgb_to_ycc, rgb).contiguous()
         g = frame_line_index(plan, 0, BATCH, lines, dev)
         if plan.cfg.is_fm:
             isr = sk.isr_col(g)
@@ -2338,10 +2342,10 @@ def measure_values(dev) -> dict:
     import torch
 
     from color_modem_tpu_torch import NTSC
-    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.frame import measure
     from color_modem_tpu_torch.frame.channel import impair, vhs_playback
     from color_modem_tpu_torch.frame.pipeline import decode_block, encode_block, frame_line_index
+    from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
     from color_modem_tpu_torch.modem.plan import make_plan, plan_on
 
     plan = plan_on(make_plan(NTSC(), N), dev)
@@ -2357,7 +2361,7 @@ def measure_values(dev) -> dict:
             diff_phase_deg=20.0), g)
         rgb = decode_block(plan, vhs_playback(plan, enc(measure.multiburst(plan, 480))), g,
                            "comb3")
-        fr = measure.measure_frequency_response(plan, apply_mat3(plan.rgb_to_ycc, rgb)[:, 0])
+        fr = measure.measure_frequency_response(plan, colour_matrix(plan.rgb_to_ycc, rgb)[:, 0])
         pb = measure.measure_pulse_bar(plan, impair(
             plan, enc(measure.pulse_and_bar(plan, 480)), ghost_delay_us=1.0, ghost_gain=0.25), g)
     return {"dg": dif["dg"], "dp_deg": dif["dp_deg"], "frequency_response": fr, **pb}

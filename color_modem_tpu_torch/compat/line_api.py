@@ -33,8 +33,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.frame.pipeline import encode_block, resolve_device
+from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
 from color_modem_tpu_torch.modem import qam
 from color_modem_tpu_torch.modem import secam as secam_mod
 from color_modem_tpu_torch.modem.plan import make_plan, plan_on
@@ -85,7 +85,7 @@ class _LineModemBase:
         """(N,) components -> (3, N) RGB, clamped."""
         ycc = upload(np.stack([np.asarray(y), np.asarray(c1), np.asarray(c2)]).astype(
             np.float32), self.device)[None, :, None, :]
-        return _host(apply_mat3(self.plan.ycc_to_rgb, ycc, clamp=True))[0, :, 0]
+        return _host(colour_matrix(self.plan.ycc_to_rgb, ycc, clamp=True))[0, :, 0]
 
     def reset(self) -> None:
         """Drop cross-line streaming state (start of a new image or field)."""

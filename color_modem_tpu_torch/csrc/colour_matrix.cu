@@ -6,7 +6,7 @@
 //
 // Replaces no Pallas kernel.  The JAX package's dsp/colorimetry.py::apply_mat3
 // is an einsum at Precision.HIGHEST, which XLA fuses with the clamp around it.
-// The plain PyTorch version (kernels/colorimetry.py::colour_matrix_plain) is a
+// The plain PyTorch version (dsp/colorimetry.py::apply_mat3) is a
 // product that broadcasts one plane into three and two addcmul_ over strided
 // single-plane slices, then a separate clamp: 18 planes of traffic per matrix
 // and 6 more for the clamp.
@@ -129,7 +129,7 @@ cudaError_t launch(const float* x, const float* mat, float* out, int groups,
 //
 // each sum rounded to nearest and the halving exact, as the plain composition
 // (separate/delayline.py::average_with_neighbor on each chroma plane, the stack,
-// colour_matrix_plain with its clamp) computes them; then `mix` on (y[l], u, v)
+// apply_mat3 with its clamp) computes them; then `mix` on (y[l], u, v)
 // with the clamp.  So the result is bit for bit the plain composition's.
 //
 // It reads the three planes once and writes three, 24 bytes a pixel.  The

@@ -12,7 +12,7 @@
 // Replaces no Pallas kernel.  The JAX package leaves the stencil to XLA outside
 // the decode kernel (separate/comb.py::stencil_signal, on stencil.py's flips and
 // concatenations), as the seam where the sharded pipelines exchange their line
-// halos.  The port's plain version (kernels/comb.py::comb_stencil_plain) is that
+// halos.  The port's plain version (separate/comb.py::line_stencil) is that
 // composition in eight launches: two flips, two torch.cat, a scale, two
 // subtractions and a division, some 14 planes of device traffic.
 //

@@ -31,7 +31,7 @@ import torch
 
 from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import fir_same_taps
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import clamp01
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.frame.interlace import field_line_index, split_fields, weave_fields
 from color_modem_tpu_torch.frame.pipeline import (
@@ -136,7 +136,7 @@ def helper_reconstruct(geo: PalPlusGeometry, y_pic: torch.Tensor,
 def _encode_helper(plan: Plan, geo: PalPlusGeometry, rgb: torch.Tensor, backend: str):
     """(float32 RGB, band-limited helper lines, clamped letterbox RGB)."""
     rgb = rgb.to(torch.float32)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb, backend=backend)
+    ycc = _check_backend(backend).colour_matrix(plan.rgb_to_ycc, rgb)
     _, helper = helper_encode(geo, ycc[..., 0, :, :])
     helper = fir_same_taps(helper, _helper_taps(plan))
     return rgb, helper, clamp01(resample_lines(rgb, geo.l_pic))
@@ -160,11 +160,12 @@ def _with_helper(plan: Plan, geo: PalPlusGeometry, up: torch.Tensor,
     """Add the helper band to the upsampled picture's luma (resampling and
     the 3x3 matrices are linear and commute, so this equals
     :func:`helper_reconstruct` on the letterbox luma), back to RGB."""
-    ycc = apply_mat3(plan.rgb_to_ycc, up, backend=backend)
+    colour = _check_backend(backend).colour_matrix
+    ycc = colour(plan.rgb_to_ycc, up)
     y = ycc[..., 0, :, :] + _row_sign(geo.l_full, up.device) * resample_lines(helper,
                                                                               geo.l_full)
     ycc = torch.stack([y, ycc[..., 1, :, :], ycc[..., 2, :, :]], dim=-3)
-    return apply_mat3(plan.ycc_to_rgb, ycc, clamp=True, backend=backend)
+    return colour(plan.ycc_to_rgb, ycc, clamp=True)
 
 
 def encode_palplus(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,

@@ -1,30 +1,34 @@
 """Batched frame pipeline: RGB <-> composite <-> RGB.
 
 Port of ``color_modem_tpu/frame/pipeline.py``: every standard, with every
-decoder ``allowed_decoders`` offers it.  ``backend``:
+decoder ``allowed_decoders`` offers it.  ``backend`` names a row of
+:data:`STAGES`, the one place that picks each stage's implementation:
 
-* ``"kernel"`` — the CUDA kernels of ``kernels/qam.py``,
+* ``"kernel"`` — the wrappers of the CUDA kernels in ``kernels/qam.py``,
   ``kernels/secam.py``, ``kernels/colorimetry.py`` and ``kernels/comb.py``
-  on a CUDA device (on the CPU, the same wrappers run their plain
-  versions);
-* ``"plain"`` — the plain PyTorch modems of ``modem/qam.py`` and
-  ``modem/secam.py``, and the colour matrices' plain version.
+  (on a CUDA tensor the kernel; on a CPU tensor the wrapper runs its plain
+  version);
+* ``"plain"`` — the plain PyTorch versions in ``modem/qam.py``,
+  ``modem/secam.py``, ``separate/comb.py`` and ``dsp/colorimetry.py``, on
+  every device, so that the plain backend on the card stays a witness of
+  the kernels.
 
 The adaptive combs ('combA', 'comb3dA') separate with a data-dependent
 blend that has no kernel in the JAX package either: on both backends they
 take the plain separation and product detector, and only the encode runs
-the kernel.  On the kernel backend the line stencil of 'comb2' and 'comb3'
-is one CUDA pass (``kernels/comb.py``) in front of the decode kernel;
-'comb3d' keeps its plain frame stencil, and the notch and averaging
-decoders hand the composite itself to the decode kernel.  After the QAM
-demodulation come, in the JAX package's order, the burst phase and gain
-hooks and NIIR normalisation.  The averaging decoders' delay line, on QAM
-chroma and on SECAM's D'R/D'B alike, is one step with the decoder's
-matrix (``dsp/colorimetry.py::delayline_mat3``: one CUDA pass on the
-kernel backend), after all of these.
+the kernel.  The line stencil of 'comb2' and 'comb3' is a stage of its own
+(one CUDA pass on the kernel backend) in front of the separated
+demodulation; 'comb3d' keeps its plain frame stencil, and the notch and
+averaging decoders hand the composite itself to the demodulation.  After
+the QAM demodulation come, in the JAX package's order, the burst phase and
+gain hooks and NIIR normalisation.  The averaging decoders' delay line, on
+QAM chroma and on SECAM's D'R/D'B alike, is one step with the decoder's
+matrix (one CUDA pass on the kernel backend), after all of these.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -32,20 +36,50 @@ from color_modem_tpu_torch.standards.decoders import allowed_decoders, comb_spac
 from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, delayline_mat3
 from color_modem_tpu_torch.dsp.nco import global_line_index
 from color_modem_tpu_torch.frame.raster import add_raster, make_raster, strip_raster
+from color_modem_tpu_torch.kernels import colorimetry as colour_k
 from color_modem_tpu_torch.kernels import comb as comb_k
 from color_modem_tpu_torch.kernels import qam as qam_k
 from color_modem_tpu_torch.kernels import secam as secam_k
 from color_modem_tpu_torch.modem import niir, qam, secam
 from color_modem_tpu_torch.modem.plan import FmPlan, QamPlan, plan_on
-from color_modem_tpu_torch.separate.comb import ADAPTIVE, separate, stencil_signal
+from color_modem_tpu_torch.separate.comb import (ADAPTIVE, LINE_COMBS, line_stencil, separate,
+                                                 stencil_signal)
 from color_modem_tpu_torch.utils.tracing import span
 
-BACKENDS = ("kernel", "plain")
 #: decoders that average the decoded chroma over adjacent lines
 AVERAGING = ("delayline", "avg")
 
 
 Plan = QamPlan | FmPlan
+
+
+class Stages(NamedTuple):
+    """One backend's function for each stage that has a kernel; each takes
+    the arguments of the kernel wrapper in the ``"kernel"`` row."""
+
+    qam_encode: Callable
+    qam_demodulate: Callable
+    secam_encode: Callable
+    secam_decode: Callable
+    line_stencil: Callable
+    colour_matrix: Callable
+    delayline_matrix: Callable
+
+
+def _stencil_pass(comp: torch.Tensor, p: int, decoder: str) -> torch.Tensor:
+    """The kernel backend's line stencil, one pass inside its span."""
+    with span("cm.pipeline.stencil"):
+        return comb_k.comb_stencil(comp, p, decoder)
+
+
+#: each backend's stages
+STAGES = {
+    "kernel": Stages(qam_k.encode, qam_k.demodulate_separated, secam_k.encode, secam_k.decode,
+                     _stencil_pass, colour_k.colour_matrix, colour_k.delayline_matrix),
+    "plain": Stages(qam.encode, qam.demodulate_separated, secam.encode, secam.decode,
+                    line_stencil, apply_mat3, delayline_mat3),
+}
+BACKENDS = tuple(STAGES)
 
 
 def check_decoder(plan: Plan, decoder: str) -> None:
@@ -56,43 +90,40 @@ def check_decoder(plan: Plan, decoder: str) -> None:
         )
 
 
-def _check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
+def _check_backend(backend: str) -> Stages:
+    """``backend``'s row of :data:`STAGES`; an unknown one raises."""
+    if backend not in STAGES:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    return STAGES[backend]
 
 
 def encode_block(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
                  backend: str = "kernel") -> torch.Tensor:
     """(..., 3, L, N) RGB in [0,1] + (..., L) absolute lines -> (..., L, N)."""
-    _check_backend(backend)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32), backend=backend)
-    if plan.cfg.is_fm:
-        enc = secam_k.encode if backend == "kernel" else secam.encode
-    else:
-        enc = qam_k.encode if backend == "kernel" else qam.encode
+    impl = _check_backend(backend)
+    ycc = impl.colour_matrix(plan.rgb_to_ycc, rgb.to(torch.float32))
+    enc = impl.secam_encode if plan.cfg.is_fm else impl.qam_encode
     return enc(plan, ycc, gline)
 
 
 def _decode_fm(plan: FmPlan, comp: torch.Tensor, gline: torch.Tensor,
-               decoder: str, backend: str) -> torch.Tensor:
+               decoder: str, impl: Stages) -> torch.Tensor:
     pairing = "interp" if decoder == "interp" else "copy"
-    dec = secam_k.decode if backend == "kernel" else secam.decode
-    return dec(plan, comp, gline, pairing)
+    return impl.secam_decode(plan, comp, gline, pairing)
 
 
 def _demodulate_qam(plan: QamPlan, comp: torch.Tensor, gline: torch.Tensor,
-                    decoder: str, backend: str) -> torch.Tensor:
+                    decoder: str, impl: Stages) -> torch.Tensor:
     """(..., L, N) composite -> (..., 3, L, N) ``[y, c1, c2]``."""
-    if backend == "kernel" and decoder not in ADAPTIVE:
-        if decoder in comb_k.FORMS:
-            with span("cm.pipeline.stencil"):
-                sep = comb_k.comb_stencil(comp, comb_spacing(plan.cfg), decoder)
-        else:
-            sep = stencil_signal(plan, comp, decoder)
-        return qam_k.demodulate_separated(plan, sep, comp, gline)
-    luma, chroma_band = separate(plan, comp, decoder)
-    return torch.stack([luma, *qam.demodulate_carrier(plan, chroma_band, gline)],
-                       dim=-3)
+    if decoder in ADAPTIVE:
+        luma, chroma_band = separate(plan, comp, decoder)
+        return torch.stack([luma, *qam.demodulate_carrier(plan, chroma_band, gline)],
+                           dim=-3)
+    if decoder in LINE_COMBS:
+        sep = impl.line_stencil(comp, comb_spacing(plan.cfg), decoder)
+    else:
+        sep = stencil_signal(plan, comp, decoder)
+    return impl.qam_demodulate(plan, sep, comp, gline)
 
 
 def _correct_chroma(plan: QamPlan, ycc: torch.Tensor, gline: torch.Tensor,
@@ -138,20 +169,20 @@ def decode_block(
     chroma has no burst to key on.
     """
     check_decoder(plan, decoder)
-    _check_backend(backend)
+    impl = _check_backend(backend)
     comp = comp.to(torch.float32)
     if plan.cfg.is_fm:
         if phase_err is not None or chroma_gain is not None:
             raise ValueError("phase_err and chroma_gain apply to QAM standards only")
-        ycc = _decode_fm(plan, comp, gline, decoder, backend)
+        ycc = _decode_fm(plan, comp, gline, decoder, impl)
     else:
-        ycc = _demodulate_qam(plan, comp, gline, decoder, backend)
+        ycc = _demodulate_qam(plan, comp, gline, decoder, impl)
         ycc = _correct_chroma(plan, ycc, gline, phase_err, chroma_gain)
     if decoder in AVERAGING:
         # NIIR's after its normalisation: raw demod alternates chroma and reference
         with span("cm.pipeline.delayline"):
-            return delayline_mat3(plan.ycc_to_rgb, ycc, backend)
-    return apply_mat3(plan.ycc_to_rgb, ycc, clamp=True, backend=backend)
+            return impl.delayline_matrix(plan.ycc_to_rgb, ycc)
+    return impl.colour_matrix(plan.ycc_to_rgb, ycc, clamp=True)
 
 
 def roundtrip_block(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,

@@ -10,14 +10,14 @@ untouched, and chroma demodulates straight off the clean carrier with the
 plain product detector (or the plain SECAM discriminator and interpolated
 pairing), with no separation stage.  So the decode runs no modem kernel, as
 in the JAX package: the decode kernel band-passes its input, and this
-receiver does not.  Its ``backend`` picks the colour matrix alone.
+receiver does not.  Its ``backend`` picks the colour matrix alone
+(``frame/pipeline.py::STAGES``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.frame.pipeline import (
     Plan,
     _check_backend,
@@ -33,7 +33,8 @@ def encode_yc(plan: Plan, rgb: torch.Tensor, gline: torch.Tensor,
               backend: str = "kernel") -> torch.Tensor:
     """(..., 3, L, N) RGB -> (..., 2, L, N) stacked (Y, C) planes; Y is the
     matrix luma before any filtering."""
-    y = apply_mat3(plan.rgb_to_ycc, rgb.to(torch.float32), backend=backend)[..., 0, :, :]
+    colour = _check_backend(backend).colour_matrix
+    y = colour(plan.rgb_to_ycc, rgb.to(torch.float32))[..., 0, :, :]
     comp = encode_block(plan, rgb, gline, backend)
     return torch.stack([y, comp - y], dim=-3)
 
@@ -49,8 +50,8 @@ def decode_yc(plan: Plan, yc: torch.Tensor, gline: torch.Tensor,
         c1, c2 = qam.demodulate_carrier(plan, c, gline)
         if plan.chroma.reference_amplitude is not None:
             c1, c2 = niir.normalize(plan, c1, c2, gline)
-    return apply_mat3(plan.ycc_to_rgb, torch.stack([y, c1, c2], dim=-3), clamp=True,
-                      backend=backend)
+    colour = _check_backend(backend).colour_matrix
+    return colour(plan.ycc_to_rgb, torch.stack([y, c1, c2], dim=-3), clamp=True)
 
 
 def make_svideo_pipeline(plan: Plan, backend: str = "kernel",

@@ -74,6 +74,10 @@ SIGNATURES = {
     "comb_stencil": (_P, _P, _I, _I, _I, _I, _I, _P),
 }
 
+#: launches of each entry point of :data:`SIGNATURES` in this process by
+#: :func:`launch_counted` (the wrappers' launches, not their plain versions)
+LAUNCHES = dict.fromkeys(SIGNATURES, 0)
+
 
 def find_nvcc() -> str:
     """``nvcc`` from ``PATH``, then ``$CUDA_HOME/bin``, then
@@ -172,16 +176,15 @@ def launch(lib: ctypes.CDLL, name: str, dev, args) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
-def launch_counted(launches: dict, name: str, dev, call: tuple, *outputs) -> None:
+def launch_counted(name: str, dev, call: tuple, *outputs) -> None:
     """A wrapper's launch: launch ``name`` of the main library with the
     arguments ``call`` (tensors, None for a null pointer, then scalars),
-    add one to ``launches[name]``,
-    and hand its ``outputs`` to the float checks
-    (``utils/debug.py::note_kernel``)."""
+    add one to ``LAUNCHES[name]``, and hand its ``outputs`` to the float
+    checks (``utils/debug.py::note_kernel``)."""
     from color_modem_tpu_torch.utils.debug import note_kernel
 
     tensors, scalars = call
     launch(load_library(), name, dev,
            [*(None if t is None else t.data_ptr() for t in tensors), *scalars])
-    launches[name] += 1
+    LAUNCHES[name] += 1
     note_kernel(name, *outputs)

@@ -1,21 +1,22 @@
-"""The round trip's colour matrices: wrappers of ``csrc/colour_matrix.cu``
-and their plain versions.
+"""The round trip's colour matrices: wrappers of ``csrc/colour_matrix.cu``.
 
 No Pallas kernel stands behind this: the JAX package's
 ``dsp/colorimetry.py::apply_mat3`` is an einsum that XLA fuses with the
-decoder's clamp.  The plain version is a product and two strided
-``addcmul_`` (the non-contiguous single-plane slices fall to PyTorch's
-non-vectorised elementwise kernel), then a separate ``clamp``: 18 planes
-of device traffic per matrix and 6 more for the clamp.  The kernel reads
-the three planes once and writes three, the clamp inside the same pass.
+decoder's clamp.  The port's plain version (``dsp/colorimetry.py::apply_mat3``)
+is a product and two strided ``addcmul_`` (the non-contiguous single-plane
+slices fall to PyTorch's non-vectorised elementwise kernel), then a
+separate ``clamp``: 18 planes of device traffic per matrix and 6 more for
+the clamp.  The kernel reads the three planes once and writes three, the
+clamp inside the same pass.
 
 :func:`delayline_matrix` is the decoder's pass of the delay-line decoders
 (``frame/pipeline.py::AVERAGING``): C1 and C2 averaged with the line before
 (``separate/delayline.py::average_with_neighbor``), then the decoder's
-matrix and clamp.  Its plain version is that composition: two averages, a
-``torch.stack`` and :func:`colour_matrix_plain`, some 20 planes of traffic
-in nine launches before the matrix's; the kernel reads three planes and
-writes three, bit for bit the same result.
+matrix and clamp.  Its plain version is that composition
+(``dsp/colorimetry.py::delayline_mat3``): two averages, a ``torch.stack``
+and the matrix, some 20 planes of traffic in nine launches before the
+matrix's; the kernel reads three planes and writes three, bit for bit the
+same result.
 
 They are CUDA C++ and not Triton: they are built into the one ``nvcc``
 library the port already loads (``kernels/build.py``), so they add no JIT
@@ -23,38 +24,19 @@ compile to a run's set-up.
 
 Each wrapper checks dtype, shape and device.  A CPU tensor runs the plain
 version; a CUDA tensor launches the kernel (a non-contiguous input made
-contiguous first); anything else raises.  ``LAUNCHES`` counts kernel
-launches, and only those.  The C arguments of a launch come from
-:func:`colour_matrix_call` and :func:`delayline_matrix_call`, which
-``kernels/sanitize.py`` launches from too.
+contiguous first); anything else raises.  A launch goes through
+``kernels/build.py::launch_counted``, which counts it.  The C arguments of
+a launch come from :func:`colour_matrix_call` and
+:func:`delayline_matrix_call`, which ``kernels/sanitize.py`` launches from
+too.
 """
 
 from __future__ import annotations
 
 import torch
 
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, check_delay_lines, delayline_mat3
 from color_modem_tpu_torch.kernels.build import launch_counted
-from color_modem_tpu_torch.separate.delayline import average_with_neighbor
-
-#: launches of the CUDA kernels in this process (not of the plain versions)
-LAUNCHES = {"colour_matrix": 0, "delayline_matrix": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def colour_matrix_plain(mat: torch.Tensor, x: torch.Tensor, clamp: bool = False) -> torch.Tensor:
-    """Plain version of :func:`colour_matrix`: three scaled adds of the
-    input planes in the order c = 0, 1, 2, in elementwise arithmetic (no
-    matrix product, so no process-wide matmul precision setting can change
-    it), then ``torch.clamp(y, 0, 1)`` with ``clamp``."""
-    m = mat.to(device=x.device, dtype=x.dtype).reshape(3, 3, 1, 1)
-    y = x[..., 0:1, :, :] * m[:, 0]
-    y.addcmul_(x[..., 1:2, :, :], m[:, 1])
-    y.addcmul_(x[..., 2:3, :, :], m[:, 2])
-    return torch.clamp(y, 0.0, 1.0) if clamp else y
 
 
 def colour_matrix_call(mat: torch.Tensor, x: torch.Tensor, out: torch.Tensor,
@@ -84,29 +66,13 @@ def colour_matrix(mat: torch.Tensor, x: torch.Tensor, clamp: bool = False) -> to
     _check(mat, x)
     dev = x.device
     if dev.type == "cpu":
-        return colour_matrix_plain(mat, x, clamp)
+        return apply_mat3(mat, x, clamp)
     x = x.contiguous()
     mat = mat.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     if out.numel():
-        launch_counted(LAUNCHES, "colour_matrix", dev, colour_matrix_call(mat, x, out, clamp),
-                       out)
+        launch_counted("colour_matrix", dev, colour_matrix_call(mat, x, out, clamp), out)
     return out
-
-
-def _check_lines(x: torch.Tensor) -> None:
-    if x.shape[-2] < 2:
-        raise ValueError(f"x: the delay line needs 2 or more lines a frame, got {x.shape[-2]}")
-
-
-def delayline_matrix_plain(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`delayline_matrix`: the composition the
-    pipeline ran, ``average_with_neighbor`` on C1 and on C2, the stack, and
-    :func:`colour_matrix_plain` with the clamp."""
-    _check_lines(x)
-    y, c1, c2 = x.unbind(-3)
-    ycc = torch.stack([y, average_with_neighbor(c1), average_with_neighbor(c2)], dim=-3)
-    return colour_matrix_plain(mat, ycc, clamp=True)
 
 
 def delayline_matrix_call(mat: torch.Tensor, x: torch.Tensor,
@@ -128,12 +94,11 @@ def delayline_matrix(mat: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     _check(mat, x)
     dev = x.device
     if dev.type == "cpu":
-        return delayline_matrix_plain(mat, x)
-    _check_lines(x)
+        return delayline_mat3(mat, x)
+    check_delay_lines(x)
     x = x.contiguous()
     mat = mat.to(device=dev, dtype=torch.float32).contiguous()
     out = torch.empty_like(x)
     if out.numel():
-        launch_counted(LAUNCHES, "delayline_matrix", dev, delayline_matrix_call(mat, x, out),
-                       out)
+        launch_counted("delayline_matrix", dev, delayline_matrix_call(mat, x, out), out)
     return out

@@ -1,9 +1,10 @@
 """The line-axis comb stencil of the decoders 'comb2' and 'comb3': a wrapper of
-``csrc/comb_stencil.cu`` and its plain version.
+``csrc/comb_stencil.cu``.
 
 No Pallas kernel stands behind this: the JAX package computes the stencil
 outside the decode kernel (``separate/comb.py::stencil_signal``), as plain
-array code that XLA fuses.  The plain version is that composition on
+array code that XLA fuses.  The port's plain version,
+``separate/comb.py::line_stencil``, is that composition on
 ``separate/stencil.py``'s shifts, whose flips and ``torch.cat`` copies, a
 scale, two subtractions and a division make eight launches and some 14
 planes of device traffic; the kernel reads the composite once and writes
@@ -15,9 +16,10 @@ a run's set-up.
 
 :func:`comb_stencil` checks dtype, shape and device.  A CPU tensor runs the
 plain version; a CUDA tensor launches the kernel (a non-contiguous input
-made contiguous first); anything else raises.  ``LAUNCHES`` counts kernel
-launches, and only those.  The C arguments of a launch come from
-:func:`comb_stencil_call`, which ``kernels/sanitize.py`` launches from too.
+made contiguous first); anything else raises.  A launch goes through
+``kernels/build.py::launch_counted``, which counts it.  The C arguments of
+a launch come from :func:`comb_stencil_call`, which ``kernels/sanitize.py``
+launches from too.
 """
 
 from __future__ import annotations
@@ -25,28 +27,12 @@ from __future__ import annotations
 import torch
 
 from color_modem_tpu_torch.kernels.build import launch_counted
-from color_modem_tpu_torch.separate.stencil import next_reflect, prev_reflect
+from color_modem_tpu_torch.separate.comb import line_stencil
 
 #: the decoders whose separation is this stencil, and the form the kernel takes
 FORMS = {"comb2": 2, "comb3": 3}
 #: the comb spacings the kernel takes (``standards/decoders.py::comb_spacing``)
 SPACINGS = (1, 2)
-
-#: launches of the CUDA kernel in this process (not of the plain version)
-LAUNCHES = {"comb_stencil": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def comb_stencil_plain(x: torch.Tensor, p: int, decoder: str) -> torch.Tensor:
-    """Plain version of :func:`comb_stencil`: the composition
-    ``separate/comb.py::stencil_signal`` computes for 'comb2' and 'comb3'."""
-    if decoder == "comb2":
-        return (x - prev_reflect(x, p)) / 2.0
-    return (2.0 * x - prev_reflect(x, p) - next_reflect(x, p)) / 4.0
 
 
 def comb_stencil_call(x: torch.Tensor, out: torch.Tensor, p: int,
@@ -83,9 +69,9 @@ def comb_stencil(x: torch.Tensor, p: int, decoder: str) -> torch.Tensor:
     _check(x, p, decoder)
     dev = x.device
     if dev.type == "cpu":
-        return comb_stencil_plain(x, p, decoder)
+        return line_stencil(x, p, decoder)
     x = x.contiguous()
     out = torch.empty_like(x)
     if out.numel():
-        launch_counted(LAUNCHES, "comb_stencil", dev, comb_stencil_call(x, out, p, decoder), out)
+        launch_counted("comb_stencil", dev, comb_stencil_call(x, out, p, decoder), out)
     return out

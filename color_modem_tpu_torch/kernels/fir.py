@@ -16,10 +16,8 @@ import numpy as np
 import torch
 
 from color_modem_tpu_torch.dsp.apply import matmul_f32, toeplitz_same, toeplitz_same_held
+from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.kernels.tiles import band_tiles
-
-#: launches of each CUDA kernel in this process
-LAUNCHES = {"fir_check": 0, "band_fir_check": 0}
 
 
 def fir_lines_plain(x: torch.Tensor, taps: torch.Tensor, held: bool) -> torch.Tensor:
@@ -42,22 +40,6 @@ def _check(x: torch.Tensor, taps: torch.Tensor) -> None:
         raise ValueError(f"no FIR kernel or plain version for device {x.device}")
 
 
-def _launch(name: str, x: torch.Tensor, ptrs: tuple, ints: tuple) -> torch.Tensor:
-    """Launch ``name(x, *ptrs, out, lines, N, *ints, stream)``; returns out."""
-    from color_modem_tpu_torch.kernels.build import load_library
-
-    out = torch.empty_like(x)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(lib, name)(x.data_ptr(), *ptrs, out.data_ptr(), *x.shape, *ints,
-                                 stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t {err}")
-    LAUNCHES[name] += 1
-    return out
-
-
 def fir_lines(x: torch.Tensor, taps: torch.Tensor, held: bool = False) -> torch.Tensor:
     """(lines, N) float32 -> each line convolved 'same' with ``taps`` (T,),
     T odd, by ``csrc/fir.cuh``; ``held`` repeats the edge samples instead of
@@ -65,7 +47,10 @@ def fir_lines(x: torch.Tensor, taps: torch.Tensor, held: bool = False) -> torch.
     _check(x, taps)
     if x.device.type == "cpu":
         return fir_lines_plain(x, taps, held)
-    return _launch("fir_check", x, (taps.data_ptr(),), (taps.numel(), int(held)))
+    out = torch.empty_like(x)
+    launch_counted("fir_check", x.device,
+                   ([x, taps, out], (*x.shape, taps.numel(), int(held))), out)
+    return out
 
 
 def band_fir_lines(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -76,4 +61,7 @@ def band_fir_lines(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return fir_lines_plain(x, taps, False)
     tiles = torch.tensor(band_tiles(taps.detach().cpu().numpy()), device=x.device)
-    return _launch("band_fir_check", x, (tiles.data_ptr(),), (taps.numel(),))
+    out = torch.empty_like(x)
+    launch_counted("band_fir_check", x.device,
+                   ([x, tiles, out], (*x.shape, taps.numel())), out)
+    return out

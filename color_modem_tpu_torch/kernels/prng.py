@@ -15,9 +15,10 @@ the kernel hashes, converts and adds in one pass.
   kernel; with ``x`` None, ``normal`` alone.
 
 A CPU device runs the plain version; a CUDA device launches the kernel or
-raises; anything else raises.  ``LAUNCHES`` counts kernel launches, and
-only those.  The C arguments come from :func:`bits_call` and
-:func:`normal_call`, which ``kernels/sanitize.py`` launches from too.
+raises; anything else raises.  A launch goes through
+``kernels/build.py::launch_counted``, which counts it.  The C arguments
+come from :func:`bits_call` and :func:`normal_call`, which
+``kernels/sanitize.py`` launches from too.
 """
 
 from __future__ import annotations
@@ -30,15 +31,8 @@ import torch
 from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.utils.prng import M32, Key, add_normal_plain, random_bits_plain
 
-#: launches of each CUDA entry point in this process (not of the plain versions)
-LAUNCHES = {"threefry_bits": 0, "threefry_add_normal": 0}
 #: the kernel's grid has one row of blocks per item
 MAX_ITEMS = 65535
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _device(device) -> torch.device:
@@ -61,7 +55,7 @@ def threefry_bits(key: Key, shape: tuple, device) -> torch.Tensor:
         return random_bits_plain(key, shape, device)
     out = torch.empty(shape, dtype=torch.int32, device=device)
     if out.numel():
-        launch_counted(LAUNCHES, "threefry_bits", device, bits_call(key, out), out)
+        launch_counted("threefry_bits", device, bits_call(key, out), out)
     return out
 
 
@@ -96,6 +90,6 @@ def threefry_add_normal(x: torch.Tensor | None, sigma: float, key: Key, shape: t
         x = x.contiguous()
     out = torch.empty(shape, dtype=torch.float32, device=device)
     if math.prod(shape):
-        launch_counted(LAUNCHES, "threefry_add_normal", device,
+        launch_counted("threefry_add_normal", device,
                        normal_call(x, sigma, key, g0, out), out)
     return out

@@ -15,10 +15,10 @@ the plan's ``*_tiles`` buffers, built once on the host.
 
 Each wrapper checks device, dtype, shape and contiguity.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises; anything
-else raises.  ``LAUNCHES`` counts kernel launches, and only those.  The C
-arguments of a launch come from :func:`encode_call` / :func:`decode_call`,
-which ``kernels/sanitize.py`` launches from too; after a launch the
-wrapper hands its output to ``utils/debug.py::note_kernel``.
+else raises.  A launch goes through ``kernels/build.py::launch_counted``,
+which counts it and hands its output to ``utils/debug.py::note_kernel``.
+The C arguments of a launch come from :func:`encode_call` /
+:func:`decode_call`, which ``kernels/sanitize.py`` launches from too.
 
 Line layout: the kernels take ``G`` groups of ``L`` lines, so that the
 ``(B, 3, L, N)`` component planes are read (encode) and written (decode)
@@ -35,14 +35,6 @@ from color_modem_tpu_torch.dsp.nco import f32, line_phase0
 from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.modem.plan import QamPlan
 from color_modem_tpu_torch.modem.qam import reference_line_mask, v_sign
-
-#: launches of each CUDA kernel in this process (not of the plain versions)
-LAUNCHES = {"qam_encode": 0, "qam_decode": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def phase_cols(plan: QamPlan, gline: torch.Tensor) -> torch.Tensor:
@@ -125,7 +117,7 @@ def encode_lines(plan: QamPlan, ycc: torch.Tensor, cols: torch.Tensor) -> torch.
     if dev.type == "cpu":
         return encode_lines_plain(plan, ycc, cols)
     out = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    launch_counted(LAUNCHES, "qam_encode", dev, encode_call(plan, ycc, cols, out), out)
+    launch_counted("qam_encode", dev, encode_call(plan, ycc, cols, out), out)
     return out
 
 
@@ -168,7 +160,7 @@ def decode_lines(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
     if dev.type == "cpu":
         return decode_lines_plain(plan, sep, comp, cols)
     out = torch.empty((g, 3, l, n), dtype=torch.float32, device=dev)
-    launch_counted(LAUNCHES, "qam_decode", dev, decode_call(plan, sep, comp, cols, out), out)
+    launch_counted("qam_decode", dev, decode_call(plan, sep, comp, cols, out), out)
     return out
 
 

@@ -27,11 +27,11 @@ encode / decode 0.18 / 0.40 ms at 16x576x720, 0.62 / 1.38 ms at
 
 Each wrapper checks device, dtype, shape and contiguity.  A CPU tensor runs
 the plain version; a CUDA tensor launches the kernel or raises; anything
-else raises.  ``LAUNCHES`` counts kernel launches, and only those.  The C
-arguments of a launch come from :func:`encode_call` /
-:func:`demodulate_call`, which ``kernels/sanitize.py`` launches from too;
-after a launch the wrapper hands its outputs to
-``utils/debug.py::note_kernel``.  The per-line parity comes in as a float32 column, 1.0 on D'R lines.  The
+else raises.  A launch goes through ``kernels/build.py::launch_counted``,
+which counts it and hands its outputs to ``utils/debug.py::note_kernel``.
+The C arguments of a launch come from :func:`encode_call` /
+:func:`demodulate_call`, which ``kernels/sanitize.py`` launches from too.
+The per-line parity comes in as a float32 column, 1.0 on D'R lines.  The
 cross-line pairing (copy or interp) stays outside the kernel, as in the JAX
 package: it is the seam a line-block split would cut.
 """
@@ -45,14 +45,6 @@ from color_modem_tpu_torch.dsp.nco import TWO_PI, f32
 from color_modem_tpu_torch.kernels.build import launch_counted
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import FmPlan
-
-#: launches of each CUDA kernel in this process (not of the plain versions)
-LAUNCHES = {"secam_encode": 0, "secam_decode": 0}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def isr_col(gline: torch.Tensor) -> torch.Tensor:
@@ -142,7 +134,7 @@ def encode_lines(plan: FmPlan, ycc: torch.Tensor, isr: torch.Tensor) -> torch.Te
     if dev.type == "cpu":
         return encode_lines_plain(plan, ycc, isr)
     out = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    launch_counted(LAUNCHES, "secam_encode", dev, encode_call(plan, ycc, isr, out), out)
+    launch_counted("secam_encode", dev, encode_call(plan, ycc, isr, out), out)
     return out
 
 
@@ -195,7 +187,7 @@ def demodulate_lines(plan: FmPlan, comp: torch.Tensor, isr: torch.Tensor):
         return demodulate_lines_plain(plan, comp, isr)
     luma = torch.empty((g, l, n), dtype=torch.float32, device=dev)
     v = torch.empty((g, l, n), dtype=torch.float32, device=dev)
-    launch_counted(LAUNCHES, "secam_decode", dev, demodulate_call(plan, comp, isr, luma, v),
+    launch_counted("secam_decode", dev, demodulate_call(plan, comp, isr, luma, v),
                    luma, v)
     return luma, v
 

@@ -30,11 +30,10 @@ from functools import lru_cache
 import torch
 
 from color_modem_tpu_torch.dsp.apply import fir_same, toeplitz_same
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
 from color_modem_tpu_torch.dsp.nco import f32
 from color_modem_tpu_torch.dsp.resample import resample_width
 from color_modem_tpu_torch.frame.nicam import FRAME_BITS, nicam_frames, parse_frames
-from color_modem_tpu_torch.frame.pipeline import resolve_device
+from color_modem_tpu_torch.frame.pipeline import STAGES, resolve_device
 from color_modem_tpu_torch.modem.mac_plan import (  # noqa: F401  (re-exports)
     MacConfig,
     MacPlan,
@@ -42,6 +41,9 @@ from color_modem_tpu_torch.modem.mac_plan import (  # noqa: F401  (re-exports)
     make_mac_plan,
 )
 from color_modem_tpu_torch.separate.stencil import next_reflect, prev_reflect
+
+#: the colour matrices of the kernel backend: one CUDA pass on a CUDA tensor
+_colour_matrix = STAGES["kernel"].colour_matrix
 
 
 @lru_cache(maxsize=16)
@@ -139,7 +141,7 @@ def encode(plan: MacPlan, rgb: torch.Tensor, gline: torch.Tensor,
     """
     cfg = plan.cfg
     dev = rgb.device
-    ycc = apply_mat3(_on_device(plan, dev)[0], rgb.to(torch.float32))
+    ycc = _colour_matrix(_on_device(plan, dev)[0], rgb.to(torch.float32))
     y, u, v = ycc[..., 0, :, :], ycc[..., 1, :, :], ycc[..., 2, :, :]
     c_sel = torch.where(chroma_is_u(gline)[..., None], u, v)
 
@@ -199,7 +201,7 @@ def decode(plan: MacPlan, sig: torch.Tensor, gline: torch.Tensor) -> torch.Tenso
     """(..., L, 1296) MAC lines -> (..., 3, L, W) RGB, clamped to [0, 1]."""
     y, u, v = decode_components(plan, sig, gline)
     ycc = torch.stack([y, u, v], dim=-3)
-    return apply_mat3(_on_device(plan, sig.device)[1], ycc, clamp=True)
+    return _colour_matrix(_on_device(plan, sig.device)[1], ycc, clamp=True)
 
 
 def decode_data(plan: MacPlan, sig: torch.Tensor):

@@ -66,3 +66,13 @@ def demodulate_carrier(plan: QamPlan, chroma_band: torch.Tensor, gline: torch.Te
     c1 = fir_same(2.0 * chroma_band * torch.sin(phi), plan.c1_lpf_mat)
     c2 = s * fir_same(2.0 * chroma_band * torch.cos(phi), plan.c2_lpf_mat)
     return c1, c2
+
+
+def demodulate_separated(plan: QamPlan, sep: torch.Tensor, comp: torch.Tensor,
+                         gline: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``kernels/qam.py::demodulate_separated``: the chroma
+    band-pass of the stencil signal ``sep``, luma = ``comp`` - band, and the
+    product detector: (..., L, N) -> (..., 3, L, N) ``[y, c1, c2]``."""
+    chroma_band = fir_same(sep, plan.chroma_bpf_mat)
+    return torch.stack([comp - chroma_band, *demodulate_carrier(plan, chroma_band, gline)],
+                       dim=-3)

@@ -7,8 +7,8 @@ about 180 degrees out of phase, so a line difference cancels luma; at
 difference does.  Port of ``color_modem_tpu/separate/comb.py``.  The
 stencils stay outside the decode kernel, as in the JAX package: plain tensor
 slicing here, and on the kernel backend one CUDA pass for the line stencil
-of 'comb2' and 'comb3' (``kernels/comb.py``, whose plain version this
-module's :func:`stencil_signal` runs).  The adaptive combs (``combA``,
+of 'comb2' and 'comb3' (``kernels/comb.py``, whose plain version is this
+module's :func:`line_stencil`).  The adaptive combs (``combA``,
 ``comb3dA``) blend their estimates by data-dependent weights; the JAX
 package runs them as plain array code on every backend, and so does the
 port.
@@ -25,7 +25,6 @@ from color_modem_tpu_torch.standards.decoders import (
     temporal_comb_spacing,
 )
 from color_modem_tpu_torch.dsp.apply import fir_same
-from color_modem_tpu_torch.kernels.comb import comb_stencil_plain
 from color_modem_tpu_torch.modem.plan import QamPlan
 from color_modem_tpu_torch.separate.stencil import (
     next_reflect,
@@ -38,6 +37,8 @@ from color_modem_tpu_torch.separate.stencil import (
 SEPARATORS = ("notch", "comb2", "comb3", "comb3d", "combA", "comb3dA")
 #: the decoders whose separation is the adaptive blend, not a stencil + BPF
 ADAPTIVE = ("combA", "comb3dA")
+#: the decoders whose stencil is :func:`line_stencil`
+LINE_COMBS = ("comb2", "comb3")
 
 
 def _temporal_spacing(plan: QamPlan, comp: torch.Tensor, decoder: str) -> int:
@@ -52,6 +53,15 @@ def _temporal_spacing(plan: QamPlan, comp: torch.Tensor, decoder: str) -> int:
     return pt
 
 
+def line_stencil(x: torch.Tensor, p: int, decoder: str) -> torch.Tensor:
+    """The stencil signal of ``decoder`` ('comb2' or 'comb3') over the line
+    axis at comb spacing ``p``, the edges reflected: ``(x[l] - x[l-p]) / 2``
+    or ``(2 x[l] - x[l-p] - x[l+p]) / 4``."""
+    if decoder == "comb2":
+        return (x - prev_reflect(x, p)) / 2.0
+    return (2.0 * x - prev_reflect(x, p) - next_reflect(x, p)) / 4.0
+
+
 def stencil_signal(plan: QamPlan, comp: torch.Tensor, decoder: str) -> torch.Tensor:
     """The signal whose sample-axis BPF is the chroma band: line differences
     for the combs, frame differences for 'comb3d', the composite itself for
@@ -62,8 +72,8 @@ def stencil_signal(plan: QamPlan, comp: torch.Tensor, decoder: str) -> torch.Ten
         return (
             2.0 * comp - prev_reflect_frames(comp, pt) - next_reflect_frames(comp, pt)
         ) / 4.0
-    if decoder in ("comb2", "comb3"):
-        return comb_stencil_plain(comp, comb_spacing(plan.cfg), decoder)
+    if decoder in LINE_COMBS:
+        return line_stencil(comp, comb_spacing(plan.cfg), decoder)
     return comp
 
 

@@ -6,7 +6,7 @@ with the next one, as in the golden oracle's ``_neighbor``.  The QAM
 'delayline'/'avg' decoders apply it to the demodulated (c1, c2) planes
 (NIIR 'avg' after the reference normalisation), SECAM 'avg' to the
 assembled D'R/D'B planes, each as the first step of
-``kernels/colorimetry.py::delayline_matrix_plain``.
+``dsp/colorimetry.py::delayline_mat3``.
 """
 
 from __future__ import annotations

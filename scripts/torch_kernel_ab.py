@@ -105,9 +105,10 @@ def secam_worker() -> dict:
     import torch
 
     from color_modem_tpu_torch import SECAM
-    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+    from color_modem_tpu_torch.dsp.colorimetry import clamp01
     from color_modem_tpu_torch.frame.pipeline import frame_line_index
     from color_modem_tpu_torch.kernels import secam as sk
+    from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
     from color_modem_tpu_torch.modem import secam
     from color_modem_tpu_torch.modem.plan import make_plan
     from color_modem_tpu_torch.utils.testimages import smooth_scene
@@ -121,7 +122,7 @@ def secam_worker() -> dict:
         isr = sk.isr_col(g)
         rgb = torch.tensor(np.broadcast_to(smooth_scene(576, n, seed=0), (frames, 3, 576, n)),
                            dtype=torch.float32, device=dev)
-        ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+        ycc = colour_matrix(plan.rgb_to_ycc, rgb).contiguous()
         rng = np.random.default_rng(n)
         ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, 576, n)),
                                                        dtype=torch.float32, device=dev)],
@@ -130,7 +131,7 @@ def secam_worker() -> dict:
 
         def rgb_of(luma_v):
             dr, db = secam.pair(luma_v[1], g, "interp")
-            return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma_v[0], dr, db], 1)))
+            return clamp01(colour_matrix(plan.ycc_to_rgb, torch.stack([luma_v[0], dr, db], 1)))
 
         e_enc = float((sk.encode_lines(plan, ycc_rand, isr)
                        - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max())
@@ -160,6 +161,7 @@ def colour_worker() -> dict:
     import torch
 
     import color_modem_tpu_torch as cmt
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3
     from color_modem_tpu_torch.kernels import colorimetry as ck
     from color_modem_tpu_torch.modem.plan import make_plan
 
@@ -170,14 +172,14 @@ def colour_worker() -> dict:
         plan = make_plan(getattr(cmt, std)(), 720).to(dev)
         gen = torch.Generator(device=dev).manual_seed(frames)
         rgb = torch.rand((frames, 3, lines, 720), generator=gen, device=dev)
-        ycc = ck.colour_matrix_plain(plan.rgb_to_ycc, rgb)
+        ycc = apply_mat3(plan.rgb_to_ycc, rgb)
         for name, mat, x, clamp in (("colour_matrix", plan.rgb_to_ycc, rgb, False),
                                     ("colour_matrix_clamp", plan.ycc_to_rgb, ycc, True)):
             def kernel():
                 return ck.colour_matrix(mat, x, clamp)
 
             def plain():
-                return ck.colour_matrix_plain(mat, x, clamp)
+                return apply_mat3(mat, x, clamp)
 
             err = float((kernel() - plain()).abs().max())
             if err > 1e-6:

@@ -1,10 +1,10 @@
 """The colour matrices (``dsp/colorimetry.py``, ``kernels/colorimetry.py``)
 on the CPU.
 
-A CUDA tensor goes through the hand-written pass ``csrc/colour_matrix.cu``,
-the decoder's clamp inside it; a CPU tensor through the plain version,
-which is the product and two ``addcmul_`` the port always ran, followed
-by ``torch.clamp``.  These tests hold the CPU path to that composition bit
+On a CUDA tensor the wrappers go through the hand-written pass
+``csrc/colour_matrix.cu``, the decoder's clamp inside it; on a CPU tensor
+through the plain version (``dsp/colorimetry.py``), which is the product
+and two ``addcmul_`` the port always ran, followed by ``torch.clamp``.  These tests hold the CPU path to that composition bit
 for bit, and to the JAX package's ``apply_mat3``; the kernel against the
 plain version runs on the card in ``tests/test_torch_kernels_cuda.py``.
 """
@@ -16,7 +16,7 @@ import torch
 
 from color_modem_tpu.dsp.colorimetry import apply_mat3 as jax_apply_mat3
 from color_modem_tpu_torch import ALL_STANDARDS
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01, delayline_mat3
 from color_modem_tpu_torch.frame import pipeline
 from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
 from color_modem_tpu_torch.kernels import colorimetry as ck
@@ -131,10 +131,11 @@ def test_cpu_roundtrip_launches_no_colour_matrix(name, decoder):
 @pytest.mark.parametrize("clamp", [False, True])
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 def test_cpu_apply_mat3_is_the_plain_version_on_either_backend(backend, clamp):
-    """On the CPU both backends take the plain version, bit for bit."""
+    """On the CPU both backends' colour matrix (``pipeline.STAGES``) is the
+    plain version, bit for bit."""
     mat, x = plan_of("ntsc").ycc_to_rgb, _wild(5)
-    assert torch.equal(bits(apply_mat3(mat, x, clamp, backend)),
-                       bits(ck.colour_matrix_plain(mat, x, clamp)))
+    assert torch.equal(bits(pipeline.STAGES[backend].colour_matrix(mat, x, clamp)),
+                       bits(apply_mat3(mat, x, clamp)))
 
 
 BLOCKS = [("ntsc", "notch"), ("ntsc", "comb3"), ("ntsc", "combA"), ("pal", "delayline"),
@@ -159,9 +160,9 @@ def test_blocks_equal_the_composition_they_replace(name, decoder, backend):
     comp = pipeline.encode_block(plan, rgb, gline, backend)
     assert torch.equal(comp, enc(plan, ycc, gline))
     if plan.cfg.is_fm:
-        dec = pipeline._decode_fm(plan, comp, gline, decoder, backend)
+        dec = pipeline._decode_fm(plan, comp, gline, decoder, pipeline.STAGES[backend])
     else:
-        dec = pipeline._demodulate_qam(plan, comp, gline, decoder, backend)
+        dec = pipeline._demodulate_qam(plan, comp, gline, decoder, pipeline.STAGES[backend])
         dec = pipeline._correct_chroma(plan, dec, gline, None, None)
     if decoder in pipeline.AVERAGING:
         # the delay line comes with the decoder's matrix, after the hooks
@@ -208,7 +209,7 @@ def test_delayline_matrix_on_the_cpu_is_the_composition(lines, frames):
     x = _wild(lines * frames, (frames, 3, lines, 24))
     got = ck.delayline_matrix(mat, x)
     assert torch.equal(bits(got), bits(_delayline_composition(mat, x)))
-    assert torch.equal(bits(got), bits(ck.delayline_matrix_plain(mat, x)))
+    assert torch.equal(bits(got), bits(delayline_mat3(mat, x)))
     assert torch.isnan(got).any() and not torch.isinf(got).any()
 
 
@@ -279,7 +280,7 @@ def test_averaging_decoders_agree_on_both_backends(name, decoder):
     gain = torch.linspace(0.8, 1.2, 12).expand(3, 12)
     hooked = {b: pipeline.decode_block(plan, comp, gline, decoder, b, phase, gain)
               for b in ("kernel", "plain")}
-    ycc = pipeline._demodulate_qam(plan, comp, gline, decoder, "kernel")
+    ycc = pipeline._demodulate_qam(plan, comp, gline, decoder, pipeline.STAGES["kernel"])
     ycc = pipeline._correct_chroma(plan, ycc, gline, phase, gain)
     assert torch.equal(bits(hooked["kernel"]), bits(_delayline_composition(plan.ycc_to_rgb, ycc)))
     assert float((hooked["kernel"] - hooked["plain"]).abs().max()) <= BACKENDS_ATOL
@@ -300,9 +301,13 @@ def test_which_decoders_take_the_delayline_step(name, decoder, takes_pass, monke
     its normalisation), SECAM's on the assembled D'R/D'B planes.  The other
     decoders take the colour matrix."""
     seen = []
-    real = pipeline.delayline_mat3
-    monkeypatch.setattr(pipeline, "delayline_mat3",
-                        lambda mat, x, backend: seen.append(backend) or real(mat, x, backend))
+
+    def spy(backend, real):
+        return lambda mat, x: seen.append(backend) or real(mat, x)
+
+    for backend, stages in list(pipeline.STAGES.items()):
+        monkeypatch.setitem(pipeline.STAGES, backend, stages._replace(
+            delayline_matrix=spy(backend, stages.delayline_matrix)))
     rgb = torch.tensor(smooth_scene(8, N, seed=2), dtype=torch.float32)[None]
     for backend in ("plain", "kernel"):
         make_pipeline(plan_of(name), decoder, backend, "cpu")[2](rgb, 0)
@@ -312,5 +317,5 @@ def test_which_decoders_take_the_delayline_step(name, decoder, takes_pass, monke
 @pytest.mark.parametrize("backend", ["kernel", "plain"])
 def test_delayline_mat3_on_the_cpu_is_the_composition(backend):
     mat, x = plan_of("pal").ycc_to_rgb, _wild(9, (2, 3, 7, 33))
-    assert torch.equal(bits(pipeline.delayline_mat3(mat, x, backend)),
+    assert torch.equal(bits(pipeline.STAGES[backend].delayline_matrix(mat, x)),
                        bits(_delayline_composition(mat, x)))

@@ -2,8 +2,8 @@
 the CPU.
 
 A CUDA tensor goes through the hand-written pass ``csrc/comb_stencil.cu``; a
-CPU tensor through the plain version, the composition
-``separate/comb.py::stencil_signal`` always ran.  These tests hold the CPU
+CPU tensor through the plain version ``separate/comb.py::line_stencil``,
+the composition ``stencil_signal`` always ran.  These tests hold the CPU
 path to that composition bit for bit, line by line at the edges, at NTSC's
 spacing (1 line) and PAL's (2), and pin which decoders of
 ``frame/pipeline.py::_demodulate_qam`` take the pass; the kernel against
@@ -26,7 +26,7 @@ from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.kernels import qam as qam_k
 from color_modem_tpu_torch.kernels.build import CSRC_DIR, NVCC_FLAGS, SIGNATURES
 from color_modem_tpu_torch.modem.plan import make_plan
-from color_modem_tpu_torch.separate.comb import stencil_signal
+from color_modem_tpu_torch.separate.comb import line_stencil, stencil_signal
 from color_modem_tpu_torch.standards.decoders import comb_spacing
 from color_modem_tpu_torch.utils.testimages import smooth_scene
 from torch_threads import one_torch_thread  # noqa: F401
@@ -90,7 +90,7 @@ def test_cpu_path_is_stencil_signal(name, p, lead, decoder):
         got = comb_k.comb_stencil(x, p, decoder)
         assert got.shape == x.shape
         assert torch.equal(bits(got), bits(stencil_signal(plan, x, decoder)))
-        assert torch.equal(bits(got), bits(comb_k.comb_stencil_plain(x, p, decoder)))
+        assert torch.equal(bits(got), bits(line_stencil(x, p, decoder)))
         assert torch.isnan(got).any()
 
 
@@ -184,9 +184,11 @@ def test_kernel_source_keeps_the_composition_order():
 # --- which decoders take the pass (frame/pipeline.py::_demodulate_qam) -----------------
 
 def _watch(monkeypatch):
-    """Record each call of the pass and what reaches the decode kernel."""
+    """Record each call of the pass and what reaches the decode kernel, in
+    the kernel backend's row of ``pipeline.STAGES``."""
     seen = {"stencil": [], "sep": []}
-    real_stencil, real_decode = comb_k.comb_stencil, qam_k.demodulate_separated
+    kernel = pipeline.STAGES["kernel"]
+    real_stencil, real_decode = kernel.line_stencil, kernel.qam_demodulate
 
     def stencil(x, p, decoder):
         seen["stencil"].append((p, decoder))
@@ -196,8 +198,8 @@ def _watch(monkeypatch):
         seen["sep"].append((sep, comp))
         return real_decode(plan, sep, comp, gline)
 
-    monkeypatch.setattr(comb_k, "comb_stencil", stencil)
-    monkeypatch.setattr(qam_k, "demodulate_separated", decode)
+    monkeypatch.setitem(pipeline.STAGES, "kernel",
+                        kernel._replace(line_stencil=stencil, qam_demodulate=decode))
     return seen
 
 
@@ -217,9 +219,9 @@ def test_which_decoders_take_the_pass(name, decoder, monkeypatch):
     seen = _watch(monkeypatch)
     comp = torch.rand((4, 8, 720), generator=torch.Generator().manual_seed(1))
     gline = frame_line_index(plan, 3, 4, 8, "cpu")
-    pipeline._demodulate_qam(plan, comp, gline, decoder, "plain")
+    pipeline._demodulate_qam(plan, comp, gline, decoder, pipeline.STAGES["plain"])
     assert seen == {"stencil": [], "sep": []}
-    pipeline._demodulate_qam(plan, comp, gline, decoder, "kernel")
+    pipeline._demodulate_qam(plan, comp, gline, decoder, pipeline.STAGES["kernel"])
     if decoder in ("comb2", "comb3"):
         assert seen["stencil"] == [(comb_spacing(plan.cfg), decoder)]
     else:
@@ -248,7 +250,7 @@ def test_comb_decodes_are_unchanged_and_launch_nothing_on_the_cpu(name, decoder)
     gline = frame_line_index(plan, 9, 2, lines, "cpu")
     reset_launches()
     comp = pipeline.encode_block(plan, rgb, gline, "kernel")
-    got = pipeline._demodulate_qam(plan, comp, gline, decoder, "kernel")
+    got = pipeline._demodulate_qam(plan, comp, gline, decoder, pipeline.STAGES["kernel"])
     want = qam_k.demodulate_separated(plan, stencil_signal(plan, comp, decoder), comp, gline)
     assert torch.equal(bits(got), bits(want))
     make_pipeline(plan, decoder, "kernel", "cpu")[2](rgb, 9)

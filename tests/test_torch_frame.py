@@ -40,8 +40,7 @@ from color_modem_tpu_torch.frame import transcode as tr
 from color_modem_tpu_torch.frame.channel import impair
 from color_modem_tpu_torch.frame.pipeline import decode_block, make_pipeline
 from color_modem_tpu_torch.frame.svideo import make_svideo_pipeline
-from color_modem_tpu_torch.kernels import qam as qk
-from color_modem_tpu_torch.kernels import secam as sk
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from color_modem_tpu_torch.utils import prng
 from torch_threads import one_torch_thread  # noqa: F401
@@ -66,10 +65,9 @@ def np_(x):
 
 @pytest.fixture(autouse=True)
 def no_launches_on_cpu():
-    qk.reset_launches()
-    sk.reset_launches()
+    reset_launches()
     yield
-    assert set(qk.LAUNCHES.values()) | set(sk.LAUNCHES.values()) == {0}
+    assert set(launch_counts().values()) == {0}
 
 
 @pytest.fixture(scope="module")

@@ -19,14 +19,16 @@ import pytest
 import torch
 
 from color_modem_tpu_torch import ALL_STANDARDS, SECAM
-from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01
-from color_modem_tpu_torch.frame.pipeline import frame_line_index, make_pipeline
+from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, clamp01, delayline_mat3
+from color_modem_tpu_torch.frame.pipeline import STAGES, frame_line_index, make_pipeline
 from color_modem_tpu_torch.kernels import fir as fk
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.kernels import qam as qk
 from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import make_plan
-from color_modem_tpu_torch.separate.comb import stencil_signal
+from color_modem_tpu_torch.kernels.colorimetry import colour_matrix
+from color_modem_tpu_torch.separate.comb import line_stencil, stencil_signal
 from color_modem_tpu_torch.utils.metrics import psnr
 from color_modem_tpu_torch.utils.testimages import smooth_scene
 
@@ -34,6 +36,13 @@ pytestmark = pytest.mark.cuda
 
 ENC_ATOL, DEC_ATOL = 2e-5, 5e-4
 SECAM_ENC_ATOL = 2e-4
+
+
+def _assert_launched(**want: int) -> None:
+    """The launch counter (``kernels.launch_counts``) holds ``want`` for each
+    entry point it names."""
+    counts = launch_counts()
+    assert {name: counts[name] for name in want} == want
 
 
 @pytest.fixture(scope="module")
@@ -55,14 +64,14 @@ def _kernel_vs_plain(dev, name, frames, lines, n, decoder, seed=0):
     ], axis=1)
     ycc = torch.tensor(ycc, dtype=torch.float32, device=dev)
     cols = qk.phase_cols(plan, frame_line_index(plan, 12345, frames, lines, dev))
-    qk.reset_launches()
+    reset_launches()
     comp_k = qk.encode_lines(plan, ycc, cols)
     comp_p = qk.encode_lines_plain(plan, ycc, cols)
     sep = stencil_signal(plan, comp_p, decoder)
     dec_k = qk.decode_lines(plan, sep, comp_p, cols)
     dec_p = qk.decode_lines_plain(plan, sep, comp_p, cols)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert float((comp_k - comp_p).abs().max()) <= ENC_ATOL
     assert float((dec_k - dec_p).abs().max()) <= DEC_ATOL
 
@@ -100,10 +109,10 @@ def test_main_path_roundtrip(dev):
     rgb = torch.tensor(np.broadcast_to(one, (16, 3, 480, 720)), dtype=torch.float32,
                        device=dev)
     _, _, rt = make_pipeline(plan, "comb3", backend="kernel", device=dev)
-    qk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert abs(psnr(out, rgb) - 46.62) <= 0.02
 
 
@@ -120,11 +129,11 @@ def _colour_vs_plain(mat, x, clamp):
     same NaNs, and the largest difference elsewhere."""
     from color_modem_tpu_torch.kernels import colorimetry as ck
 
-    ck.reset_launches()
+    reset_launches()
     got = ck.colour_matrix(mat, x, clamp)
-    want = ck.colour_matrix_plain(mat, x, clamp)
+    want = apply_mat3(mat, x, clamp)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 1, "delayline_matrix": 0}
+    _assert_launched(colour_matrix=1, delayline_matrix=0)
     assert got.shape == want.shape and got.is_contiguous()
     nan = torch.isnan(want)
     assert torch.equal(torch.isnan(got), nan)
@@ -164,7 +173,7 @@ def test_colour_matrix_misaligned_view_and_nan(dev, clamp):
     x[0, 1, 5, 17] = float("nan")
     x[1, 2, 0, 0] = float("nan")
     assert _colour_vs_plain(mat, x, clamp) <= COLOUR_ATOL
-    out = apply_mat3(mat, x, clamp)
+    out = colour_matrix(mat, x, clamp)
     assert bool(torch.isnan(out[0, :, 5, 17]).all()) and bool(torch.isnan(out[1, :, 0, 0]).all())
     assert int(torch.isnan(out).sum()) == 6
 
@@ -173,17 +182,15 @@ def test_colour_matrix_misaligned_view_and_nan(dev, clamp):
 def test_roundtrip_launches_the_colour_matrix_twice(dev, name, decoder):
     """Each round trip runs both matrices, the decoder's clamp inside the
     second: two launches a call."""
-    from color_modem_tpu_torch.kernels import colorimetry as ck
-
     cfg = ALL_STANDARDS[name]()
     rgb = _scene(cfg.active_lines, dev)
     _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="kernel", device=dev)
     rt(rgb, 0)
-    ck.reset_launches()
+    reset_launches()
     for frame0 in (0, 16):
         out = rt(rgb, frame0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 4, "delayline_matrix": 0}
+    _assert_launched(colour_matrix=4, delayline_matrix=0)
     assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
 
 
@@ -191,18 +198,16 @@ def test_roundtrip_launches_the_colour_matrix_twice(dev, name, decoder):
 def test_plain_backend_takes_the_plain_colour_matrix(dev, name, decoder):
     """The plain backend on the card launches no colour-matrix kernel, so
     its agreement with the kernel backend covers the colour conversion too."""
-    from color_modem_tpu_torch.kernels import colorimetry as ck
-
     cfg = ALL_STANDARDS[name]()
     rgb = _scene(cfg.active_lines, dev)
     _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="plain", device=dev)
-    ck.reset_launches()
+    reset_launches()
     rt(rgb, 0)
     mat = make_plan(cfg, 720).to(dev).ycc_to_rgb
-    got = apply_mat3(mat, rgb, True, "plain")
+    got = STAGES["plain"].colour_matrix(mat, rgb, True)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 0, "delayline_matrix": 0}
-    assert torch.equal(got, ck.colour_matrix_plain(mat, rgb, True))
+    _assert_launched(colour_matrix=0, delayline_matrix=0)
+    assert torch.equal(got, apply_mat3(mat, rgb, True))
 
 
 # --- the delay line and the decoder's matrix in one pass (delayline_matrix) ---------
@@ -219,11 +224,11 @@ def _delayline_vs_plain(dev, x, name="pal"):
     from color_modem_tpu_torch.kernels import colorimetry as ck
 
     mat = make_plan(ALL_STANDARDS[name](), 720).to(dev).ycc_to_rgb
-    ck.reset_launches()
+    reset_launches()
     got = ck.delayline_matrix(mat, x)
-    want = ck.delayline_matrix_plain(mat, x)
+    want = delayline_mat3(mat, x)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 0, "delayline_matrix": 1}
+    _assert_launched(colour_matrix=0, delayline_matrix=1)
     assert got.shape == want.shape and got.is_contiguous()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     return got
@@ -275,7 +280,6 @@ def test_averaging_roundtrip_launches_the_pass(dev, name, decoder):
     bound, and its decode with the phase hook equals the plain composition
     of the same demodulation."""
     from color_modem_tpu_torch.frame import pipeline
-    from color_modem_tpu_torch.kernels import colorimetry as ck
 
     cfg = ALL_STANDARDS[name]()
     plan = make_plan(cfg, 720)
@@ -283,22 +287,21 @@ def test_averaging_roundtrip_launches_the_pass(dev, name, decoder):
     enc, _, rt = make_pipeline(plan, decoder, backend="kernel", device=dev)
     _, _, rt_p = make_pipeline(plan, decoder, backend="plain", device=dev)
     rt(rgb, 0)
-    ck.reset_launches()
-    qk.reset_launches()
+    reset_launches()
     for frame0 in (0, 16):
         out = rt(rgb, frame0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 2, "delayline_matrix": 2}
-    assert qk.LAUNCHES == {"qam_encode": 2, "qam_decode": 2}
+    _assert_launched(colour_matrix=2, delayline_matrix=2)
+    _assert_launched(qam_encode=2, qam_decode=2)
     assert float((out - rt_p(rgb, 16)).abs().max()) <= DEC_ATOL
     p = plan.to(dev)
     comp = enc(rgb, 0)
     g = frame_line_index(p, 0, 16, cfg.active_lines, dev)
     phase = torch.full((16, cfg.active_lines), 0.1, device=dev)
     got = pipeline.decode_block(p, comp, g, decoder, "kernel", phase_err=phase)
-    ycc = pipeline._correct_chroma(p, pipeline._demodulate_qam(p, comp, g, decoder, "kernel"), g,
-                                   phase, None)
-    want = ck.delayline_matrix_plain(p.ycc_to_rgb, ycc)
+    ycc = pipeline._demodulate_qam(p, comp, g, decoder, STAGES["kernel"])
+    ycc = pipeline._correct_chroma(p, ycc, g, phase, None)
+    want = delayline_mat3(p.ycc_to_rgb, ycc)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
@@ -308,25 +311,23 @@ def test_secam_avg_roundtrip_launches_the_pass(dev):
     pass, its decode bit for bit the plain composition of the kernel's
     demodulation, and within the decode bound of the plain backend."""
     from color_modem_tpu_torch.frame import pipeline
-    from color_modem_tpu_torch.kernels import colorimetry as ck
 
     plan = make_plan(SECAM(), 720)
     rgb = _scene(576, dev)
     enc, _, rt = make_pipeline(plan, "avg", backend="kernel", device=dev)
     _, _, rt_p = make_pipeline(plan, "avg", backend="plain", device=dev)
-    ck.reset_launches()
-    sk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == {"colour_matrix": 1, "delayline_matrix": 1}
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(colour_matrix=1, delayline_matrix=1)
+    _assert_launched(secam_encode=1, secam_decode=1)
     assert abs(psnr(out, rgb) - 33.3755) <= 0.02
     assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
     p = plan.to(dev)
     comp = enc(rgb, 0)
     g = frame_line_index(p, 0, 16, 576, dev)
     got = pipeline.decode_block(p, comp, g, "avg", "kernel")
-    want = ck.delayline_matrix_plain(p.ycc_to_rgb, pipeline._decode_fm(p, comp, g, "avg", "kernel"))
+    want = delayline_mat3(p.ycc_to_rgb, pipeline._decode_fm(p, comp, g, "avg", STAGES["kernel"]))
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
@@ -346,11 +347,11 @@ def _comb_vs_plain(x, p, decoder):
     same bits (NaNs where the plain composition has them)."""
     from color_modem_tpu_torch.kernels import comb
 
-    comb.reset_launches()
+    reset_launches()
     got = comb.comb_stencil(x, p, decoder)
-    want = comb.comb_stencil_plain(x, p, decoder)
+    want = line_stencil(x, p, decoder)
     torch.cuda.synchronize()
-    assert comb.LAUNCHES == {"comb_stencil": 1}
+    _assert_launched(comb_stencil=1)
     assert got.shape == want.shape and got.is_contiguous()
     assert torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
     return got
@@ -412,18 +413,17 @@ def test_comb_roundtrip_launches_the_pass(dev, name, decoder, launches, monkeypa
     _, _, rt = make_pipeline(plan, decoder, backend="kernel", device=dev)
     _, _, rt_p = make_pipeline(plan, decoder, backend="plain", device=dev)
     rt(rgb, 0)
-    comb.reset_launches()
-    qk.reset_launches()
+    reset_launches()
     out = rt(rgb, 16)
     torch.cuda.synchronize()
-    assert comb.LAUNCHES == {"comb_stencil": launches}
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(comb_stencil=launches)
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert float((out - rt_p(rgb, 16)).abs().max()) <= DEC_ATOL
     if launches:
-        monkeypatch.setattr(comb, "comb_stencil", comb.comb_stencil_plain)
+        monkeypatch.setattr(comb, "comb_stencil", line_stencil)
         want = rt(rgb, 16)
         torch.cuda.synchronize()
-        assert comb.LAUNCHES == {"comb_stencil": launches}
+        _assert_launched(comb_stencil=launches)
         assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
@@ -440,7 +440,7 @@ def test_main_path_roundtrip_with_the_pass_equals_the_plain_stencil(dev):
     comp = pipeline.encode_block(plan, rgb, g, "kernel")
     got = pipeline.decode_block(plan, comp, g, "comb3", "kernel")
     ycc = qk.demodulate_separated(plan, stencil_signal(plan, comp, "comb3"), comp, g)
-    want = apply_mat3(plan.ycc_to_rgb, ycc, clamp=True)
+    want = colour_matrix(plan.ycc_to_rgb, ycc, clamp=True)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert abs(psnr(got, rgb) - 46.62) <= 0.02
 
@@ -468,11 +468,11 @@ def test_fir_orientation_on_asymmetric_taps(dev, n, ntaps, held):
     xp = [np.pad(r.astype(np.float64), h, mode="edge" if held else "constant")
           for r in x]
     ref = np.stack([np.convolve(r, taps, "same")[h : h + n] for r in xp])
-    fk.LAUNCHES["fir_check"] = 0
+    reset_launches()
     got = fk.fir_lines(torch.tensor(x, device=dev),
                        torch.tensor(taps, dtype=torch.float32, device=dev), held)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES["fir_check"] == 1
+    assert launch_counts()["fir_check"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), ref, atol=1e-6)
 
 
@@ -491,17 +491,17 @@ def test_band_fir_against_np_convolve(dev, ntaps, n, lines):
     h = (ntaps - 1) // 2
     ref = np.stack([np.convolve(np.pad(r.astype(np.float64), h), taps, "same")[h : h + n]
                     for r in x])
-    fk.LAUNCHES["band_fir_check"] = 0
+    reset_launches()
     got = fk.band_fir_lines(torch.tensor(x, device=dev),
                             torch.tensor(taps, dtype=torch.float32, device=dev))
     torch.cuda.synchronize()
-    assert fk.LAUNCHES["band_fir_check"] == 1
+    assert launch_counts()["band_fir_check"] == 1
     np.testing.assert_allclose(got.cpu().numpy(), ref, atol=2e-6, rtol=0)
 
 
 def _secam_rgb(plan, luma, v, gline, pairing="interp"):
     dr, db = secam.pair(v, gline, pairing)
-    return clamp01(apply_mat3(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
+    return clamp01(colour_matrix(plan.ycc_to_rgb, torch.stack([luma, dr, db], dim=-3)))
 
 
 def _secam_kernel_vs_plain(dev, frames, lines, n, frame0=3):
@@ -511,18 +511,18 @@ def _secam_kernel_vs_plain(dev, frames, lines, n, frame0=3):
     rng = np.random.default_rng(n)
     rgb = np.stack([smooth_scene(lines, n, seed=s) for s in range(frames)])
     rgb = torch.tensor(rgb, dtype=torch.float32, device=dev)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb)
+    ycc = colour_matrix(plan.rgb_to_ycc, rgb)
     chroma = rng.uniform(-0.6, 0.6, (frames, 2, lines, n))
     ycc_rand = torch.cat([ycc[:, :1], torch.tensor(chroma, dtype=torch.float32,
                                                    device=dev)], dim=1).contiguous()
-    sk.reset_launches()
+    reset_launches()
     comp_k = sk.encode_lines(plan, ycc_rand, isr)
     comp_p = sk.encode_lines_plain(plan, ycc_rand, isr)
     comp = sk.encode_lines_plain(plan, ycc.contiguous(), isr)
     luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
     luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(secam_encode=1, secam_decode=1)
     assert float((comp_k - comp_p).abs().max()) <= SECAM_ENC_ATOL
     e_rgb = float((_secam_rgb(plan, luma_k, v_k, gline)
                    - _secam_rgb(plan, luma_p, v_p, gline)).abs().max())
@@ -552,16 +552,16 @@ def test_secam_kernels_match_plain_at_odd_line_counts(dev, frames, lines, n):
     rng = np.random.default_rng(lines)
     rgb = torch.tensor(np.stack([smooth_scene(max(lines, 2), n, seed=s)[:, :lines]
                                  for s in range(frames)]), dtype=torch.float32, device=dev)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    ycc = colour_matrix(plan.rgb_to_ycc, rgb).contiguous()
     ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
                                                    dtype=torch.float32, device=dev)],
                          dim=1).contiguous()
-    sk.reset_launches()
+    reset_launches()
     comp_k = sk.encode_lines(plan, ycc_rand, isr)
     comp = sk.encode_lines_plain(plan, ycc, isr)
     luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(secam_encode=1, secam_decode=1)
     e_enc = float((comp_k - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max())
     assert e_enc <= SECAM_ENC_ATOL
     luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
@@ -618,16 +618,16 @@ def test_secam_kernels_match_plain_at_ragged_shapes(dev, lines, n, frames):
     rng = np.random.default_rng(lines * n + frames)
     rgb = torch.tensor(np.stack([smooth_scene(max(lines, 2), n, seed=s)[:, :lines]
                                  for s in range(frames)]), dtype=torch.float32, device=dev)
-    ycc = apply_mat3(plan.rgb_to_ycc, rgb).contiguous()
+    ycc = colour_matrix(plan.rgb_to_ycc, rgb).contiguous()
     ycc_rand = torch.cat([ycc[:, :1], torch.tensor(rng.uniform(-0.6, 0.6, (frames, 2, lines, n)),
                                                    dtype=torch.float32, device=dev)],
                          dim=1).contiguous()
     comp = sk.encode_lines_plain(plan, ycc, isr)
-    sk.reset_launches()
+    reset_launches()
     comp_k = sk.encode_lines(plan, ycc_rand, isr)
     luma_k, v_k = sk.demodulate_lines(plan, comp, isr)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(secam_encode=1, secam_decode=1)
     assert float((comp_k - sk.encode_lines_plain(plan, ycc_rand, isr)).abs().max()) <= SECAM_ENC_ATOL
     luma_p, v_p = sk.demodulate_lines_plain(plan, comp, isr)
     assert float((luma_k - luma_p).abs().max()) <= DEC_ATOL
@@ -677,10 +677,10 @@ def test_secam_roundtrip_one_launch_each(dev):
     rgb = torch.tensor(np.broadcast_to(one, (16, 3, 576, 720)), dtype=torch.float32,
                        device=dev)
     _, _, rt = make_pipeline(plan, "interp", backend="kernel", device=dev)
-    sk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(secam_encode=1, secam_decode=1)
     assert abs(psnr(out, rgb) - 38.8644) <= 0.02
 
 
@@ -699,10 +699,10 @@ def test_qam_family_roundtrip_one_launch_each(dev, name, decoder, expected):
     rgb = _scene(cfg.active_lines, dev)
     _, _, rt = make_pipeline(make_plan(cfg, 720), decoder, backend="kernel", device=dev)
     _, _, rt_p = make_pipeline(make_plan(cfg, 720), decoder, backend="plain", device=dev)
-    qk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert abs(psnr(out, rgb) - expected) <= 0.02
     assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
 
@@ -715,10 +715,10 @@ def test_combA_separates_outside_the_decode_kernel(dev):
     rgb = _scene(cfg.active_lines, dev)
     enc, dec, rt = make_pipeline(make_plan(cfg, 720), "combA", backend="kernel", device=dev)
     enc_p, dec_p, _ = make_pipeline(make_plan(cfg, 720), "combA", backend="plain", device=dev)
-    qk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 0}
+    _assert_launched(qam_encode=1, qam_decode=0)
     assert abs(psnr(out, rgb) - 45.5145) <= 0.02
     comp = enc(rgb, 0)
     assert float((comp - enc_p(rgb, 0)).abs().max()) <= ENC_ATOL
@@ -736,10 +736,10 @@ def test_burst_locked_decode_under_channel_phase(dev):
     rgb = _scene(480, dev)
     bad = impair(plan, enc(rgb, 0), chroma_phase_deg=25.0)
     g = frame_line_index(plan, 0, 16, 480, dev)
-    qk.reset_launches()
+    reset_launches()
     locked = raster.decode_burst_locked(plan, raster.make_raster(plan), bad, g, "notch")
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 1}
+    _assert_launched(qam_encode=0, qam_decode=1)
     assert abs(psnr(locked, rgb) - 39.4822) <= 0.02
     assert abs(psnr(dec(bad, 0), rgb) - 27.3564) <= 0.02
 
@@ -754,10 +754,10 @@ def test_interlaced_comb3d_parity_major_one_launch_each(dev):
     rgb = _scene(480, dev)
     _, _, rt = make_interlaced_pipeline(make_plan(cfg, 720), "comb3d", "kernel", dev)
     _, _, rt_p = make_interlaced_pipeline(make_plan(cfg, 720), "comb3d", "plain", dev)
-    qk.reset_launches()
+    reset_launches()
     out = rt(rgb, 0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert abs(psnr(out, rgb) - 47.4153) <= 0.02
     assert float((out - rt_p(rgb, 0)).abs().max()) <= DEC_ATOL
 
@@ -775,10 +775,10 @@ def test_transcode_ntsc_to_pal_through_the_kernels(dev):
                            device=dev)
     conv_p = make_transcoder(make_plan(ntsc, 720), make_plan(pal, 720), backend="plain",
                              device=dev)
-    qk.reset_launches()
+    reset_launches()
     out = conv(comp, 0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": 1, "qam_decode": 1}
+    _assert_launched(qam_encode=1, qam_decode=1)
     assert out.shape == (16, 576, 720)
     assert float((out - conv_p(comp, 0)).abs().max()) <= DEC_ATOL
 
@@ -901,10 +901,10 @@ def test_pipelines_on_two_devices_share_one_plan(dev, first):
     _, _, rt_cpu = make_pipeline(plan, "interp", "kernel", "cpu")
     rgb = torch.tensor(np.broadcast_to(smooth_scene(16, 720, seed=0), (2, 3, 16, 720)),
                        dtype=torch.float32)
-    sk.reset_launches()
+    reset_launches()
     out = rt_card(rgb.to(dev), 0)
     torch.cuda.synchronize()
-    assert sk.LAUNCHES == {"secam_encode": 1, "secam_decode": 1}
+    _assert_launched(secam_encode=1, secam_decode=1)
     assert float((out.cpu() - rt_cpu(rgb, 0)).abs().max()) <= DEC_ATOL
     assert plan.mix_cos.device == home
 
@@ -1245,15 +1245,14 @@ def test_data_services_never_block_the_host(dev, name):
     call, want = _service_chains(dev)[0][name]
     call()
     torch.cuda.synchronize()
-    qk.reset_launches()
+    reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         call()
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    assert qk.LAUNCHES == {"qam_encode": want.get("qam_encode", 0),
-                           "qam_decode": want.get("qam_decode", 0)}
+    _assert_launched(qam_encode=want.get("qam_encode", 0), qam_decode=want.get("qam_decode", 0))
 
 
 @pytest.mark.parametrize("name", SERVICES)
@@ -1345,7 +1344,8 @@ def test_two_gloo_ranks_on_the_card_equal_unsharded(two_gloo_ranks):
             assert rr[k]["launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                          "secam_decode": 0, "threefry_bits": 0,
                                          "threefry_add_normal": 0, "colour_matrix": 2,
-                                         "delayline_matrix": 0, "comb_stencil": 1}
+                                         "delayline_matrix": 0, "comb_stencil": 1,
+                                         "fir_check": 0, "band_fir_check": 0}
 
 
 def test_sharded_decode_blocks_the_host_only_in_the_halo_staging(two_gloo_ranks):
@@ -1379,7 +1379,8 @@ def test_bench_main_path_on_the_card(dev, tmp_path, monkeypatch, capsys):
     assert rec["kernel_launches"] == {"qam_encode": 1, "qam_decode": 1, "secam_encode": 0,
                                       "secam_decode": 0, "threefry_bits": 0,
                                       "threefry_add_normal": 0, "colour_matrix": 2,
-                                      "delayline_matrix": 0, "comb_stencil": 1}
+                                      "delayline_matrix": 0, "comb_stencil": 1,
+                                      "fir_check": 0, "band_fir_check": 0}
     for share in ("tflops_fraction_of_f32_peak", "hbm_fraction_of_peak"):
         assert 0.0 < rec["roofline"][share] <= 1.05, rec["roofline"]
 
@@ -1461,9 +1462,9 @@ def test_threefry_add_normal_matches_plain(dev, case):
     label, key, shape, g0 = _threefry_cases()[case]
     x = torch.tensor(np.random.default_rng(case).uniform(-1, 1, shape).astype(np.float32),
                      device=dev)
-    pk.reset_launches()
+    reset_launches()
     got = prng.add_normal(x, 0.05, key, g0)
-    assert pk.LAUNCHES == {"threefry_bits": 0, "threefry_add_normal": 1}
+    _assert_launched(threefry_bits=0, threefry_add_normal=1)
     want = prng.add_normal_plain(x, 0.05, key, shape, dev, g0)
     assert float((got - want).abs().max()) <= NORMAL_ATOL, label
     n = pk.threefry_add_normal(None, 1.0, key, shape, dev, g0)
@@ -1479,13 +1480,12 @@ def test_threefry_add_normal_matches_plain(dev, case):
 
 @pytest.mark.parametrize("shape", [(1 << 20,), (3, 17, 41), (1,)])
 def test_threefry_bits_match_plain_and_the_cpu(dev, shape):
-    from color_modem_tpu_torch.kernels import prng as pk
     from color_modem_tpu_torch.utils import prng
 
     key = prng.fold_in(prng.PRNGKey(0x5A7), 3)
-    pk.reset_launches()
+    reset_launches()
     got = prng.random_bits(key, shape, dev)
-    assert pk.LAUNCHES == {"threefry_bits": 1, "threefry_add_normal": 0}
+    _assert_launched(threefry_bits=1, threefry_add_normal=0)
     assert got.dtype == torch.int32 and tuple(got.shape) == shape
     assert torch.equal(got, prng.random_bits_plain(key, shape, dev))
     assert torch.equal(got.cpu(), prng.random_bits_plain(key, shape, "cpu"))
@@ -1504,14 +1504,13 @@ def test_rf_dropout_draws_on_the_card(dev):
     """bernoulli and randint at rf_dropout's shape from the bits kernel:
     the card equals the CPU, three launches (one bernoulli, two randint
     halves)."""
-    from color_modem_tpu_torch.kernels import prng as pk
     from color_modem_tpu_torch.utils import prng
 
     k1, k2 = prng.split(prng.PRNGKey(7))
-    pk.reset_launches()
+    reset_launches()
     hit = prng.bernoulli(k1, 0.05, (2, 480), dev)
     start = prng.randint(k2, (2, 480), 0, 2880 - 1231, dev)
-    assert pk.LAUNCHES == {"threefry_bits": 3, "threefry_add_normal": 0}
+    _assert_launched(threefry_bits=3, threefry_add_normal=0)
     assert torch.equal(hit.cpu(), prng.bernoulli(k1, 0.05, (2, 480), "cpu"))
     assert torch.equal(start.cpu(), prng.randint(k2, (2, 480), 0, 2880 - 1231, "cpu"))
 

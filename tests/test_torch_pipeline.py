@@ -356,6 +356,63 @@ def test_port_never_imports_jax():
     assert res.stdout.strip() == "ok"
 
 
+#: the one import of ``kernels/`` the lower layers make: the band-tile format,
+#: host NumPy code that the plans build their tiles with
+LOWER_LAYER_KERNEL_IMPORTS = {("modem/plan.py", "color_modem_tpu_torch.kernels.tiles")}
+
+
+def _imported_modules(tree: ast.AST) -> set:
+    """Every module an ``import`` or ``from ... import`` of ``tree`` names, at
+    any depth (a function's lazy imports too); ``from package import module``
+    names the module."""
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names}
+    for n in ast.walk(tree):
+        if isinstance(n, ast.ImportFrom) and n.module:
+            names.add(n.module)
+            names |= {f"{n.module}.{a.name}" for a in n.names}
+    return names
+
+
+def test_lower_layers_never_import_the_kernels():
+    """``dsp/``, ``separate/`` and ``modem/`` hold the plain versions and
+    import nothing of ``kernels/``, which imports them: the kernel-or-plain
+    choice is made above them (``frame/pipeline.py::STAGES``).  The one
+    exception is ``modem/plan.py``'s import of ``kernels/tiles.py``."""
+    port = os.path.join(REPO, "color_modem_tpu_torch")
+    seen = set()
+    for layer in ("dsp", "separate", "modem"):
+        for name in sorted(os.listdir(os.path.join(port, layer))):
+            if not name.endswith(".py"):
+                continue
+            rel = f"{layer}/{name}"
+            with open(os.path.join(port, rel)) as f:
+                mods = _imported_modules(ast.parse(f.read()))
+            for m in mods:
+                if m.split(".")[:2] == ["color_modem_tpu_torch", "kernels"]:
+                    m = ".".join(m.split(".")[:3])   # the module under kernels/
+                    assert (rel, m) in LOWER_LAYER_KERNEL_IMPORTS, f"{rel} imports {m}"
+                    seen.add((rel, m))
+    assert seen == LOWER_LAYER_KERNEL_IMPORTS
+
+
+def test_one_launch_counter_keyed_by_the_library():
+    """``launch_counts()`` has one key per C entry point of
+    ``kernels/build.py::SIGNATURES`` (the check FIRs' too), and
+    ``reset_launches()`` sets every one to 0."""
+    from color_modem_tpu_torch.kernels import build, launch_counts, reset_launches
+
+    assert set(launch_counts()) == set(build.SIGNATURES)
+    saved = launch_counts()
+    try:
+        for k, name in enumerate(build.SIGNATURES):
+            build.LAUNCHES[name] = k + 1
+        assert launch_counts() == {name: k + 1 for k, name in enumerate(build.SIGNATURES)}
+        reset_launches()
+        assert launch_counts() == dict.fromkeys(build.SIGNATURES, 0)
+    finally:
+        build.LAUNCHES.update(saved)
+
+
 def test_chip_smoke_imports_only_the_port():
     """chip_smoke.py reaches the system only through the port: no import of
     jax or of the JAX package, at any depth of the script; and importing

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.kernels import prng as prng_k
 from color_modem_tpu_torch.utils import prng
 from torch_threads import one_torch_thread  # noqa: F401
@@ -140,14 +141,14 @@ def test_randint_spans(lo, hi):
 def test_cpu_wrappers_run_the_plain_versions():
     """On the CPU the wrappers are the plain versions and launch nothing;
     a device with neither raises."""
-    prng_k.reset_launches()
+    reset_launches()
     key = prng.fold_in(prng.PRNGKey(0), 5)
     assert torch.equal(prng_k.threefry_bits(key, (3, 9), CPU),
                        prng.random_bits_plain(key, (3, 9), CPU))
     x = torch.ones(2, 8)
     assert torch.equal(prng_k.threefry_add_normal(x, 0.5, key, (2, 8), CPU, 4),
                        prng.add_normal_plain(x, 0.5, key, (2, 8), CPU, 4))
-    assert set(prng_k.LAUNCHES.values()) == {0}
+    assert set(launch_counts().values()) == {0}
     with pytest.raises(ValueError, match="device"):
         prng_k.threefry_bits(key, (3,), torch.device("meta"))
     with pytest.raises(TypeError, match="float32"):

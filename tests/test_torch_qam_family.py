@@ -37,7 +37,7 @@ from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.dsp import design
 from color_modem_tpu_torch.dsp.apply import toeplitz_same
 from color_modem_tpu_torch.frame.pipeline import decode_block, make_pipeline
-from color_modem_tpu_torch.kernels import qam as qk
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.modem import niir
 from color_modem_tpu_torch.modem.plan import make_plan, plan_from_numpy
 from color_modem_tpu_torch.separate import stencil
@@ -60,9 +60,9 @@ def port_pipeline(name, decoder, backend):
 
 @pytest.fixture(autouse=True)
 def no_launches_on_cpu():
-    qk.reset_launches()
+    reset_launches()
     yield
-    assert qk.LAUNCHES == {"qam_encode": 0, "qam_decode": 0}
+    assert set(launch_counts().values()) == {0}
 
 
 @pytest.fixture(scope="module")

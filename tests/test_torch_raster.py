@@ -26,7 +26,7 @@ from color_modem_tpu.utils.metrics import psnr as np_psnr
 from color_modem_tpu.utils.testimages import smooth_scene
 from color_modem_tpu_torch.frame import raster
 from color_modem_tpu_torch.frame.pipeline import make_pipeline
-from color_modem_tpu_torch.kernels import qam as qk
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -114,9 +114,9 @@ def test_decode_burst_locked_matches_jax(case, backend):
     decoder = kw.pop("decoder", "notch")
     ref = np.asarray(jr.decode_burst_locked(jp, rp, jnp.asarray(bad), jnp.asarray(g),
                                             decoder, **kw))
-    qk.reset_launches()
+    reset_launches()
     got = raster.decode_burst_locked(tp, rp, t(bad), t(g), decoder, backend, **kw)
-    assert qk.LAUNCHES["qam_decode"] == 0  # CPU tensors run the plain versions
+    assert launch_counts()["qam_decode"] == 0  # CPU tensors run the plain versions
     np.testing.assert_allclose(got.numpy(), ref, atol=DEC_ATOL)
     if imp:  # the lock undoes the channel: better than a nominal decode
         _, dec, _ = make_pipeline(tp, decoder, backend, raster=True, device="cpu")

@@ -260,7 +260,7 @@ def test_colour_rows_pass_the_guards(row):
     version: groups of three planes of L x N samples, the matrix an input
     like the planes; a read one element before the planes (a NaN, which the
     clamp keeps) and a write past the output are caught."""
-    from color_modem_tpu_torch.kernels import colorimetry as ck
+    from color_modem_tpu_torch.dsp.colorimetry import apply_mat3, delayline_mat3
 
     delay = row == "delayline_matrix"
     kernel, (tensors, scalars), outs = sanitize.colour_call(row, _plan("pal" if delay else "ntsc"),
@@ -269,13 +269,13 @@ def test_colour_rows_pass_the_guards(row):
         assert (kernel, scalars) == ("delayline_matrix", (2, 17, N))
 
         def version(mat, x):
-            return ck.delayline_matrix_plain(mat, x)
+            return delayline_mat3(mat, x)
     else:
         assert kernel == "colour_matrix"
         assert scalars == (2, 17 * N, int(row == "colour_matrix_clamp"))
 
         def version(mat, x):
-            return ck.colour_matrix_plain(mat, x, bool(scalars[2]))
+            return apply_mat3(mat, x, bool(scalars[2]))
     pos = sanitize._order_outputs(tensors, outs)
     assert pos == [2]
 
@@ -306,6 +306,7 @@ def test_comb_rows_pass_the_guards(row, std, decoder):
     (a NaN, which the stencil keeps) and a write past the output are
     caught."""
     from color_modem_tpu_torch.kernels import comb
+    from color_modem_tpu_torch.separate.comb import line_stencil
     from color_modem_tpu_torch.standards.decoders import comb_spacing
 
     plan = _plan(std)
@@ -318,12 +319,12 @@ def test_comb_rows_pass_the_guards(row, std, decoder):
     def plain(views, shift=0):
         x = views[0]
         x = torch.as_strided(x, x.shape, x.stride(), x.storage_offset() - shift)
-        views[1].copy_(comb.comb_stencil_plain(x, p, decoder))
+        views[1].copy_(line_stencil(x, p, decoder))
 
     rep = sanitize.guarded_call(plain, tensors, pos, GUARD)
     assert rep["nan"] == 0 and rep["sentinel_hits"] == 0
     assert rep["sentinels_intact"] and rep["inputs_intact"]
-    assert torch.equal(rep["outputs"][0], comb.comb_stencil_plain(tensors[0], p, decoder))
+    assert torch.equal(rep["outputs"][0], line_stencil(tensors[0], p, decoder))
     assert sanitize.guarded_call(lambda v: plain(v, shift=N), tensors, pos, GUARD)["nan"] > 0
 
     def past(views):

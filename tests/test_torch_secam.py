@@ -36,6 +36,7 @@ from color_modem_tpu.standards import SECAM
 from color_modem_tpu.utils.metrics import psnr as np_psnr
 from color_modem_tpu.utils.testimages import color_bars, smooth_scene
 from color_modem_tpu_torch.frame.pipeline import decode_block, encode_block, make_pipeline
+from color_modem_tpu_torch.kernels import launch_counts, reset_launches
 from color_modem_tpu_torch.kernels import secam as sk
 from color_modem_tpu_torch.modem import secam
 from color_modem_tpu_torch.modem.plan import plan_from_numpy
@@ -91,9 +92,9 @@ def composite(lines=L):
 
 @pytest.fixture(autouse=True)
 def no_launches_on_cpu():
-    sk.reset_launches()
+    reset_launches()
     yield
-    assert sk.LAUNCHES == {"secam_encode": 0, "secam_decode": 0}
+    assert set(launch_counts().values()) == {0}
 
 
 # --- plain modem vs the JAX xla functions -----------------------------------
